@@ -1,0 +1,120 @@
+"""Build and bind the port's CUDA kernels: ``nvcc`` into a shared library
+with a plain C interface, loaded with ``ctypes``.
+
+Each source under ``csrc/`` compiles on its own, for ``sm_90a``, into
+``mxtpu_torch/build/lib<name>-<hash>.so``; the hash covers the source and
+the flags, so an edited kernel never loads a stale library. The build runs
+on first use (or all at once through :func:`build_all`, one ``nvcc`` per
+source in parallel) and is written to a temporary name and renamed, so two
+processes building at once cannot load half a file.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, Iterable, Optional
+
+__all__ = ["SOURCES", "build_all", "build_log", "kernel", "nvcc_path"]
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+BUILD_DIR = os.path.join(_PKG, "build")
+
+# kernel name -> source, relative to the package
+SOURCES = {
+    "flash_fwd": "csrc/flash_fwd.cu",
+    "dequant_decode": "csrc/dequant_decode.cu",
+}
+
+_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[tuple, object] = {}
+
+
+def nvcc_path() -> str:
+    """``nvcc`` from ``PATH``, else from ``$CUDA_HOME`` or
+    ``/usr/local/cuda``; raises when there is none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME, /usr/local/cuda): "
+                       "the port's kernels build only where the CUDA "
+                       "toolkit is installed")
+
+
+def _lib_path(name: str) -> str:
+    with open(os.path.join(_PKG, SOURCES[name]), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+
+
+def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Compile every named kernel (default: all) that is not built yet, one
+    ``nvcc`` per source, all started together. Returns seconds per kernel
+    actually compiled; raises with the compiler's output on failure. The
+    compiler's resource report (``-Xptxas=-v``) is kept beside each
+    library as ``<lib>.log``."""
+    names = list(SOURCES if names is None else names)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = _lib_path(name)
+        if os.path.exists(out):
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [nvcc_path(), *_FLAGS, "-o", tmp,
+               os.path.join(_PKG, SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT),
+                       time.monotonic(), tmp, out)
+    seconds, failures = {}, []
+    for name, (proc, t0, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.monotonic() - t0
+        if proc.returncode != 0:
+            failures.append(f"{name}: nvcc exit {proc.returncode}\n"
+                            f"{log.decode(errors='replace')}")
+            continue
+        with open(out + ".log", "wb") as f:
+            f.write(log)
+        os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+    return seconds
+
+
+def build_log(name: str) -> str:
+    """The compiler's report for a built kernel (registers, shared memory,
+    spills per instantiation)."""
+    with open(_lib_path(name) + ".log", "rb") as f:
+        return f.read().decode(errors="replace")
+
+
+def kernel(name: str, symbol: str, argtypes):
+    """The C entry point ``symbol`` of kernel library ``name``, built and
+    loaded on first use, with ``argtypes`` set and an ``int``
+    (``cudaError_t``) result."""
+    fn = _fns.get((name, symbol))
+    if fn is None:
+        with _lock:
+            lib = _libs.get(name)
+            if lib is None:
+                build_all([name])
+                lib = _libs[name] = ctypes.CDLL(_lib_path(name))
+            fn = getattr(lib, symbol)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            _fns[(name, symbol)] = fn
+    return fn

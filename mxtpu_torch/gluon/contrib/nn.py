@@ -1,0 +1,54 @@
+"""Contrib layers — ``MultiHeadAttention`` over the port's flash attention.
+
+Port of ``mxtpu/gluon/contrib/nn.py:MultiHeadAttention``: q, k, v and
+output projections around :func:`~mxtpu_torch.ops.attention
+.flash_attention`, which runs the flash-attention forward kernel (K1) on
+the card.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..nn.basic_layers import Dense
+from ...ops.attention import flash_attention
+
+__all__ = ["MultiHeadAttention"]
+
+
+class MultiHeadAttention(nn.Module):
+    """Flash-attention-backed MHA: input (B, T, C), ``num_heads`` divides
+    ``units``."""
+
+    def __init__(self, units: int, num_heads: int, use_bias: bool = True,
+                 causal: bool = False, device=None, dtype=torch.float32):
+        super().__init__()
+        if units % num_heads:
+            raise ValueError(f"num_heads {num_heads} must divide units "
+                             f"{units}")
+        self._units = units
+        self._heads = num_heads
+        self._causal = causal
+        kw = dict(use_bias=use_bias, device=device, dtype=dtype)
+        self.q_proj = Dense(units, units, **kw)
+        self.k_proj = Dense(units, units, **kw)
+        self.v_proj = Dense(units, units, **kw)
+        self.out_proj = Dense(units, units, **kw)
+
+    def forward(self, x, memory=None):
+        mem = x if memory is None else memory
+        B, T, _ = x.shape
+        Tm = mem.shape[1]
+        H = self._heads
+        D = self._units // H
+
+        def heads(t, n):    # (B, n, C) -> contiguous (B, H, n, D)
+            return t.reshape(B, n, H, D).transpose(1, 2).contiguous()
+
+        q = heads(self.q_proj(x), T)
+        k = heads(self.k_proj(mem), Tm)
+        v = heads(self.v_proj(mem), Tm)
+        out = flash_attention(q, k, v, causal=self._causal, device=x.device)
+        out = out.transpose(1, 2).reshape(B, T, self._units)
+        return self.out_proj(out)

@@ -1,0 +1,291 @@
+"""Decoder-only transformer language model (GPT-2 style, pre-LN).
+
+Port of ``mxtpu/gluon/model_zoo/transformer.py``:
+
+    tokens -> embed + learned pos-embed
+           -> N x [LN -> causal MHA -> +res, LN -> FFN(4d, exact GELU) -> +res]
+           -> LN -> logits = h . E^T   (tied head)
+
+``forward`` runs attention through the flash-attention forward kernel (K1)
+on the card. ``serving_step`` is the engine's one-position decode step over
+a float KV cache (plain einsums, as in the reference), and ``generate``
+loops it. Weights are random, drawn from ``seed`` on the CPU, so a model
+built on the card and one built on the CPU from the same seed hold the
+same values.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...context import resolve_device
+from ..contrib.nn import MultiHeadAttention
+from ..nn.basic_layers import Dense, Embedding, LayerNorm
+
+__all__ = ["TransformerBlock", "TransformerLM", "transformer_lm"]
+
+_NEG_INF = -1e30
+
+
+def _sample_seed(seed: int, pos: int) -> int:
+    """A 64-bit generator seed for (request seed, absolute position)
+    (splitmix64 finaliser), so a sampled stream is a pure function of the
+    request and never of its slot."""
+    z = ((int(seed) << 32) ^ int(pos)) + 0x9E3779B97F4A7C15
+    z &= (1 << 64) - 1
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & ((1 << 64) - 1)
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & ((1 << 64) - 1)
+    return z ^ (z >> 31)
+
+
+class TransformerBlock(nn.Module):
+    """One pre-LN decoder block: causal flash MHA + position-wise FFN."""
+
+    def __init__(self, units: int, num_heads: int, ffn_units: int = 0,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        ffn_units = ffn_units or 4 * units
+        kw = dict(device=device, dtype=dtype)
+        self.ln1 = LayerNorm(units, **kw)
+        self.attn = MultiHeadAttention(units, num_heads, causal=True, **kw)
+        self.ln2 = LayerNorm(units, **kw)
+        self.ffn1 = Dense(ffn_units, units, **kw)
+        self.ffn2 = Dense(units, ffn_units, **kw)
+
+    def forward(self, x):
+        h = x + self.attn(self.ln1(x))
+        return h + self.ffn2(F.gelu(self.ffn1(self.ln2(h))))
+
+
+class TransformerLM(nn.Module):
+    """Decoder-only LM over token ids: ``(B, T)`` integer tokens in,
+    ``(B, T, vocab)`` logits out, for any ``T <= max_len``. Built on
+    ``device`` (None = the card)."""
+
+    def __init__(self, vocab_size: int, units: int = 512, num_layers: int = 6,
+                 num_heads: int = 8, max_len: int = 2048, ffn_units: int = 0,
+                 tie_weights: bool = True, device=None, dtype=torch.float32,
+                 seed: int = 0):
+        super().__init__()
+        dev = resolve_device(device)
+        kw = dict(device=dev, dtype=dtype)
+        self._vocab = vocab_size
+        self._units = units
+        self._max_len = max_len
+        self._tie = tie_weights
+        self.embedding = Embedding(vocab_size, units, **kw)
+        self.pos_embed = nn.Parameter(torch.empty(max_len, units, **kw))
+        self.blocks = nn.ModuleList(
+            TransformerBlock(units, num_heads, ffn_units, **kw)
+            for _ in range(num_layers))
+        self.ln_f = LayerNorm(units, **kw)
+        self.head = None if tie_weights else Dense(vocab_size, units, **kw)
+        self.reset_parameters(seed)
+
+    @torch.no_grad()
+    def reset_parameters(self, seed: int) -> None:
+        """Random weights from ``seed``, drawn on the CPU: N(0, 0.02) for
+        matrices and the embedding, N(0, 0.01) for positions, zero biases,
+        unit LayerNorm gains."""
+        g = torch.Generator().manual_seed(int(seed))
+        for name, p in self.named_parameters():
+            if name.endswith(("gamma",)):
+                p.fill_(1.0)
+            elif name.endswith(("bias", "beta")):
+                p.zero_()
+            else:
+                std = 0.01 if name == "pos_embed" else 0.02
+                p.copy_(torch.randn(p.shape, generator=g) * std)
+
+    def forward(self, tokens):
+        B, T = tokens.shape
+        if T > self._max_len:
+            raise ValueError(f"sequence length {T} exceeds max_len "
+                             f"{self._max_len}")
+        h = self.embedding(tokens) + self.pos_embed[:T]
+        for blk in self.blocks:
+            h = blk(h)
+        h = self.ln_f(h)
+        if self.head is not None:
+            return self.head(h)
+        return h @ self.embedding.weight.t()
+
+    # -- autoregressive decoding --------------------------------------------
+    def _gen_params(self):
+        """The weights as a plain dict of tensors, in the layout the JAX
+        model's ``_gen_params()`` uses — what the serving steps read."""
+        def raw(p):
+            return p.detach()
+        layers = []
+        for blk in self.blocks:
+            at = blk.attn
+            layers.append(dict(
+                ln1_g=raw(blk.ln1.gamma), ln1_b=raw(blk.ln1.beta),
+                qw=raw(at.q_proj.weight), qb=raw(at.q_proj.bias),
+                kw=raw(at.k_proj.weight), kb=raw(at.k_proj.bias),
+                vw=raw(at.v_proj.weight), vb=raw(at.v_proj.bias),
+                ow=raw(at.out_proj.weight), ob=raw(at.out_proj.bias),
+                ln2_g=raw(blk.ln2.gamma), ln2_b=raw(blk.ln2.beta),
+                f1w=raw(blk.ffn1.weight), f1b=raw(blk.ffn1.bias),
+                f2w=raw(blk.ffn2.weight), f2b=raw(blk.ffn2.bias)))
+        out = dict(embed=raw(self.embedding.weight), pos=raw(self.pos_embed),
+                   ln_f_g=raw(self.ln_f.gamma), ln_f_b=raw(self.ln_f.beta),
+                   layers=layers)
+        if self.head is not None:
+            out["head_w"] = raw(self.head.weight)
+            out["head_b"] = raw(self.head.bias)
+        return out
+
+    def serving_step(self, S: int, TOT: int):
+        """The engine-facing decode step over an ``S``-slot batch with
+        per-slot positions and a float KV cache.
+
+        Returns ``step(params, caches, tok, p) -> (caches, logits)``:
+        ``caches`` is the ``(L, 2, S, H, TOT, D)`` cache, updated in place;
+        ``tok`` and ``p`` are (S,) integer tensors (``p`` clipped into the
+        cache); ``logits`` is ``(S, vocab)`` for position ``p + 1``. Every
+        op is row-independent (per-slot mask and scatter), so one slot's
+        output does not depend on what the other slots hold."""
+        H = self.blocks[0].attn._heads
+        U = self._units
+        D = U // H
+        scale = 1.0 / math.sqrt(D)
+
+        def ln(x, g, b):
+            return F.layer_norm(x, (U,), g, b, 1e-5)
+
+        def step(params, caches, tok, p):
+            rows = torch.arange(S, device=tok.device)
+            pc = p.long().clamp(0, TOT - 1)
+            x = params["embed"][tok] + params["pos"][pc]        # (S, U)
+            keep = torch.arange(TOT, device=tok.device)[None, :] \
+                <= pc[:, None]                                  # (S, TOT)
+            for i, lp in enumerate(params["layers"]):
+                h = ln(x, lp["ln1_g"], lp["ln1_b"])
+                q = F.linear(h, lp["qw"], lp["qb"]).reshape(S, H, D)
+                k = F.linear(h, lp["kw"], lp["kb"]).reshape(S, H, D)
+                v = F.linear(h, lp["vw"], lp["vb"]).reshape(S, H, D)
+                caches[i, 0, rows, :, pc] = k.to(caches.dtype)
+                caches[i, 1, rows, :, pc] = v.to(caches.dtype)
+                K = caches[i, 0].to(q.dtype)                    # (S, H, TOT, D)
+                V = caches[i, 1].to(q.dtype)
+                s = torch.einsum("bhd,bhtd->bht", q, K) * scale
+                att = torch.softmax(
+                    s.masked_fill(~keep[:, None, :], _NEG_INF), dim=-1)
+                ctx = torch.einsum("bht,bhtd->bhd", att, V).reshape(S, U)
+                x = x + F.linear(ctx, lp["ow"], lp["ob"])
+                g = ln(x, lp["ln2_g"], lp["ln2_b"])
+                g = F.gelu(F.linear(g, lp["f1w"], lp["f1b"]))
+                x = x + F.linear(g, lp["f2w"], lp["f2b"])
+            h = ln(x, params["ln_f_g"], params["ln_f_b"])
+            if "head_w" in params:
+                return caches, F.linear(h, params["head_w"], params["head_b"])
+            return caches, h @ params["embed"].t()              # (S, vocab)
+
+        return step
+
+    def serving_sample(self):
+        """Per-slot next-token selection for the serving loops: returns
+        ``sample(logits (S, V), temp, topk, seed, pos) -> (S,)`` tokens on
+        the logits' device, where ``temp``/``topk``/``seed``/``pos`` are
+        (S,) host arrays.
+
+        ``temp[s] == 0`` is plain argmax (the first maximum, as JAX's);
+        ``temp[s] > 0`` samples the temperature-scaled, top-k-masked logits
+        with a ``torch.Generator`` keyed on ``(seed[s], pos[s])``, so a
+        request's stream is deterministic whatever slot or chunk it rode.
+        The stream cannot equal the reference's threefry stream.
+        ``topk[s] <= 0`` means no truncation; ties at the k-th logit are
+        all kept."""
+        V = self._vocab
+
+        def sample(logits, temp, topk, seed, pos):
+            out = torch.argmax(logits, dim=-1)
+            for s in np.flatnonzero(np.asarray(temp) > 0):
+                lg = logits[s].float()
+                k = int(topk[s])
+                kk = V if k <= 0 else min(max(k, 1), V)
+                thresh = torch.sort(lg).values[V - kk]
+                masked = lg.masked_fill(lg < thresh, float("-inf"))
+                probs = torch.softmax(masked / max(float(temp[s]), 1e-6), -1)
+                g = torch.Generator(device=logits.device)
+                g.manual_seed(_sample_seed(int(seed[s]), int(pos[s])))
+                out[s] = torch.multinomial(probs, 1, generator=g)[0]
+            return out
+
+        return sample
+
+    def length_bucket(self, n: int) -> int:
+        """32-token length bucket, capped at ``max_len`` (the serving KV
+        admission uses the same rounding)."""
+        return min(self._max_len, -(-n // 32) * 32)
+
+    @torch.no_grad()
+    def generate(self, tokens, max_new_tokens: int, greedy: bool = True,
+                 seed: int = 0):
+        """Autoregressive continuation: ``(B, T0 + max_new_tokens)`` tokens
+        (prompt + generated), by looping :meth:`serving_step` over a float
+        cache of the ``length_bucket`` of the total. ``greedy=False`` samples
+        from the softmax with one ``torch.Generator`` seeded by ``seed``."""
+        dev = self.embedding.weight.device
+        tokens = torch.as_tensor(tokens, device=dev).long()
+        B, T0 = tokens.shape
+        if T0 < 1:
+            raise ValueError("generate needs a non-empty prompt (give a BOS "
+                             "token for unconditional generation)")
+        total = T0 + int(max_new_tokens)
+        if total > self._max_len:
+            raise ValueError(f"prompt {T0} + {max_new_tokens} new exceeds "
+                             f"max_len {self._max_len}")
+        TOT = self.length_bucket(total)
+        H = self.blocks[0].attn._heads
+        D = self._units // H
+        step = self.serving_step(B, TOT)
+        params = self._gen_params()
+        caches = torch.zeros((len(self.blocks), 2, B, H, TOT, D),
+                             dtype=params["embed"].dtype, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        prev = torch.zeros(B, dtype=torch.long, device=dev)
+        outs = []
+        for t in range(total - 1):
+            tok = tokens[:, t] if t < T0 else prev
+            pos = torch.full((B,), t, dtype=torch.long, device=dev)
+            caches, logits = step(params, caches, tok, pos)
+            if greedy:
+                prev = torch.argmax(logits, dim=-1)
+            else:
+                prev = torch.multinomial(torch.softmax(logits.float(), -1), 1,
+                                         generator=gen)[:, 0]
+            outs.append(prev)
+        # outs[t] is the token after position t; keep the generated tail
+        return torch.cat([tokens, torch.stack(outs[T0 - 1:], dim=1)], dim=1)
+
+
+_PRESETS = {
+    # name: (units, layers, heads, max_len)
+    "tiny": (64, 2, 2, 256),            # tests
+    "small": (512, 6, 8, 1024),
+    "base": (768, 12, 12, 1024),        # GPT-2 124M dimensions
+    "flagship": (1024, 8, 16, 2048),
+    "wide": (2048, 4, 16, 2048),
+}
+
+
+def transformer_lm(preset: str = "small", vocab_size: int = 16384,
+                   device=None, **kwargs):
+    """Factory over the preset table; builds on ``device`` (None = the
+    card)."""
+    try:
+        units, layers, heads, max_len = _PRESETS[preset]
+    except KeyError:
+        raise ValueError(f"unknown preset {preset!r}; choose from "
+                         f"{sorted(_PRESETS)}") from None
+    cfg = dict(units=units, num_layers=layers, num_heads=heads,
+               max_len=max_len)
+    cfg.update(kwargs)
+    return TransformerLM(vocab_size, device=device, **cfg)

@@ -1,0 +1,63 @@
+"""The port's standing rules, checked on the source tree.
+
+* Nothing under ``mxtpu_torch/`` and nothing in ``chip_smoke.py`` imports
+  JAX or the JAX package ``mxtpu`` (relative imports inside the port are
+  its own).
+* Entry points run on the card unless the caller asks for the CPU: without
+  CUDA, building a model or an engine with no ``device`` raises instead of
+  running on the CPU.
+"""
+
+import ast
+import pathlib
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _port_sources():
+    files = sorted((ROOT / "mxtpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    return name.split(".")[0] in ("jax", "jaxlib", "mxtpu")
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_mxtpu_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 \
+                and node.module and _forbidden(node.module):
+            bad.append(node.module)
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "id", getattr(node.func, "attr", None)) in (
+                    "import_module", "__import__") and node.args \
+                and isinstance(node.args[0], ast.Constant) \
+                and _forbidden(str(node.args[0].value)):
+            bad.append(node.args[0].value)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_entry_points_refuse_the_cpu_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None is the card")
+    from mxtpu_torch import resolve_device
+    from mxtpu_torch.gluon.model_zoo import TransformerLM, transformer_lm
+    from mxtpu_torch.serving import ServingEngine
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer_lm("tiny", vocab_size=50)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TransformerLM(50, units=64, num_layers=1, num_heads=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    net = transformer_lm("tiny", vocab_size=50, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(net, quant="int8_kv")

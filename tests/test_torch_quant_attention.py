@@ -1,0 +1,166 @@
+"""mxtpu_torch KV quantization and dequant-attention decode against the JAX
+package.
+
+* ``quantize_rows`` is bit-equal to ``mxtpu.quant.kv_quant`` for int8 (the
+  same f32 division and round-half-to-even) and within one fp8 step for fp8
+  (the two frameworks' float8 conversions may round a tie differently).
+* ``dequant_attention_decode`` on CPU tensors runs the plain version of the
+  dequant-decode kernel (K5); it is held against the Pallas kernel
+  ``_decode_pallas`` in interpret mode on the same quantized bytes, at a
+  ragged ``pc``, within 1e-5 x max(|ref|, 1) — the bound
+  ``tests/test_quant_attention.py`` holds the Pallas kernel to, for f32
+  reassociation.
+* The paging helpers move the same bytes as the reference's.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from mxtpu.ops import quant_attention as jqa
+from mxtpu.quant import kv_quant as jkv
+from mxtpu_torch.ops import quant_attention as tqa
+from mxtpu_torch.quant import kv_quant as tkv
+
+MODES = ["int8", "fp8"]
+
+
+def _to_torch(a):
+    """A JAX array as a torch tensor with the same bytes (float8 through
+    its uint8 view)."""
+    a = np.asarray(a)
+    if str(a.dtype) == "float8_e4m3fn":
+        return torch.from_numpy(a.view(np.uint8).copy()) \
+            .view(torch.float8_e4m3fn)
+    return torch.from_numpy(np.array(a))
+
+
+def _fp8_spacing(a):
+    """Distance between neighbouring e4m3 values at magnitude ``a``."""
+    a = np.maximum(np.abs(a), 2.0 ** -6)
+    return 2.0 ** (np.floor(np.log2(a)) - 3)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_quantize_rows_matches_reference(mode):
+    rs = np.random.RandomState(0)
+    x = rs.randn(4, 8, 32, 16).astype(np.float32) * 3.0
+    x[0, 0, 0] = 0.0                    # an all-zero row keeps scale 1.0
+    qj, sj = jkv.quantize_rows(jnp.asarray(x), mode)
+    qt, st = tkv.quantize_rows(torch.from_numpy(x), mode)
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+    assert float(st[0, 0, 0]) == 1.0
+    if mode == "int8":
+        assert qt.dtype == torch.int8
+        np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
+    else:
+        assert qt.dtype == torch.float8_e4m3fn
+        a, b = qt.float().numpy(), np.asarray(qj).astype(np.float32)
+        assert np.all(np.abs(a - b) <= _fp8_spacing(np.maximum(
+            np.abs(a), np.abs(b))))
+    np.testing.assert_allclose(
+        tkv.dequantize_rows(qt, st).numpy(),
+        np.asarray(jkv.dequantize_rows(qj, sj)),
+        rtol=0, atol=0 if mode == "int8" else float(np.abs(x).max() / 8))
+
+
+def _decode_case(TOT, mode, seed, S=3, H=2, D=16):
+    rs = np.random.RandomState(seed)
+    q = rs.randn(S, H, D).astype(np.float32)
+    k = rs.randn(S, H, TOT, D).astype(np.float32)
+    v = rs.randn(S, H, TOT, D).astype(np.float32)
+    # ragged cursors: first row, an interior row, the last row
+    pc = np.array([0, TOT // 2 + 3, TOT - 1][:S], np.int32)
+    kd, ks = jkv.quantize_rows(jnp.asarray(k), mode)
+    vd, vs = jkv.quantize_rows(jnp.asarray(v), mode)
+    return q, kd, ks, vd, vs, pc
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("TOT", [32, 96, 128])
+def test_dequant_decode_matches_pallas_interpret(TOT, mode):
+    q, kd, ks, vd, vs, pc = _decode_case(TOT, mode, seed=TOT)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    ref = np.asarray(jqa._decode_pallas(
+        jnp.asarray(q), kd, ks, vd, vs, jnp.asarray(pc), scale,
+        interpret=True))
+    out = tqa.dequant_attention_decode(
+        torch.from_numpy(q), _to_torch(kd), _to_torch(ks), _to_torch(vd),
+        _to_torch(vs), torch.from_numpy(pc), scale=scale, device="cpu")
+    assert out.shape == q.shape and out.dtype == torch.float32
+    bound = 1e-5 * max(float(np.abs(ref).max()), 1.0)
+    assert float(np.abs(out.numpy() - ref).max()) < bound
+
+
+def test_decode_reads_nothing_past_pc():
+    """Rows above a slot's cursor never leak into its context, and a
+    cursor past the bucket is clipped into it (as the serving step
+    clips)."""
+    q, kd, ks, vd, vs, pc = _decode_case(64, "int8", seed=1)
+    args = [_to_torch(a) for a in (kd, ks, vd, vs)]
+    base = tqa.dequant_attention_decode(
+        torch.from_numpy(q), *args, torch.from_numpy(pc), scale=0.25,
+        device="cpu")
+    garbage = [a.clone() for a in args]
+    for s, p in enumerate(pc):
+        garbage[0][s, :, p + 1:] = 77
+        garbage[2][s, :, p + 1:] = -77
+    again = tqa.dequant_attention_decode(
+        torch.from_numpy(q), *garbage, torch.from_numpy(pc), scale=0.25,
+        device="cpu")
+    assert torch.equal(base, again)
+    big = torch.full((3,), 10_000, dtype=torch.int32)
+    last = torch.full((3,), 63, dtype=torch.int32)
+    assert torch.equal(
+        tqa.dequant_attention_decode(torch.from_numpy(q), *args, big,
+                                     scale=0.25, device="cpu"),
+        tqa.dequant_attention_decode(torch.from_numpy(q), *args, last,
+                                     scale=0.25, device="cpu"))
+
+
+def test_dequant_decode_device_rules():
+    q, kd, ks, vd, vs, pc = _decode_case(32, "int8", seed=2)
+    args = [torch.from_numpy(q)] + [_to_torch(a) for a in (kd, ks, vd, vs)] \
+        + [torch.from_numpy(pc)]
+    with pytest.raises((RuntimeError, ValueError)):
+        tqa.dequant_attention_decode(*args, scale=0.25)
+    with pytest.raises(ValueError, match="CUDA"):
+        tqa.dequant_decode(*args, 0.25)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_paging_helpers_match_reference(mode):
+    """promote / merge_page / install_rows / block_slice move the same
+    bytes and scales as the reference's helpers."""
+    rs = np.random.RandomState(9)
+    L, S, H, D = 2, 3, 2, 8
+    cache_x = rs.randn(L, 2, S, H, 32, D).astype(np.float32)
+    page_x = rs.randn(L, 2, 1, H, 32, D).astype(np.float32)
+    cj = jkv.QuantKV(*jkv.quantize_rows(jnp.asarray(cache_x), mode), mode)
+    pj = jkv.QuantKV(*jkv.quantize_rows(jnp.asarray(page_x), mode), mode)
+    ct = tkv.QuantKV(_to_torch(cj.data), _to_torch(cj.scale), mode)
+    pt = tkv.QuantKV(_to_torch(pj.data), _to_torch(pj.scale), mode)
+
+    def same(t, j):
+        np.testing.assert_array_equal(tkv.raw(t.data).numpy(),
+                                      np.asarray(j.data).view(np.uint8))
+        np.testing.assert_array_equal(t.scale.numpy(), np.asarray(j.scale))
+
+    cj, ct = jkv.promote(cj, 64), tkv.promote(ct, 64)
+    same(ct, cj)
+    cj, ct = jkv.merge_page(cj, pj, 1), tkv.merge_page(ct, pt, 1)
+    same(ct, cj)
+    fresh_j = jkv.empty((L, 2, 1, H, 64, D), quant=mode)
+    fresh_t = tkv.empty((L, 2, 1, H, 64, D), quant=mode)
+    same(fresh_t, fresh_j)
+    blocks_j = [jkv.block_slice(pj, 0, 32), jkv.block_slice(pj, 0, 5)]
+    blocks_t = [tkv.block_slice(pt, 0, 32), tkv.block_slice(pt, 0, 5)]
+    same(tkv.install_rows(fresh_t, blocks_t, 37),
+         jkv.install_rows(fresh_j, blocks_j, 37))
+    assert tkv.cache_nbytes(ct) == jkv.cache_nbytes(cj)
+    assert tkv.page_nbytes(L, H, D, 32, quant=mode) == \
+        jkv.page_nbytes(L, H, D, 32, quant=mode)

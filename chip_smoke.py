@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Chip smoke for mxtpu_torch: builds the port's CUDA kernels and drives its
-main path on one NVIDIA GPU.
+main paths on one NVIDIA GPU: serving and training.
 
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero without a result line:
 
-1. the card's name and power limit (``nvidia-smi``); build both kernels
+1. the card's name and power limit (``nvidia-smi``); build every kernel
    with ``nvcc`` (one process per source, in parallel);
 2. K1 (flash-attention forward) against its plain PyTorch version on the
    card at the forward's shapes (B=4, H=12, T=1024, D=64, causal) in f32
@@ -22,11 +22,28 @@ Phases, in order; any failure exits non-zero without a result line:
    again under ``torch.profiler`` for the device's busy share;
 6. card against CPU: at base width with 2 layers, the same weights on the
    card and on the CPU give the same greedy tokens for 2 requests of 32
-   new tokens (int8 and fp8 KV), and forward logits that agree.
+   new tokens (int8 and fp8 KV), and forward logits that agree;
+7. K2, K3 and K4 (flash-attention backward) against the plain backward on
+   the card at the training shape (B=8, H=16, T=1024, D=64, causal) in
+   bf16 and f32, and at ragged shapes (T=1000, T != Tk, D=40, 128, 256),
+   with an lse cotangent and with bf16 lse/Delta rows: kernel, plain and
+   ``scaled_dot_product_attention``-backward times, and the bounds;
+8. training: ``transformer_lm("flagship", vocab_size=16384)`` in bf16
+   (d1024, L8, H16) takes 1 + 24 Adam steps on one fixed (32, 1024) batch
+   through ``DataParallelTrainer(micro_batches=4)``; the loss must fall by
+   0.3 (the learning gate of the JAX package's benchmark) and K1, K2 and
+   K3 must launch once per layer, micro-batch and step; then one step
+   under ``torch.profiler``;
+9. the fused backward: 3 steps of the same run under
+   ``MXTPU_FLASH_BWD=fused``; K4 must launch and the losses equal the split
+   run's;
+10. training card against CPU: base width, 2 layers, f32, B=4, T=256, 3
+    Adam steps; the losses agree.
 
-Launch counts are set to 0 just before phases 4 and 5 and read just after.
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``. Weights are random, from fixed seeds.
+Launch counts are set to 0 just before phases 4, 5, 8 and 9 and read just
+after. The line before the last is the kernels' JSON record; the last line
+is ``{"ok": true, "device": {...}}``. Weights are random, from fixed
+seeds.
 """
 
 from __future__ import annotations
@@ -66,6 +83,14 @@ def timed_ms(torch, fn, iters, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _bound(flops, nbytes, dtype):
+    """(bound ms, what bounds it) on the H100's data-sheet peaks."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
 
 
 def phase_k1(torch, attention):
@@ -117,10 +142,8 @@ def phase_k1(torch, attention):
             + B * H * T * 4
         pairs = T * (T + 1) // 2 if causal else T * Tk    # causal: T == Tk
         flops = 4.0 * B * H * pairs * D
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[str(dt).replace("torch.", "")] * 1e3
-        bound_ms = max(t_bytes, t_ops)
-        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        bound_ms, bound_by = _bound(flops, nbytes,
+                                    str(dt).replace("torch.", ""))
         print(f"{line}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
               f"{flops:.3e} flops, {nbytes} bytes)", flush=True)
@@ -174,10 +197,7 @@ def phase_k5(torch, quant_attention, kv_quant):
         nbytes = 2 * rows * (D * kd.element_size() + 4) \
             + 2 * S * H * D * 4 + S * 4
         flops = 4.0 * rows * D
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS["float32"] * 1e3
-        bound_ms = max(t_bytes, t_ops)
-        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        bound_ms, bound_by = _bound(flops, nbytes, "float32")
         print(f"{line}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"library none, bound {bound_ms:.5f} ms ({bound_by}: {nbytes} "
               f"bytes)", flush=True)
@@ -185,6 +205,132 @@ def phase_k5(torch, quant_attention, kv_quant):
             main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bound_ms, bound_by=bound_by,
                         library_ms=None)
+    return main
+
+
+def phase_bwd(torch, attention):
+    """K2, K3 and K4 against the plain backward; returns the main-path
+    records (bf16, causal, the training shape) by kernel name."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # (label, B, H, T, Tk, D, dtype, causal, dlse, bf16 rows, timed)
+        ("bf16 causal", 8, 16, 1024, 1024, 64, bf16, True, False, False,
+         True),
+        ("f32 causal", 8, 16, 1024, 1024, 64, f32, True, False, False, True),
+        ("f32 causal dlse T=1000", 2, 4, 1000, 1000, 64, f32, True, True,
+         False, False),
+        ("f32 full dlse T=1000 Tk=1021", 2, 4, 1000, 1021, 64, f32, False,
+         True, False, False),
+        ("f32 causal T=200 Tk=333", 2, 3, 200, 333, 64, f32, True, True,
+         False, False),
+        ("f32 causal T=333 Tk=200", 2, 3, 333, 200, 64, f32, True, False,
+         False, False),
+        ("bf16 full D=40", 2, 3, 77, 130, 40, bf16, False, True, False,
+         False),
+        ("f32 causal D=40", 2, 3, 150, 150, 40, f32, True, False, False,
+         False),
+        ("f32 causal D=128", 1, 4, 300, 300, 128, f32, True, True, False,
+         False),
+        ("f32 causal D=256", 1, 2, 200, 200, 256, f32, True, True, False,
+         False),
+        ("f32 causal bf16 rows", 2, 4, 512, 512, 64, f32, True, True, True,
+         False),
+        # at this size cuBLAS sums the plain version's products in another
+        # order than the kernels (at the sizes above it uses their order)
+        ("f32 causal T=64", 1, 1, 64, 64, 64, f32, True, False, False,
+         False),
+    ]
+    main = None
+    for (label, B, H, T, Tk, D, dt, causal, with_dlse, bf16_rows,
+         do_time) in cases:
+        q, dout = (torch.randn(B, H, T, D, device=dev, generator=g).to(dt)
+                   for _ in range(2))
+        k, v = (torch.randn(B, H, Tk, D, device=dev, generator=g).to(dt)
+                for _ in range(2))
+        dlse = torch.randn(B, H, T, device=dev, generator=g) \
+            if with_dlse else None
+        scale = 1.0 / math.sqrt(D)
+        out, lse = attention.flash_fwd(q, k, v, causal, scale)
+        os.environ["MXTPU_FLASH_LSE"] = "bf16" if bf16_rows else ""
+        try:
+            rows = attention._bwd_rows(out, lse, dout, dlse)
+        finally:
+            os.environ.pop("MXTPU_FLASH_LSE")
+        args = (q, k, v, dout) + rows + (causal, scale)
+        ref = attention._flash_bwd_plain(*args)
+        split = (attention.flash_bwd_dq(*args),) + \
+            attention.flash_bwd_dkv(*args)
+        fused = attention.flash_bwd_fused(*args) if T == Tk else None
+        torch.cuda.synchronize()
+        tol_rel = 1e-4 if dt == f32 else 2e-2
+        errs = {}
+        for kern, outs in (("K2", split[:1]), ("K3", split[1:]),
+                           ("K4", fused)):
+            if outs is None:
+                continue
+            refs = ref[:1] if kern == "K2" else ref[1:] if kern == "K3" \
+                else ref
+            err = max((o.float() - r.float()).abs().max().item()
+                      for o, r in zip(outs, refs))
+            tol = tol_rel * max(max(r.float().abs().max().item()
+                                    for r in refs), 1.0)
+            check(math.isfinite(err) and err <= tol,
+                  f"{kern} {label}: err {err} (tol {tol})")
+            errs[kern] = (err, tol)
+        same = "n/a (T != Tk)" if fused is None else str(all(
+            torch.equal(a, b) for a, b in zip(split, fused)))
+        line = (f"K2/K3/K4 {label} B{B} H{H} T{T} Tk{Tk} D{D}: max_abs_err "
+                + ", ".join(f"{kk} {e:.3e} (tol {t:.3e})"
+                            for kk, (e, t) in errs.items())
+                + f"; K4 bit-equal to K2+K3: {same}")
+        if not do_time:
+            print(line, flush=True)
+            continue
+        ms = {"K2": timed_ms(torch, lambda: attention.flash_bwd_dq(*args),
+                             10),
+              "K3": timed_ms(torch, lambda: attention.flash_bwd_dkv(*args),
+                             10),
+              "K4": timed_ms(torch, lambda: attention.flash_bwd_fused(
+                  *args), 10)}
+        plain_ms = timed_ms(torch, lambda: attention._flash_bwd_plain(*args),
+                            3, warmup=1)
+        qs, ks, vs = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+
+        def sdpa_fwd_bwd():
+            F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
+                                           scale=scale).backward(dout)
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
+                                               scale=scale)
+
+        lib_ms = timed_ms(torch, sdpa_fwd_bwd, 10) - \
+            timed_ms(torch, sdpa_fwd, 10)
+        BH, elem = B * H, q.element_size()
+        pairs = sum(min(i + 1, Tk) for i in range(T)) if causal else T * Tk
+        in_bytes = BH * (2 * T + 2 * Tk) * D * elem \
+            + 2 * BH * T * rows[0].element_size()
+        q_bytes, kv_bytes = BH * T * D * elem, 2 * BH * Tk * D * elem
+        work = {"K2": (3, in_bytes + q_bytes), "K3": (4, in_bytes + kv_bytes),
+                "K4": (7, in_bytes + q_bytes + kv_bytes)}
+        recs = {}
+        for kern, (products, nbytes) in work.items():
+            flops = 2.0 * products * BH * pairs * D
+            bound_ms, bound_by = _bound(flops, nbytes,
+                                        str(dt).replace("torch.", ""))
+            recs[kern] = dict(max_abs_err=errs[kern][0], ms=ms[kern],
+                              plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=bound_by, library_ms=lib_ms)
+            line += (f"; {kern} {ms[kern]:.4f} ms, bound {bound_ms:.4f} ms "
+                     f"({bound_by}: {flops:.3e} flops, {nbytes} bytes)")
+        print(f"{line}; plain backward {plain_ms:.4f} ms, sdpa backward "
+              f"{lib_ms:.4f} ms", flush=True)
+        if main is None:
+            main = recs
     return main
 
 
@@ -319,6 +465,183 @@ def phase_card_vs_cpu(torch, lm, serving):
           f"int8_kv and fp8_kv", flush=True)
 
 
+class SeqLoss:
+    """``SoftmaxCrossEntropyLoss`` over (B*T, V), as the JAX package's
+    benchmark wraps it."""
+
+    def __init__(self, loss_mod):
+        self.ce = loss_mod.SoftmaxCrossEntropyLoss()
+
+    def __call__(self, logits, y):
+        b, t, v = logits.shape
+        return self.ce(logits.reshape(b * t, v), y.reshape(b * t))
+
+
+TRAIN = dict(B=32, T=1024, micro_batches=4, vocab=16384, steps=24)
+
+
+def _flagship(lm):
+    return lm.transformer_lm("flagship", vocab_size=TRAIN["vocab"],
+                             seed=10).cast("bfloat16")
+
+
+def _train_batch(torch):
+    import numpy as np
+    rs = np.random.RandomState(0)
+    B, T, V = TRAIN["B"], TRAIN["T"], TRAIN["vocab"]
+    x = rs.randint(0, V, (B, T)).astype(np.int32)
+    y = rs.randint(0, V, (B, T)).astype(np.float32)
+    return torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+
+
+def phase_train(torch, lm, attention, optimizer, loss_mod, parallel, counts):
+    """The flagship in bf16 memorises one batch (the JAX package's training
+    benchmark); returns (losses of the first 3 steps, launch counts)."""
+    model = _flagship(lm)
+    L, K = len(model.blocks), TRAIN["micro_batches"]
+    B, T, steps = TRAIN["B"], TRAIN["T"], TRAIN["steps"]
+    x, y = _train_batch(torch)
+    dpt = parallel.DataParallelTrainer(model, SeqLoss(loss_mod),
+                                       optimizer.Adam(learning_rate=3e-4),
+                                       micro_batches=K)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts(0)
+    t0 = time.monotonic()
+    losses = [dpt.step_async(x, y)]
+    loss_start = float(losses[0])
+    first_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    for _ in range(steps):
+        losses.append(dpt.step_async(x, y))
+    loss_end = float(losses[-1])             # one readback syncs the chain
+    dt = time.monotonic() - t0
+    launches = dict(K1=attention.flash_fwd.launches,
+                    K2=attention.flash_bwd_dq.launches,
+                    K3=attention.flash_bwd_dkv.launches,
+                    K4=attention.flash_bwd_fused.launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    want = L * K * (steps + 1)
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    check(launches["K1"] == launches["K2"] == launches["K3"] == want
+          and launches["K4"] == 0,
+          f"launches {launches}: want K1 = K2 = K3 = {want} (layers "
+          f"{L} x micro-batches {K} x steps {steps + 1}), K4 = 0")
+    check(loss_end < loss_start - 0.3,
+          f"learning gate: loss {loss_start:.4f} -> {loss_end:.4f} (must "
+          f"fall by 0.3)")
+    step_ms = dt / steps * 1e3
+    tok_s = steps * B * T / dt
+    V, U, H = TRAIN["vocab"], model._units, model.blocks[0].attn._heads
+    p_dense = sum(p.numel() for n, p in model.named_parameters()
+                  if "embed" not in n) + V * U      # + the tied head
+    pairs = T * (T + 1) // 2
+    attn_flops = 3 * 4 * B * H * pairs * (U // H) * L   # fwd + 2x bwd
+    flops = 6 * p_dense * B * T + attn_flops
+    print(f"train flagship bf16 d{U} L{L} H{H} B{B} T{T} x{K} Adam(3e-4): "
+          f"loss {loss_start:.4f} -> {loss_end:.4f} over 1 + {steps} steps "
+          f"(gate: fall by 0.3; uniform floor {math.log(V):.2f}); first "
+          f"step {first_s:.2f} s; {step_ms:.2f} ms/step, {tok_s:.1f} "
+          f"tokens/s; max_memory_allocated {peak} bytes; launches "
+          f"{launches} (= {L} x {K} x {steps + 1}); model flops/step "
+          f"{flops:.4e} (6*P*tokens, P={p_dense}, + attention "
+          f"{attn_flops:.4e}) = {flops / (step_ms / 1e3) / 1e12:.1f} "
+          f"TFLOP/s = {flops / (step_ms / 1e3) / PEAK_FLOPS['bfloat16']:.4f} "
+          f"of the 989 TFLOP/s bf16 peak", flush=True)
+    print(f"  losses {[round(v, 4) for v in losses]}", flush=True)
+    profile_step(torch, dpt, x, y)
+    return losses[:3], launches
+
+
+def profile_step(torch, dpt, x, y):
+    """One training step under ``torch.profiler`` (device activity): its
+    device-busy share of the wall and its top device operations."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        dpt.step(x, y)
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    if not busy:
+        print("profile train: the profiler recorded no device time",
+              flush=True)
+        return
+    print(f"profile train (1 step, profiler on): wall {wall_us / 1e3:.1f} "
+          f"ms, device busy {busy / 1e3:.1f} ms = {busy / wall_us:.3f} of "
+          f"wall, idle {1 - busy / wall_us:.3f}", flush=True)
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {us / busy:.3f} of device time, {us / 1e3:.1f} ms: "
+              f"{name[:110]}", flush=True)
+
+
+def phase_fused(torch, lm, attention, optimizer, loss_mod, parallel, counts,
+                split_losses):
+    """3 steps of the training run under ``MXTPU_FLASH_BWD=fused``: K4
+    replaces K2 + K3 and the losses equal the split run's."""
+    model = _flagship(lm)
+    L, K = len(model.blocks), TRAIN["micro_batches"]
+    x, y = _train_batch(torch)
+    dpt = parallel.DataParallelTrainer(model, SeqLoss(loss_mod),
+                                       optimizer.Adam(learning_rate=3e-4),
+                                       micro_batches=K)
+    os.environ["MXTPU_FLASH_BWD"] = "fused"
+    try:
+        counts(0)
+        losses = [dpt.step_async(x, y) for _ in range(3)]
+        losses = [float(v) for v in losses]
+        launches = dict(K2=attention.flash_bwd_dq.launches,
+                        K3=attention.flash_bwd_dkv.launches,
+                        K4=attention.flash_bwd_fused.launches)
+    finally:
+        os.environ.pop("MXTPU_FLASH_BWD")
+    check(launches["K4"] == L * K * 3 and launches["K2"] == 0 and
+          launches["K3"] == 0, f"fused launches {launches}, want K4 = "
+          f"{L * K * 3} and no K2/K3")
+    diff = max(abs(a - b) for a, b in zip(losses, split_losses))
+    tol = 1e-3 * max(abs(v) for v in split_losses)
+    check(diff <= tol, f"fused losses {losses} vs split {split_losses}: "
+          f"diff {diff} (tol {tol})")
+    print(f"fused backward: 3 steps, losses {losses} vs split "
+          f"{split_losses}, max diff {diff:.3e} (tol {tol:.3e}); launches "
+          f"{launches}", flush=True)
+    return launches["K4"]
+
+
+def phase_train_card_vs_cpu(torch, lm, optimizer, loss_mod, parallel):
+    """The same weights and batches train on the card and on the CPU (f32,
+    base width, 2 layers, B=4, T=256, 3 Adam steps): the losses agree."""
+    import numpy as np
+    cpu = lm.transformer_lm("base", vocab_size=16384, num_layers=2,
+                            device="cpu", seed=11)
+    gpu = lm.transformer_lm("base", vocab_size=16384, num_layers=2, seed=12)
+    gpu.load_state_dict(cpu.state_dict())
+    rs = np.random.RandomState(9)
+    batches = [(rs.randint(0, 16384, (4, 256)).astype(np.int32),
+                rs.randint(0, 16384, (4, 256)).astype(np.float32))
+               for _ in range(3)]
+    losses = {}
+    for name, net, dev in (("cuda", gpu, None), ("cpu", cpu, "cpu")):
+        dpt = parallel.DataParallelTrainer(
+            net, SeqLoss(loss_mod), optimizer.Adam(learning_rate=1e-3),
+            micro_batches=2, device=dev)
+        losses[name] = [dpt.step(x, y) for x, y in batches]
+    diff = max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    tol = 1e-4 * max(abs(v) for v in losses["cpu"])
+    check(diff <= tol, f"training losses card {losses['cuda']} vs CPU "
+          f"{losses['cpu']}: diff {diff} (tol {tol})")
+    print(f"train card vs CPU, base width 2 layers f32 B4 T256 x2, 3 Adam "
+          f"steps: losses card {losses['cuda']} CPU {losses['cpu']}, max "
+          f"diff {diff:.3e} (tol {tol:.3e})", flush=True)
+
+
 def run():
     import torch
     if not torch.cuda.is_available():
@@ -332,7 +655,8 @@ def run():
     from mxtpu_torch.gluon.model_zoo import transformer as lm
     from mxtpu_torch.ops import attention, quant_attention
     from mxtpu_torch.quant import kv_quant
-    from mxtpu_torch import serving
+    from mxtpu_torch import optimizer, parallel, serving
+    from mxtpu_torch.gluon import loss as loss_mod
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -352,8 +676,10 @@ def run():
                 print(f"  ptxas {name}: {ln.strip()}", flush=True)
 
     def counts(n):
-        attention.flash_fwd.launches = n
-        quant_attention.dequant_decode.launches = n
+        for fn in (attention.flash_fwd, attention.flash_bwd_dq,
+                   attention.flash_bwd_dkv, attention.flash_bwd_fused,
+                   quant_attention.dequant_decode):
+            fn.launches = n
 
     def timed_phase(name, fn, *args):
         t = time.monotonic()
@@ -371,12 +697,35 @@ def run():
     del model
     torch.cuda.empty_cache()
     timed_phase("card vs CPU", phase_card_vs_cpu, torch, lm, serving)
+    bwd = timed_phase("K2/K3/K4 checks", phase_bwd, torch, attention)
+    split_losses, train_launches = timed_phase(
+        "train", phase_train, torch, lm, attention, optimizer, loss_mod,
+        parallel, counts)
+    torch.cuda.empty_cache()
+    k4_launches = timed_phase("fused", phase_fused, torch, lm, attention,
+                              optimizer, loss_mod, parallel, counts,
+                              split_losses)
+    torch.cuda.empty_cache()
+    timed_phase("train card vs CPU", phase_train_card_vs_cpu, torch, lm,
+                optimizer, loss_mod, parallel)
+    print(f"K1 launches: forward {k1_launches}, training "
+          f"{train_launches['K1']}", flush=True)
 
+    bwd_src = "mxtpu_torch/csrc/flash_bwd.cu"
     kernels = [
         dict(name="flash_fwd", route="cuda",
              source="mxtpu_torch/csrc/flash_fwd.cu",
-             replaces="mxtpu/ops/attention.py:133", launches=k1_launches,
-             **k1),
+             replaces="mxtpu/ops/attention.py:133",
+             launches=train_launches["K1"], **k1),
+        dict(name="flash_bwd_dq", route="cuda", source=bwd_src,
+             replaces="mxtpu/ops/attention.py:182",
+             launches=train_launches["K2"], **bwd["K2"]),
+        dict(name="flash_bwd_dkv", route="cuda", source=bwd_src,
+             replaces="mxtpu/ops/attention.py:220",
+             launches=train_launches["K3"], **bwd["K3"]),
+        dict(name="flash_bwd_fused", route="cuda", source=bwd_src,
+             replaces="mxtpu/ops/attention.py:262", launches=k4_launches,
+             **bwd["K4"]),
         dict(name="dequant_decode", route="cuda",
              source="mxtpu_torch/csrc/dequant_decode.cu",
              replaces="mxtpu/ops/quant_attention.py:99",

@@ -28,6 +28,7 @@ BUILD_DIR = os.path.join(_PKG, "build")
 # kernel name -> source, relative to the package
 SOURCES = {
     "flash_fwd": "csrc/flash_fwd.cu",
+    "flash_bwd": "csrc/flash_bwd.cu",
     "dequant_decode": "csrc/dequant_decode.cu",
 }
 

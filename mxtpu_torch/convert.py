@@ -1,12 +1,12 @@
 """Weights across the packages: the JAX model's parameters, as numpy
-arrays, into a state dict of the port's ``TransformerLM``."""
+arrays, into a state dict of the port's ``TransformerLM``, and back."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["params_from_mxtpu"]
+__all__ = ["params_from_mxtpu", "params_to_mxtpu"]
 
 # _gen_params() layer key -> port module path
 _LAYER_KEYS = {
@@ -38,3 +38,26 @@ def params_from_mxtpu(tree) -> dict:
         sd["head.weight"] = t(tree["head_w"])
         sd["head.bias"] = t(tree["head_b"])
     return sd
+
+
+def params_to_mxtpu(state_dict) -> dict:
+    """The reverse of :func:`params_from_mxtpu`: a port ``TransformerLM``'s
+    ``state_dict`` as numpy arrays in the JAX model's ``_gen_params()``
+    layout, each leaf in its parameter's dtype (bf16 leaves as f32, which
+    numpy lacks)."""
+    def n(key):
+        x = state_dict[key].detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+
+    tree = {"embed": n("embedding.weight"), "pos": n("pos_embed"),
+            "ln_f_g": n("ln_f.gamma"), "ln_f_b": n("ln_f.beta"),
+            "layers": []}
+    i = 0
+    while f"blocks.{i}.ln1.gamma" in state_dict:
+        tree["layers"].append({key: n(f"blocks.{i}.{path}")
+                               for key, path in _LAYER_KEYS.items()})
+        i += 1
+    if "head.weight" in state_dict:
+        tree["head_w"] = n("head.weight")
+        tree["head_b"] = n("head.bias")
+    return tree

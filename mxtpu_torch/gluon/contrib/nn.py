@@ -3,7 +3,9 @@
 Port of ``mxtpu/gluon/contrib/nn.py:MultiHeadAttention``: q, k, v and
 output projections around :func:`~mxtpu_torch.ops.attention
 .flash_attention`, which runs the flash-attention forward kernel (K1) on
-the card.
+the card and, under autograd, the backward kernels (K2/K3 or K4). With
+``dropout > 0`` the attention output is dropped out before ``out_proj``, in
+training only.
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..nn.basic_layers import Dense
+from ..nn.basic_layers import Dense, Dropout
 from ...ops.attention import flash_attention
 
 __all__ = ["MultiHeadAttention"]
@@ -22,7 +24,8 @@ class MultiHeadAttention(nn.Module):
     ``units``."""
 
     def __init__(self, units: int, num_heads: int, use_bias: bool = True,
-                 causal: bool = False, device=None, dtype=torch.float32):
+                 causal: bool = False, dropout: float = 0.0, device=None,
+                 dtype=torch.float32):
         super().__init__()
         if units % num_heads:
             raise ValueError(f"num_heads {num_heads} must divide units "
@@ -35,6 +38,7 @@ class MultiHeadAttention(nn.Module):
         self.k_proj = Dense(units, units, **kw)
         self.v_proj = Dense(units, units, **kw)
         self.out_proj = Dense(units, units, **kw)
+        self.drop = Dropout(dropout) if dropout else None
 
     def forward(self, x, memory=None):
         mem = x if memory is None else memory
@@ -51,4 +55,6 @@ class MultiHeadAttention(nn.Module):
         v = heads(self.v_proj(mem), Tm)
         out = flash_attention(q, k, v, causal=self._causal, device=x.device)
         out = out.transpose(1, 2).reshape(B, T, self._units)
+        if self.drop is not None:
+            out = self.drop(out)
         return self.out_proj(out)

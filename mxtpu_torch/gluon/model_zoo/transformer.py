@@ -7,7 +7,11 @@ Port of ``mxtpu/gluon/model_zoo/transformer.py``:
            -> LN -> logits = h . E^T   (tied head)
 
 ``forward`` runs attention through the flash-attention forward kernel (K1)
-on the card. ``serving_step`` is the engine's one-position decode step over
+on the card, and its backward through K2/K3 (or K4); the tied head's
+gradient reaches ``embedding.weight`` from both of its uses. Models are
+built in eval mode, as the reference's blocks run outside a training scope:
+``dropout`` acts only in train mode, which ``DataParallelTrainer`` turns on
+for its step. ``cast(dtype)`` casts every parameter. ``serving_step`` is the engine's one-position decode step over
 a float KV cache (plain einsums, as in the reference), and ``generate``
 loops it. Weights are random, drawn from ``seed`` on the CPU, so a model
 built on the card and one built on the CPU from the same seed hold the
@@ -47,12 +51,13 @@ class TransformerBlock(nn.Module):
     """One pre-LN decoder block: causal flash MHA + position-wise FFN."""
 
     def __init__(self, units: int, num_heads: int, ffn_units: int = 0,
-                 device=None, dtype=torch.float32):
+                 dropout: float = 0.0, device=None, dtype=torch.float32):
         super().__init__()
         ffn_units = ffn_units or 4 * units
         kw = dict(device=device, dtype=dtype)
         self.ln1 = LayerNorm(units, **kw)
-        self.attn = MultiHeadAttention(units, num_heads, causal=True, **kw)
+        self.attn = MultiHeadAttention(units, num_heads, causal=True,
+                                       dropout=dropout, **kw)
         self.ln2 = LayerNorm(units, **kw)
         self.ffn1 = Dense(ffn_units, units, **kw)
         self.ffn2 = Dense(units, ffn_units, **kw)
@@ -69,8 +74,8 @@ class TransformerLM(nn.Module):
 
     def __init__(self, vocab_size: int, units: int = 512, num_layers: int = 6,
                  num_heads: int = 8, max_len: int = 2048, ffn_units: int = 0,
-                 tie_weights: bool = True, device=None, dtype=torch.float32,
-                 seed: int = 0):
+                 dropout: float = 0.0, tie_weights: bool = True, device=None,
+                 dtype=torch.float32, seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
         kw = dict(device=dev, dtype=dtype)
@@ -81,11 +86,20 @@ class TransformerLM(nn.Module):
         self.embedding = Embedding(vocab_size, units, **kw)
         self.pos_embed = nn.Parameter(torch.empty(max_len, units, **kw))
         self.blocks = nn.ModuleList(
-            TransformerBlock(units, num_heads, ffn_units, **kw)
+            TransformerBlock(units, num_heads, ffn_units, dropout, **kw)
             for _ in range(num_layers))
         self.ln_f = LayerNorm(units, **kw)
         self.head = None if tie_weights else Dense(vocab_size, units, **kw)
         self.reset_parameters(seed)
+        self.eval()
+
+    def cast(self, dtype):
+        """Cast every parameter (LayerNorm gains included) to ``dtype``, a
+        ``torch.dtype`` or its name (``"bfloat16"``), as ``Block.cast``
+        does; returns the model."""
+        if isinstance(dtype, str):
+            dtype = getattr(torch, dtype)
+        return self.to(dtype=dtype)
 
     @torch.no_grad()
     def reset_parameters(self, seed: int) -> None:

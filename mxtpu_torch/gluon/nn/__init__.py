@@ -1,3 +1,3 @@
-from .basic_layers import Dense, Embedding, LayerNorm
+from .basic_layers import Dense, Dropout, Embedding, LayerNorm
 
-__all__ = ["Dense", "Embedding", "LayerNorm"]
+__all__ = ["Dense", "Dropout", "Embedding", "LayerNorm"]

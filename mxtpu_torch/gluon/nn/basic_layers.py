@@ -1,11 +1,15 @@
-"""Basic layers — ``Dense``, ``Embedding`` and ``LayerNorm`` as
-``nn.Module``s.
+"""Basic layers — ``Dense``, ``Embedding``, ``LayerNorm`` and ``Dropout``
+as ``nn.Module``s.
 
 Port of the parts of ``mxtpu/gluon/nn/basic_layers.py`` the transformer
 uses. Layouts and parameter names follow the reference: ``Dense.weight`` is
 ``(out, in)``, ``LayerNorm`` keeps ``gamma``/``beta`` and normalises over
 the last axis with eps 1e-5 and the biased variance. Parameters are created
 on ``device`` and filled by the model's seeded initialiser.
+
+Dropout draws its mask from the explicit ``torch.Generator`` in its
+``generator`` attribute; ``DataParallelTrainer`` sets one per micro-batch,
+seeded from the step count.
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Dense", "Embedding", "LayerNorm"]
+__all__ = ["Dense", "Dropout", "Embedding", "LayerNorm"]
 
 
 class Dense(nn.Module):
@@ -62,3 +66,29 @@ class LayerNorm(nn.Module):
     def forward(self, x):
         return F.layer_norm(x, self.gamma.shape, self.gamma, self.beta,
                             self._eps)
+
+
+class Dropout(nn.Module):
+    """Inverted dropout (``mxtpu/ops/nn.py:_dropout``): in training, each
+    element is kept with probability ``1 - p`` and scaled by ``1 / (1 -
+    p)``, else zeroed; the identity in eval mode or at ``p == 0``. In
+    training the mask comes from ``self.generator``, a ``torch.Generator``
+    on the input's device, which the caller sets."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        if not 0.0 <= rate < 1.0:
+            raise ValueError(f"dropout rate {rate} is not in [0, 1)")
+        self._rate = float(rate)
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training or self._rate == 0.0:
+            return x
+        if self.generator is None:
+            raise ValueError("Dropout in training needs a torch.Generator in "
+                             "its .generator (DataParallelTrainer sets one "
+                             "each step)")
+        keep = 1.0 - self._rate
+        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        return torch.where(u < keep, x / keep, torch.zeros_like(x))

@@ -1,5 +1,6 @@
-"""Attention ops — flash attention forward as a hand-written CUDA kernel
-(K1, ``csrc/flash_fwd.cu``) with its plain PyTorch version beside it.
+"""Attention ops — flash attention as hand-written CUDA kernels: the
+forward K1 (``csrc/flash_fwd.cu``) and the backward K2, K3 and the fused K4
+(``csrc/flash_bwd.cu``), each with its plain PyTorch version beside it.
 
 Port of ``mxtpu/ops/attention.py``. The public surface keeps the JAX
 layouts and contracts: q, k, v are ``(B, H, T, D)``; ``flash_chunk`` returns
@@ -7,16 +8,24 @@ layouts and contracts: q, k, v are ``(B, H, T, D)``; ``flash_chunk`` returns
 ``flash_attention`` returns the output only. Causal masking is top-left
 (row ``i`` attends keys ``0..i``).
 
+``flash_chunk`` is a ``torch.autograd.Function``: it saves ``q, k, v, out,
+lse`` and its backward takes both cotangents, ``dout`` and ``dlse`` (ring
+merges differentiate through lse). The backward ports the launcher
+``_flash_backward_pallas``: the row term Delta = rowsum(dO * O) - dlse is
+computed in f32 outside the kernels, then the split pair (K2 for dq, K3
+for dk and dv) or, under ``MXTPU_FLASH_BWD=fused`` with T == Tk, the fused
+K4 runs. ``MXTPU_FLASH_LSE=bf16`` rounds the lse and Delta rows the kernels
+read to bf16. Both knobs are read at call time.
+
 Dispatch is by the tensors' device alone: CUDA tensors launch the kernel
-(or raise), CPU tensors take the plain version. This slice runs forward
-only; the backward kernels (K2/K3) come with the training slice, so a call
-that needs a gradient raises ``NotImplementedError``.
+(or raise), CPU tensors take the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import os
 from typing import Optional
 
 import torch
@@ -24,39 +33,91 @@ import torch
 from .._build import kernel as _kernel
 from ..context import check_device
 
-__all__ = ["attention_reference", "flash_attention", "flash_chunk",
+__all__ = ["attention_reference", "flash_attention", "flash_bwd",
+           "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_fused", "flash_chunk",
            "flash_fwd"]
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+_FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
+    ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_BWD_DQ, _BWD_DKV, _BWD_FUSED = 0, 1, 2
 
 
-def _require_no_grad(*tensors) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "flash attention backward (kernels K2/K3) comes with the "
-            "training slice of the port; run the forward under "
-            "torch.no_grad() or torch.inference_mode()")
+def _bwd_mode() -> str:
+    """``'fused'`` under ``MXTPU_FLASH_BWD=fused`` (K4, taken only where
+    T == Tk, as the reference takes it), else ``'split'`` (K2 then K3)."""
+    return "fused" if os.environ.get(
+        "MXTPU_FLASH_BWD", "").strip().lower() == "fused" else "split"
+
+
+def _row_dtype():
+    """Storage dtype of the lse and Delta rows the backward reads: f32, or
+    bf16 under ``MXTPU_FLASH_LSE=bf16`` (halves that traffic; sums stay
+    f32, only the stored rows round)."""
+    return torch.bfloat16 if os.environ.get(
+        "MXTPU_FLASH_LSE", "").strip().lower() == "bf16" else torch.float32
+
+
+def _acc_dtype(x):
+    """f32 for f32 and bf16 inputs; f64 stays f64 (gradcheck)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _causal_keep(tq: int, tk: int, device):
+    return torch.ones(tq, tk, dtype=torch.bool, device=device).tril()
 
 
 def _chunk_reference_lse(q, k, v, causal: bool, scale: float):
-    """Plain version of K1: ``(normalized out, lse)`` in f32, ``out`` cast
-    to q's dtype. Causally masked logits take -1e30 as in the reference;
-    rows with every key masked get a very negative lse, which zeroes their
-    weight in any downstream lse-merge."""
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    """Plain version of K1: ``(normalized out, lse)`` in f32 (f64 for f64
+    inputs), ``out`` cast to q's dtype. Causally masked logits take -1e30
+    as in the reference; rows with every key masked get a very negative
+    lse, which zeroes their weight in any downstream lse-merge."""
+    acc = _acc_dtype(q)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) * scale
     if causal:
-        tq, tk = logits.shape[-2], logits.shape[-1]
-        keep = torch.ones(tq, tk, dtype=torch.bool,
-                          device=logits.device).tril()
+        keep = _causal_keep(logits.shape[-2], logits.shape[-1], q.device)
         logits = logits.masked_fill(~keep, _NEG_INF)
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.einsum("bhqk,bhkd->bhqd", p / l, v.float())
+    out = torch.einsum("bhqk,bhkd->bhqd", p / l, v.to(acc))
     return out.to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def _bwd_rows(out, lse, dout, dlse):
+    """The rows the backward reads: ``(lse, Delta)``, (B, H, T) each, with
+    Delta = rowsum(dO * O) - dlse in f32 (f64 for f64 inputs), both stored
+    in :func:`_row_dtype` for f32 and bf16 inputs."""
+    acc = _acc_dtype(out)
+    delta = (dout.to(acc) * out.to(acc)).sum(-1)
+    if dlse is not None:
+        delta = delta - dlse.to(acc)
+    row = _row_dtype() if acc == torch.float32 else acc
+    return lse.to(row), delta.to(row)
+
+
+def _flash_bwd_plain(q, k, v, dout, lse, delta, causal: bool, scale: float):
+    """Plain version of K2/K3/K4: ``(dq, dk, dv)`` from the saved rows by
+    the kernels' recompute formulas, P = exp(s - lse), dS = P * (dP -
+    Delta), dq = scale dS K, dk = dS^T (scale q), dv = P^T dO, summed in f32
+    (f64 for f64 inputs) and cast to the inputs' dtype."""
+    acc = _acc_dtype(q)
+    qs = q.to(acc) * scale
+    kf, vf, dof = k.to(acc), v.to(acc), dout.to(acc)
+    s = torch.einsum("bhqd,bhkd->bhqk", qs, kf)
+    if causal:
+        keep = _causal_keep(s.shape[-2], s.shape[-1], q.device)
+        s = s.masked_fill(~keep, _NEG_INF)
+    p = torch.exp(s - lse.to(acc)[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - delta.to(acc)[..., None])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qs)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def attention_reference(q, k, v, causal: bool = False,
@@ -65,6 +126,33 @@ def attention_reference(q, k, v, causal: bool = False,
     of K1 without its lse."""
     s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     return _chunk_reference_lse(q, k, v, causal, s)[0]
+
+
+def _check_qkv(name, q, k, v, *more):
+    """The kernels' input rules: CUDA tensors on one device, f32 or bf16
+    of one dtype, contiguous, q (B, H, T, D) and k/v (B, H, Tk, D) with
+    0 < D <= 256 and B*H <= 65535. ``more`` are further (B, H, T, D)
+    tensors shaped like q (dO). Returns ``(B, H, T, Tk, D)``."""
+    ts = (q, k, v) + more
+    if not all(t.is_cuda and t.device == q.device for t in ts):
+        raise ValueError(f"{name} takes CUDA tensors on one device")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in ts):
+        raise TypeError(f"{name} takes f32 or bf16 tensors of one dtype, "
+                        f"got {[str(t.dtype) for t in ts]}")
+    if q.dim() != 4:
+        raise ValueError(f"q must be (B, H, T, D), got {tuple(q.shape)}")
+    B, H, T, D = q.shape
+    Tk = k.shape[2]
+    if k.shape != (B, H, Tk, D) or v.shape != k.shape or any(
+            t.shape != q.shape for t in more):
+        raise ValueError(f"shapes {[tuple(t.shape) for t in ts]} do not "
+                         f"match q {tuple(q.shape)}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name} takes contiguous tensors")
+    if not (0 < D <= 256 and T > 0 and Tk > 0 and B * H <= 65535):
+        raise ValueError(f"{name} takes 0 < D <= 256, T, Tk > 0 and "
+                         f"B*H <= 65535, got {tuple(q.shape)}, Tk={Tk}")
+    return B, H, T, Tk, D
 
 
 def flash_fwd(q, k, v, causal: bool, scale: float):
@@ -77,26 +165,10 @@ def flash_fwd(q, k, v, causal: bool, scale: float):
     _flash_fwd_kernel``. It is bound by arithmetic (each K/V tile serves
     64 query rows); this version runs on the CUDA cores in f32 and keeps
     the T x T scores out of device memory (``csrc/flash_fwd.cu``)."""
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("flash_fwd takes CUDA tensors on one device")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_fwd takes f32 or bf16 q/k/v of one dtype, "
-                        f"got {q.dtype}/{k.dtype}/{v.dtype}")
-    if q.dim() != 4:
-        raise ValueError(f"q must be (B, H, T, D), got {tuple(q.shape)}")
-    B, H, T, D = q.shape
-    Tk = k.shape[2]
-    if k.shape != (B, H, Tk, D) or v.shape != k.shape:
-        raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not "
-                         f"match q {tuple(q.shape)}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_fwd takes contiguous q, k, v")
-    if not (0 < D <= 256 and T > 0 and Tk > 0 and B * H <= 65535):
-        raise ValueError(f"flash_fwd takes 0 < D <= 256, T, Tk > 0 and "
-                         f"B*H <= 65535, got {tuple(q.shape)}, Tk={Tk}")
+    B, H, T, Tk, D = _check_qkv("flash_fwd", q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    fn = _kernel("flash_fwd", "mxt_flash_fwd", _ARGTYPES)
+    fn = _kernel("flash_fwd", "mxt_flash_fwd", _FWD_ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), B * H, T, Tk, D, float(scale), int(causal),
              _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
@@ -109,13 +181,133 @@ def flash_fwd(q, k, v, causal: bool, scale: float):
 flash_fwd.launches = 0
 
 
+def _launch_bwd(which, q, k, v, dout, lse, delta, causal, scale):
+    B, H, T, Tk, D = _check_qkv(_BWD_NAMES[which], q, k, v, dout)
+    rows_bf16 = lse.dtype == torch.bfloat16
+    for r in (lse, delta):
+        if r.shape != (B, H, T) or r.device != q.device or not \
+                r.is_contiguous() or r.dtype != lse.dtype or r.dtype not in (
+                    torch.float32, torch.bfloat16):
+            raise ValueError(f"lse/delta rows must be contiguous (B, H, T) "
+                             f"f32 or bf16 on {q.device}, one dtype; got "
+                             f"{tuple(r.shape)} {r.dtype}")
+    if which == _BWD_FUSED and T != Tk:
+        raise ValueError(f"flash_bwd_fused takes T == Tk, got {T}, {Tk}")
+    dq = torch.empty_like(q) if which != _BWD_DKV else None
+    dk = torch.empty_like(k) if which != _BWD_DQ else None
+    dv = torch.empty_like(v) if which != _BWD_DQ else None
+    fn = _kernel("flash_bwd", "mxt_flash_bwd", _BWD_ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(),
+             0 if dq is None else dq.data_ptr(),
+             0 if dk is None else dk.data_ptr(),
+             0 if dv is None else dv.data_ptr(), B * H, T, Tk, D,
+             float(scale), int(causal), _DTYPES[q.dtype], int(rows_bf16),
+             which, torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{_BWD_NAMES[which]} launch failed "
+                           f"(cudaError {err})")
+    return dq, dk, dv
+
+
+def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool, scale: float):
+    """Launch K2 on CUDA tensors: dq (B, H, T, D) in q's dtype, from q and
+    dO (B, H, T, D), k and v (B, H, Tk, D), and the lse and Delta rows
+    (B, H, T), f32 or bf16. Takes what K1 takes; raises on anything else
+    or on a refused launch. ``flash_bwd_dq.launches`` counts the launches.
+
+    K2 replaces the Pallas kernel ``mxtpu/ops/attention.py:
+    _flash_bwd_dq_kernel``: one block owns 64 query rows and streams the
+    key tiles up to the causal diagonal (``csrc/flash_bwd.cu``)."""
+    dq = _launch_bwd(_BWD_DQ, q, k, v, dout, lse, delta, causal, scale)[0]
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool, scale: float):
+    """Launch K3 on CUDA tensors: ``(dk, dv)``, (B, H, Tk, D) in k's dtype,
+    from the inputs :func:`flash_bwd_dq` takes. ``flash_bwd_dkv.launches``
+    counts the launches.
+
+    K3 replaces the Pallas kernel ``mxtpu/ops/attention.py:
+    _flash_bwd_dkv_kernel``: one block owns a key tile and streams the
+    query tiles from the causal start (``csrc/flash_bwd.cu``)."""
+    _, dk, dv = _launch_bwd(_BWD_DKV, q, k, v, dout, lse, delta, causal,
+                            scale)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_bwd_fused(q, k, v, dout, lse, delta, causal: bool, scale: float):
+    """Launch K4 on CUDA tensors with T == Tk: ``(dq, dk, dv)`` in one
+    launch, equal to K2 and K3's. ``flash_bwd_fused.launches`` counts the
+    launches.
+
+    K4 replaces the Pallas kernel ``mxtpu/ops/attention.py:
+    _flash_bwd_fused_kernel``: block i computes dq of query tile i and dk,
+    dv of key tile i (``csrc/flash_bwd.cu``)."""
+    out = _launch_bwd(_BWD_FUSED, q, k, v, dout, lse, delta, causal, scale)
+    flash_bwd_fused.launches += 1
+    return out
+
+
+_BWD_NAMES = {_BWD_DQ: "flash_bwd_dq", _BWD_DKV: "flash_bwd_dkv",
+              _BWD_FUSED: "flash_bwd_fused"}
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0
+flash_bwd_fused.launches = 0
+
+
+def flash_bwd(q, k, v, out, lse, dout, dlse, causal: bool, scale: float):
+    """The backward of :func:`flash_chunk`: ``(dq, dk, dv)`` for the
+    cotangents ``dout`` of ``out`` and ``dlse`` of ``lse`` (None when lse
+    is unused). On CUDA tensors the split pair K2 + K3 runs, or K4 under
+    ``MXTPU_FLASH_BWD=fused`` when T == Tk; CPU tensors take the plain
+    version."""
+    dout = dout.contiguous()
+    lse_rows, delta = _bwd_rows(out, lse, dout, dlse)
+    if not q.is_cuda:
+        return _flash_bwd_plain(q, k, v, dout, lse_rows, delta, causal,
+                                scale)
+    if _bwd_mode() == "fused" and q.shape[2] == k.shape[2]:
+        return flash_bwd_fused(q, k, v, dout, lse_rows, delta, causal, scale)
+    dq = flash_bwd_dq(q, k, v, dout, lse_rows, delta, causal, scale)
+    dk, dv = flash_bwd_dkv(q, k, v, dout, lse_rows, delta, causal, scale)
+    return dq, dk, dv
+
+
+class _FlashChunk(torch.autograd.Function):
+    """``(out, lse)`` of one chunk, differentiable in q, k and v through
+    both outputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        if q.is_cuda:
+            out, lse = flash_fwd(q, k, v, causal, scale)
+        else:
+            out, lse = _chunk_reference_lse(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout is None:        # only lse reached the loss
+            dout = torch.zeros_like(out)
+        dq, dk, dv = flash_bwd(q, k, v, out, lse, dout, dlse, ctx.causal,
+                               ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_chunk(q, k, v, causal: bool, scale: float):
     """One self-attention chunk returning ``(normalized out, lse
-    (B, H, T))``: K1 on CUDA tensors, the plain version on CPU tensors."""
-    _require_no_grad(q, k, v)
-    if q.is_cuda:
-        return flash_fwd(q, k, v, causal, scale)
-    return _chunk_reference_lse(q, k, v, causal, scale)
+    (B, H, T))``: K1 on CUDA tensors, the plain version on CPU tensors.
+    Differentiable in q, k and v through both outputs (K2/K3 or K4 on
+    CUDA tensors)."""
+    return _FlashChunk.apply(q, k, v, causal, scale)
 
 
 def flash_attention(q, k, v, causal: bool = False,

@@ -73,13 +73,20 @@ def test_flash_attention_device_rules():
 
 
 def test_flash_chunk_refuses_gradients():
-    """Forward only in this slice: a call that needs a gradient raises."""
+    """It no longer does: since the backward kernels (K2/K3) were ported, a
+    call that needs a gradient builds a graph whose gradients equal
+    autograd through the plain attention, and a call under
+    ``torch.no_grad()`` builds none."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 1, 8, 4, seed=4))
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        ta.flash_chunk(q, k, v, False, 0.5)
+    out, _ = ta.flash_chunk(q, k, v, False, 0.5)
+    out.sum().backward()
+    q2 = q.detach().clone().requires_grad_(True)
+    ta.attention_reference(q2, k, v, scale=0.5).sum().backward()
+    torch.testing.assert_close(q.grad, q2.grad, rtol=1e-5, atol=1e-5)
     with torch.no_grad():
-        ta.flash_chunk(q, k, v, False, 0.5)
+        out, _ = ta.flash_chunk(q, k, v, False, 0.5)
+    assert out.grad_fn is None
 
 
 def test_flash_fwd_wrapper_takes_only_cuda_tensors():

@@ -61,3 +61,7 @@ def test_entry_points_refuse_the_cpu_without_cuda():
     net = transformer_lm("tiny", vocab_size=50, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(net, quant="int8_kv")
+    from mxtpu_torch.optimizer import Adam
+    from mxtpu_torch.parallel import DataParallelTrainer
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DataParallelTrainer(net, lambda out, y: out.sum(), Adam())

@@ -10,7 +10,8 @@ Phases, in order; any failure exits non-zero without a result line:
    with ``nvcc`` (one process per source, in parallel);
 2. K1 (flash-attention forward) against its plain PyTorch version on the
    card at the forward's shapes (B=4, H=12, T=1024, D=64, causal) in f32
-   and bf16, plus ragged and wide-head shapes: error, kernel, plain and
+   and bf16, at the training shape (B=8, H=16, T=1024, D=64, causal,
+   bf16), plus ragged and wide-head shapes: error, kernel, plain and
    ``scaled_dot_product_attention`` times, and the bound;
 3. K5 (dequant decode) against its plain version at the engine's decode
    shape (S=8, H=12, TOT=1024, D=64) with ragged cursors, int8 and fp8;
@@ -27,22 +28,25 @@ Phases, in order; any failure exits non-zero without a result line:
    the card at the training shape (B=8, H=16, T=1024, D=64, causal) in
    bf16 and f32, and at ragged shapes (T=1000, T != Tk, D=40, 128, 256),
    with an lse cotangent and with bf16 lse/Delta rows: kernel, plain and
-   ``scaled_dot_product_attention``-backward times, and the bounds;
+   ``scaled_dot_product_attention``-backward times, and the bounds; then
+   K2 + K3 timed against K4 on a small grid and without the causal mask;
 8. training: ``transformer_lm("flagship", vocab_size=16384)`` in bf16
    (d1024, L8, H16) takes 1 + 24 Adam steps on one fixed (32, 1024) batch
    through ``DataParallelTrainer(micro_batches=4)``; the loss must fall by
    0.3 (the learning gate of the JAX package's benchmark) and K1, K2 and
    K3 must launch once per layer, micro-batch and step; then one step
    under ``torch.profiler``;
-9. the fused backward: 3 steps of the same run under
-   ``MXTPU_FLASH_BWD=fused``; K4 must launch and the losses equal the split
-   run's;
-10. training card against CPU: base width, 2 layers, f32, B=4, T=256, 3
-    Adam steps; the losses agree.
+9. the fused backward: 3 steps of the same run with the split pair, then 3
+   under ``MXTPU_FLASH_BWD=fused``; K4 must launch, and the losses and
+   the trained weights equal the split run's bit for bit;
+10. training card against CPU: base width, 2 layers, f32, B=4, T=256; the
+    first batch's gradients, the losses of 3 Adam steps and the weights
+    after them agree.
 
-Launch counts are set to 0 just before phases 4, 5, 8 and 9 and read just
-after. The line before the last is the kernels' JSON record; the last line
-is ``{"ok": true, "device": {...}}``. Weights are random, from fixed
+Launch counts are set to 0 just before phases 4, 5, 8 and 9 (its fused
+run) and read just after. The line before the last is the kernels' JSON
+record, with one K1 record for each path it runs on; the last line is
+``{"ok": true, "device": {...}}``. Weights are random, from fixed
 seeds.
 """
 
@@ -94,26 +98,29 @@ def _bound(flops, nbytes, dtype):
 
 
 def phase_k1(torch, attention):
-    """K1 against its plain version; returns the main-path record (f32,
-    causal, the forward's shape)."""
+    """K1 against its plain version; returns the record of each main path
+    by name: ``forward`` (f32, causal, the scoring forward's shape) and
+    ``train`` (bf16, causal, one training micro-batch)."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
-    cases = [  # (label, B, H, T, Tk, D, dtype, causal, out tol, timed)
-        ("f32 causal", 4, 12, 1024, 1024, 64, torch.float32, True, 1e-4, True),
-        ("bf16 causal", 4, 12, 1024, 1024, 64, torch.bfloat16, True, 1e-2,
-         True),
-        ("f32 causal ragged T=1000", 4, 12, 1000, 1000, 64, torch.float32,
-         True, 1e-4, False),
-        ("f32 full T=1000 Tk=1021", 2, 4, 1000, 1021, 64, torch.float32,
-         False, 1e-4, False),
-        ("f32 causal D=256", 1, 2, 200, 200, 256, torch.float32, True, 1e-4,
-         False),
-        ("bf16 full D=40", 2, 3, 77, 130, 40, torch.bfloat16, False, 1e-2,
-         False),
+    f32, bf16 = torch.float32, torch.bfloat16
+    # record: the main path the case stands for ("" timed only, None
+    # checked only)
+    cases = [  # (label, B, H, T, Tk, D, dtype, causal, out tol, record)
+        ("f32 causal", 4, 12, 1024, 1024, 64, f32, True, 1e-4, "forward"),
+        ("bf16 causal", 4, 12, 1024, 1024, 64, bf16, True, 1e-2, ""),
+        ("bf16 causal, training shape", 8, 16, 1024, 1024, 64, bf16, True,
+         1e-2, "train"),
+        ("f32 causal ragged T=1000", 4, 12, 1000, 1000, 64, f32, True, 1e-4,
+         None),
+        ("f32 full T=1000 Tk=1021", 2, 4, 1000, 1021, 64, f32, False, 1e-4,
+         None),
+        ("f32 causal D=256", 1, 2, 200, 200, 256, f32, True, 1e-4, None),
+        ("bf16 full D=40", 2, 3, 77, 130, 40, bf16, False, 1e-2, None),
     ]
-    main = None
-    for label, B, H, T, Tk, D, dt, causal, tol, do_time in cases:
+    recs = {}
+    for label, B, H, T, Tk, D, dt, causal, tol, record in cases:
         q = torch.randn(B, H, T, D, device=dev, generator=g).to(dt)
         k = torch.randn(B, H, Tk, D, device=dev, generator=g).to(dt)
         v = torch.randn(B, H, Tk, D, device=dev, generator=g).to(dt)
@@ -128,7 +135,7 @@ def phase_k1(torch, attention):
               f"(tol 1e-4)")
         line = (f"K1 {label} B{B} H{H} T{T} Tk{Tk} D{D}: max_abs_err out "
                 f"{err:.3e} (tol {tol:g}) lse {lse_err:.3e} (tol 1e-4)")
-        if not do_time:
+        if record is None:
             print(line, flush=True)
             continue
         ms = timed_ms(torch, lambda: attention.flash_fwd(q, k, v, causal,
@@ -147,11 +154,11 @@ def phase_k1(torch, attention):
         print(f"{line}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
               f"{flops:.3e} flops, {nbytes} bytes)", flush=True)
-        if main is None:
-            main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bound_ms, bound_by=bound_by,
-                        library_ms=lib_ms)
-    return main
+        if record:
+            recs[record] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                bound_ms=bound_ms, bound_by=bound_by,
+                                library_ms=lib_ms)
+    return recs
 
 
 def phase_k5(torch, quant_attention, kv_quant):
@@ -315,8 +322,11 @@ def phase_bwd(torch, attention):
         in_bytes = BH * (2 * T + 2 * Tk) * D * elem \
             + 2 * BH * T * rows[0].element_size()
         q_bytes, kv_bytes = BH * T * D * elem, 2 * BH * Tk * D * elem
+        # products of T x Tk x D the function needs: dq S, dP, dS K; dk, dv
+        # S, dP, dS^T q, P^T dO; all three S, dP, dq, dk, dv (K4 runs K2's
+        # body and K3's, 7 products, 7/5 of what it needs)
         work = {"K2": (3, in_bytes + q_bytes), "K3": (4, in_bytes + kv_bytes),
-                "K4": (7, in_bytes + q_bytes + kv_bytes)}
+                "K4": (5, in_bytes + q_bytes + kv_bytes)}
         recs = {}
         for kern, (products, nbytes) in work.items():
             flops = 2.0 * products * BH * pairs * D
@@ -331,7 +341,31 @@ def phase_bwd(torch, attention):
               f"{lib_ms:.4f} ms", flush=True)
         if main is None:
             main = recs
+    split_vs_fused(torch, attention, g)
     return main
+
+
+def split_vs_fused(torch, attention, g):
+    """Times the split pair (K2 then K3) against K4 at self-attention
+    shapes off the training one: a small grid (B*H = 4), and no causal
+    mask."""
+    dev = torch.device("cuda")
+    for B, H, causal in ((1, 4, True), (1, 4, False), (8, 16, False)):
+        T, D = 1024, 64
+        q, k, v, dout = (torch.randn(B, H, T, D, device=dev, generator=g)
+                         .to(torch.bfloat16) for _ in range(4))
+        scale = 1.0 / math.sqrt(D)
+        out, lse = attention.flash_fwd(q, k, v, causal, scale)
+        args = (q, k, v, dout) + attention._bwd_rows(out, lse, dout, None) \
+            + (causal, scale)
+        split_ms = timed_ms(torch, lambda: (attention.flash_bwd_dq(*args),
+                                            attention.flash_bwd_dkv(*args)),
+                            10)
+        fused_ms = timed_ms(torch, lambda: attention.flash_bwd_fused(*args),
+                            10)
+        print(f"split vs fused, bf16 {'causal' if causal else 'full'} B{B} "
+              f"H{H} T{T} D{D}: K2 + K3 {split_ms:.4f} ms, K4 "
+              f"{fused_ms:.4f} ms", flush=True)
 
 
 def phase_forward(torch, lm, attention, counts):
@@ -496,7 +530,7 @@ def _train_batch(torch):
 
 def phase_train(torch, lm, attention, optimizer, loss_mod, parallel, counts):
     """The flagship in bf16 memorises one batch (the JAX package's training
-    benchmark); returns (losses of the first 3 steps, launch counts)."""
+    benchmark); returns the launch counts."""
     model = _flagship(lm)
     L, K = len(model.blocks), TRAIN["micro_batches"]
     B, T, steps = TRAIN["B"], TRAIN["T"], TRAIN["steps"]
@@ -551,7 +585,7 @@ def phase_train(torch, lm, attention, optimizer, loss_mod, parallel, counts):
           f"of the 989 TFLOP/s bf16 peak", flush=True)
     print(f"  losses {[round(v, 4) for v in losses]}", flush=True)
     profile_step(torch, dpt, x, y)
-    return losses[:3], launches
+    return launches
 
 
 def profile_step(torch, dpt, x, y):
@@ -582,42 +616,62 @@ def profile_step(torch, dpt, x, y):
               f"{name[:110]}", flush=True)
 
 
-def phase_fused(torch, lm, attention, optimizer, loss_mod, parallel, counts,
-                split_losses):
-    """3 steps of the training run under ``MXTPU_FLASH_BWD=fused``: K4
-    replaces K2 + K3 and the losses equal the split run's."""
-    model = _flagship(lm)
-    L, K = len(model.blocks), TRAIN["micro_batches"]
+def _max_diff(torch, a, b):
+    """Largest absolute difference over two lists of tensors, in f32 on
+    the CPU."""
+    return max((x.detach().float().cpu() - y.detach().float().cpu()).abs()
+               .max().item() for x, y in zip(a, b))
+
+
+def phase_fused(torch, lm, attention, optimizer, loss_mod, parallel, counts):
+    """3 steps of the training run with the split pair, then 3 from the same
+    weights under ``MXTPU_FLASH_BWD=fused``: K4 replaces K2 + K3, and the
+    losses and the trained weights equal the split run's bit for bit (K4
+    computes K2's and K3's outputs with their tiles, in their order)."""
+    L, K = 0, TRAIN["micro_batches"]
     x, y = _train_batch(torch)
-    dpt = parallel.DataParallelTrainer(model, SeqLoss(loss_mod),
-                                       optimizer.Adam(learning_rate=3e-4),
-                                       micro_batches=K)
-    os.environ["MXTPU_FLASH_BWD"] = "fused"
-    try:
-        counts(0)
-        losses = [dpt.step_async(x, y) for _ in range(3)]
-        losses = [float(v) for v in losses]
-        launches = dict(K2=attention.flash_bwd_dq.launches,
-                        K3=attention.flash_bwd_dkv.launches,
-                        K4=attention.flash_bwd_fused.launches)
-    finally:
-        os.environ.pop("MXTPU_FLASH_BWD")
+    runs = {}
+    for mode in ("split", "fused"):
+        model = _flagship(lm)
+        L = len(model.blocks)
+        dpt = parallel.DataParallelTrainer(model, SeqLoss(loss_mod),
+                                           optimizer.Adam(learning_rate=3e-4),
+                                           micro_batches=K)
+        if mode == "fused":
+            os.environ["MXTPU_FLASH_BWD"] = "fused"
+            counts(0)
+        try:
+            losses = [float(v) for v in
+                      [dpt.step_async(x, y) for _ in range(3)]]
+            launches = dict(K2=attention.flash_bwd_dq.launches,
+                            K3=attention.flash_bwd_dkv.launches,
+                            K4=attention.flash_bwd_fused.launches)
+        finally:
+            os.environ.pop("MXTPU_FLASH_BWD", None)
+        runs[mode] = (losses, [p.detach().clone()
+                               for p in model.parameters()])
+        del model, dpt
+        torch.cuda.empty_cache()
     check(launches["K4"] == L * K * 3 and launches["K2"] == 0 and
           launches["K3"] == 0, f"fused launches {launches}, want K4 = "
           f"{L * K * 3} and no K2/K3")
-    diff = max(abs(a - b) for a, b in zip(losses, split_losses))
-    tol = 1e-3 * max(abs(v) for v in split_losses)
-    check(diff <= tol, f"fused losses {losses} vs split {split_losses}: "
-          f"diff {diff} (tol {tol})")
+    (split_losses, split_w), (losses, w) = runs["split"], runs["fused"]
+    ldiff = max(abs(a - b) for a, b in zip(losses, split_losses))
+    wdiff = _max_diff(torch, w, split_w)
+    check(ldiff == 0 and wdiff == 0,
+          f"fused losses {losses} vs split {split_losses}: diff {ldiff}; "
+          f"weights after 3 steps differ by {wdiff} (both must be 0)")
     print(f"fused backward: 3 steps, losses {losses} vs split "
-          f"{split_losses}, max diff {diff:.3e} (tol {tol:.3e}); launches "
-          f"{launches}", flush=True)
+          f"{split_losses}, max diff {ldiff:.3e}; weights after 3 steps max "
+          f"diff {wdiff:.3e} (both must be 0); launches {launches}",
+          flush=True)
     return launches["K4"]
 
 
 def phase_train_card_vs_cpu(torch, lm, optimizer, loss_mod, parallel):
     """The same weights and batches train on the card and on the CPU (f32,
-    base width, 2 layers, B=4, T=256, 3 Adam steps): the losses agree."""
+    base width, 2 layers, B=4, T=256): the gradients of the first batch,
+    the losses of 3 Adam steps and the weights after them agree."""
     import numpy as np
     cpu = lm.transformer_lm("base", vocab_size=16384, num_layers=2,
                             device="cpu", seed=11)
@@ -627,19 +681,42 @@ def phase_train_card_vs_cpu(torch, lm, optimizer, loss_mod, parallel):
     batches = [(rs.randint(0, 16384, (4, 256)).astype(np.int32),
                 rs.randint(0, 16384, (4, 256)).astype(np.float32))
                for _ in range(3)]
-    losses = {}
-    for name, net, dev in (("cuda", gpu, None), ("cpu", cpu, "cpu")):
+    grads, losses, weights = {}, {}, {}
+    for name, net, dev in (("cuda", gpu, "cuda"), ("cpu", cpu, "cpu")):
+        x, y = (torch.from_numpy(a).to(dev) for a in batches[0])
+        grads[name] = torch.autograd.grad(
+            SeqLoss(loss_mod)(net(x), y).float().mean(),
+            list(net.parameters()))
         dpt = parallel.DataParallelTrainer(
             net, SeqLoss(loss_mod), optimizer.Adam(learning_rate=1e-3),
-            micro_batches=2, device=dev)
+            micro_batches=2, device=None if dev == "cuda" else dev)
         losses[name] = [dpt.step(x, y) for x, y in batches]
-    diff = max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"]))
-    tol = 1e-4 * max(abs(v) for v in losses["cpu"])
-    check(diff <= tol, f"training losses card {losses['cuda']} vs CPU "
-          f"{losses['cpu']}: diff {diff} (tol {tol})")
-    print(f"train card vs CPU, base width 2 layers f32 B4 T256 x2, 3 Adam "
-          f"steps: losses card {losses['cuda']} CPU {losses['cpu']}, max "
-          f"diff {diff:.3e} (tol {tol:.3e})", flush=True)
+        weights[name] = dict(net.named_parameters())
+    # each gradient against its own largest entry, floored at 1e-3 of the
+    # model's: the key bias's gradient is 0 (softmax ignores a shift shared
+    # by a row's logits), so both sides hold rounding noise there
+    floor = 1e-3 * max(b.abs().max().item() for b in grads["cpu"])
+    gdiff, gname = max(((a.cpu() - b).abs().max().item() / max(
+        b.abs().max().item(), floor), n) for n, a, b in zip(
+        weights["cpu"], grads["cuda"], grads["cpu"]))
+    ldiff = max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    # Adam's first step, lr * g / (|g| + 3.2e-7), magnifies the rounding of
+    # gradient entries near 3.2e-7
+    wdiffs = sorted(((_max_diff(torch, [w], [weights["cpu"][n]]), n)
+                     for n, w in weights["cuda"].items()), reverse=True)
+    wdiff = wdiffs[0][0]
+    gtol, ltol, wtol = 5e-5, 1e-5, 5e-5
+    check(gdiff <= gtol and ldiff <= ltol and wdiff <= wtol,
+          f"training card vs CPU: first-batch gradients differ by {gdiff} of "
+          f"their largest entry (tol {gtol}), losses card {losses['cuda']} "
+          f"vs CPU {losses['cpu']} by {ldiff} (tol {ltol}), weights after 3 "
+          f"steps by {wdiffs[:3]} (tol {wtol})")
+    print(f"train card vs CPU, base width 2 layers f32 B4 T256 x2: "
+          f"first-batch gradients max diff {gdiff:.3e} of each tensor's "
+          f"largest entry, in {gname} (tol {gtol:g}); 3 Adam steps, losses "
+          f"card {losses['cuda']} CPU {losses['cpu']}, max diff "
+          f"{ldiff:.3e} (tol {ltol:g}); weights max diff (tol {wtol:g}) "
+          + ", ".join(f"{d:.3e} in {n}" for d, n in wdiffs[:3]), flush=True)
 
 
 def run():
@@ -698,13 +775,11 @@ def run():
     torch.cuda.empty_cache()
     timed_phase("card vs CPU", phase_card_vs_cpu, torch, lm, serving)
     bwd = timed_phase("K2/K3/K4 checks", phase_bwd, torch, attention)
-    split_losses, train_launches = timed_phase(
-        "train", phase_train, torch, lm, attention, optimizer, loss_mod,
-        parallel, counts)
+    train_launches = timed_phase("train", phase_train, torch, lm, attention,
+                                 optimizer, loss_mod, parallel, counts)
     torch.cuda.empty_cache()
     k4_launches = timed_phase("fused", phase_fused, torch, lm, attention,
-                              optimizer, loss_mod, parallel, counts,
-                              split_losses)
+                              optimizer, loss_mod, parallel, counts)
     torch.cuda.empty_cache()
     timed_phase("train card vs CPU", phase_train_card_vs_cpu, torch, lm,
                 optimizer, loss_mod, parallel)
@@ -712,23 +787,29 @@ def run():
           f"{train_launches['K1']}", flush=True)
 
     bwd_src = "mxtpu_torch/csrc/flash_bwd.cu"
+    # K1 runs on two paths at two shapes and dtypes: one record each
     kernels = [
         dict(name="flash_fwd", route="cuda",
              source="mxtpu_torch/csrc/flash_fwd.cu",
-             replaces="mxtpu/ops/attention.py:133",
-             launches=train_launches["K1"], **k1),
+             replaces="mxtpu/ops/attention.py:133", path="forward",
+             launches=k1_launches, **k1["forward"]),
+        dict(name="flash_fwd", route="cuda",
+             source="mxtpu_torch/csrc/flash_fwd.cu",
+             replaces="mxtpu/ops/attention.py:133", path="train",
+             launches=train_launches["K1"], **k1["train"]),
         dict(name="flash_bwd_dq", route="cuda", source=bwd_src,
-             replaces="mxtpu/ops/attention.py:182",
+             replaces="mxtpu/ops/attention.py:182", path="train",
              launches=train_launches["K2"], **bwd["K2"]),
         dict(name="flash_bwd_dkv", route="cuda", source=bwd_src,
-             replaces="mxtpu/ops/attention.py:220",
+             replaces="mxtpu/ops/attention.py:220", path="train",
              launches=train_launches["K3"], **bwd["K3"]),
         dict(name="flash_bwd_fused", route="cuda", source=bwd_src,
-             replaces="mxtpu/ops/attention.py:262", launches=k4_launches,
+             replaces="mxtpu/ops/attention.py:262",
+             path="train, MXTPU_FLASH_BWD=fused", launches=k4_launches,
              **bwd["K4"]),
         dict(name="dequant_decode", route="cuda",
              source="mxtpu_torch/csrc/dequant_decode.cu",
-             replaces="mxtpu/ops/quant_attention.py:99",
+             replaces="mxtpu/ops/quant_attention.py:99", path="serving",
              launches=k5_launches, **k5),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -48,7 +48,10 @@ _BWD_DQ, _BWD_DKV, _BWD_FUSED = 0, 1, 2
 
 def _bwd_mode() -> str:
     """``'fused'`` under ``MXTPU_FLASH_BWD=fused`` (K4, taken only where
-    T == Tk, as the reference takes it), else ``'split'`` (K2 then K3)."""
+    T == Tk, as the reference takes it), else ``'split'`` (K2 then K3).
+    The default and the knob are the reference's, so both packages run
+    the same backward for the same setting; K4 gives the same bits as
+    K2 + K3 and is not slower at any shape measured (PERF.md)."""
     return "fused" if os.environ.get(
         "MXTPU_FLASH_BWD", "").strip().lower() == "fused" else "split"
 

@@ -73,8 +73,19 @@ def test_flash_attention_device_rules():
 
 
 def test_flash_chunk_refuses_gradients():
-    """It no longer does: since the backward kernels (K2/K3) were ported, a
-    call that needs a gradient builds a graph whose gradients equal
+    """``flash_chunk`` refuses second-order gradients: its backward runs the
+    backward kernels, which have no derivative of their own, so
+    differentiating a gradient raises instead of returning a wrong one."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 1, 8, 4, seed=4))
+    q.requires_grad_(True)
+    out, _ = ta.flash_chunk(q, k, v, False, 0.5)
+    g, = torch.autograd.grad((out ** 2).sum(), q, create_graph=True)
+    with pytest.raises(RuntimeError, match="differentiate twice"):
+        g.sum().backward()
+
+
+def test_flash_chunk_gradients_match_reference():
+    """A call that needs a gradient builds a graph whose gradients equal
     autograd through the plain attention, and a call under
     ``torch.no_grad()`` builds none."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 1, 8, 4, seed=4))

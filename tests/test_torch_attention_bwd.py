@@ -84,7 +84,11 @@ def test_backward_with_lse_cotangent_matches_pallas():
 
 @pytest.mark.parametrize("causal", [False, True])
 def test_fused_backward_matches_pallas_fused(monkeypatch, causal):
-    """``MXTPU_FLASH_BWD=fused``, read at call time by both packages."""
+    """``MXTPU_FLASH_BWD=fused``, read at call time by both packages. Only
+    the reference side runs a fused kernel here: on CPU tensors the port
+    takes its plain backward whatever the knob says. The port's K4 is held
+    to the plain backward and to K2 + K3 on the card (``chip_smoke.py``
+    phases 7 and 9)."""
     monkeypatch.setenv("MXTPU_FLASH_BWD", "fused")
     assert ta._bwd_mode() == "fused"
     q, k, v, g, g_lse = _inputs(1, 2, 256, 64, seed=6 + causal)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke for mxtpu_torch: builds the port's CUDA kernels and drives its
-main paths on one NVIDIA GPU: serving and training.
+main paths on one NVIDIA GPU: serving, training, and the imperative
+``nd`` + ``autograd`` path with runtime-compiled kernels (``rtc``).
 
     python3 chip_smoke.py
 
@@ -41,13 +42,28 @@ Phases, in order; any failure exits non-zero without a result line:
    the trained weights equal the split run's bit for bit;
 10. training card against CPU: base width, 2 layers, f32, B=4, T=256; the
     first batch's gradients, the losses of 3 Adam steps and the weights
-    after them agree.
+    after them agree;
+11. K6 checks (``rtc``: CUDA C compiled by NVRTC, launched through the
+    driver API): saxpy and a gridded tile kernel against ``a*x + y`` and
+    ``2*x`` on ``tests/test_rtc.py``'s numbers, a templated ``axpy<T>``
+    through its exports, a kernel with 64 KB of dynamic shared memory,
+    and five refusals (an undeclared export, a missing name, a dtype
+    against the signature, a CPU array, source that does not compile);
+    saxpy driven once and timed at 2^26 elements;
+12. the imperative head: the flagship's output layer (x (8192, 1024) ->
+    vocab 16384, f32) trained 10 steps through ``nd.dot``, a ``CustomOp``
+    whose forward and backward launch two runtime-compiled softmax
+    cross-entropy kernels, ``backward`` and ``W -= lr * W.grad``; the loss
+    must fall by 0.3, each kernel launch 10 times, and losses and weights
+    agree with the same steps through a plain ``CustomOp`` of ``nd`` ops;
+    then the pair timed against its plain version, its bound and
+    ``F.cross_entropy``.
 
-Launch counts are set to 0 just before phases 4, 5, 8 and 9 (its fused
-run) and read just after. The line before the last is the kernels' JSON
-record, with one K1 record for each path it runs on; the last line is
-``{"ok": true, "device": {...}}``. Weights are random, from fixed
-seeds.
+Launch counts are set to 0 just before phases 4, 5, 8, 9 (its fused run),
+saxpy's drive in 11 and the 10 steps of 12, and read just after. The line
+before the last is the kernels' JSON record, with one K1 record for each
+path it runs on; the last line is ``{"ok": true, "device": {...}}``.
+Weights and data are random, from fixed seeds.
 """
 
 from __future__ import annotations
@@ -719,6 +735,465 @@ def phase_train_card_vs_cpu(torch, lm, optimizer, loss_mod, parallel):
           + ", ".join(f"{d:.3e} in {n}" for d, n in wdiffs[:3]), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# K6: CUDA C compiled at runtime through mxtpu_torch.rtc. The sources below
+# are the user's code, as tests/test_rtc.py's SAXPY_SRC is for the JAX
+# package; their plain versions are the numpy and nd expressions beside them.
+# ---------------------------------------------------------------------------
+
+SAXPY_SRC = r"""
+extern "C" __global__ void saxpy(const float *x, const float *y, float *out,
+                                 float a, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = a * x[i] + y[i];
+}
+
+// one block per tile of 8 rows x cols; its threads stride over the tile
+extern "C" __global__ void tile_double(const float *x, float *out, int cols) {
+  const long base = (long)blockIdx.x * 8 * cols;
+  for (int k = threadIdx.x; k < 8 * cols; k += blockDim.x)
+    out[base + k] = x[base + k] + x[base + k];
+}
+
+// each block reverses its segment of seg floats through dynamic shared
+// memory (seg * 4 bytes: above the 48 KB static limit at seg = 16384)
+extern "C" __global__ void segment_reverse(const float *x, float *out,
+                                           int seg) {
+  extern __shared__ float buf[];
+  const long base = (long)blockIdx.x * seg;
+  for (int k = threadIdx.x; k < seg; k += blockDim.x) buf[k] = x[base + k];
+  __syncthreads();
+  for (int k = threadIdx.x; k < seg; k += blockDim.x)
+    out[base + k] = buf[seg - 1 - k];
+}
+"""
+SAXPY_SIG = "const float *x, const float *y, float *out, float a, int n"
+TILE_SIG = "const float *x, float *out, int cols"
+REVERSE_SIG = "const float *x, float *out, int seg"
+
+AXPY_SRC = r"""
+template <typename T>
+__global__ void axpy(const T *x, T *y, T alpha, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] += alpha * x[i];
+}
+"""
+
+# Per-row softmax cross-entropy over V logits: one block per row; the row
+# max and the sum of exponentials are reduced through warp shuffles and one
+# float per warp of dynamic shared memory. The backward recomputes the
+# row's log-sum-exp (its second read of the 64 KB row mostly hits L2) and
+# writes (softmax - onehot) * the row's out_grad.
+CE_SRC = r"""
+__device__ float block_reduce(float v, float *red, bool is_max) {
+  for (int o = 16; o > 0; o >>= 1) {
+    float w = __shfl_xor_sync(0xffffffffu, v, o);
+    v = is_max ? fmaxf(v, w) : v + w;
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  const float id = is_max ? __int_as_float(0xff800000) : 0.f;
+  v = lane < (int)(blockDim.x >> 5) ? red[lane] : id;
+  for (int o = 16; o > 0; o >>= 1) {
+    float w = __shfl_xor_sync(0xffffffffu, v, o);
+    v = is_max ? fmaxf(v, w) : v + w;
+  }
+  __syncthreads();  // red is reused by the next reduction
+  return v;
+}
+
+__device__ float row_lse(const float *x, int V, float *red) {
+  float m = __int_as_float(0xff800000);
+  for (int j = threadIdx.x; j < V; j += blockDim.x) m = fmaxf(m, x[j]);
+  m = block_reduce(m, red, true);
+  float s = 0.f;
+  for (int j = threadIdx.x; j < V; j += blockDim.x) s += expf(x[j] - m);
+  return m + logf(block_reduce(s, red, false));
+}
+
+extern "C" __global__ void softmax_ce_fwd(const float *logits,
+                                          const float *label, float *loss,
+                                          int V) {
+  extern __shared__ float red[];
+  const float *x = logits + (size_t)blockIdx.x * V;
+  const float lse = row_lse(x, V, red);
+  if (threadIdx.x == 0) loss[blockIdx.x] = lse - x[(int)label[blockIdx.x]];
+}
+
+extern "C" __global__ void softmax_ce_bwd(const float *logits,
+                                          const float *label,
+                                          const float *out_grad, float *grad,
+                                          int V) {
+  extern __shared__ float red[];
+  const size_t row = blockIdx.x;
+  const float *x = logits + row * V;
+  float *g = grad + row * V;
+  const float lse = row_lse(x, V, red);
+  const int y = (int)label[row];
+  const float og = out_grad[row];
+  for (int j = threadIdx.x; j < V; j += blockDim.x)
+    g[j] = (expf(x[j] - lse) - (j == y ? 1.f : 0.f)) * og;
+}
+"""
+CE_FWD_SIG = "const float *logits, const float *label, float *loss, int V"
+CE_BWD_SIG = ("const float *logits, const float *label, const float *out_grad,"
+              " float *grad, int V")
+CE_THREADS = 512
+CE_SMEM = CE_THREADS // 32 * 4
+
+# the imperative head: the flagship's output layer at full width over one
+# micro-batch of rows (PERF.md section 4)
+HEAD = dict(rows=8192, hidden=1024, vocab=16384, steps=10, lr=1.0, seed=21)
+# rtc against the plain CustomOp over the 10 steps: about 10x the first
+# reading on the card (1.027e-7 and 7.451e-9: f32 sums in two orders)
+HEAD_TOL = dict(loss_rel=1e-6, w_abs=1e-7)
+
+
+def expect_raise(what, fn, exc, needle):
+    """``fn()`` must raise ``exc`` with ``needle`` in its message."""
+    try:
+        fn()
+    except exc as e:
+        check(needle in str(e), f"{what}: raised without {needle!r}: {e}")
+        first = str(e).strip().splitlines()[0][:150]
+        print(f"  refused as it must: {what}: {type(e).__name__}: {first}",
+              flush=True)
+        return
+    raise SmokeFailure(f"{what}: did not raise {exc.__name__}")
+
+
+def phase_k6(torch, mx):
+    """rtc against plain versions: saxpy and tile_double on
+    ``tests/test_rtc.py``'s numbers, a templated ``axpy<T>`` through its
+    exports, dynamic shared memory above 48 KB, the refusals, and saxpy
+    driven and timed at 2^26 elements. Returns saxpy's record."""
+    import numpy as np
+    nd, rtc = mx.nd, mx.rtc
+    gpu = mx.gpu(0)
+    major, minor = rtc.nvrtc_version()
+    print(f"NVRTC {major}.{minor} from {rtc.nvrtc_path()}, target {rtc.ARCH}",
+          flush=True)
+    mod = rtc.CudaModule(SAXPY_SRC)
+    amod = rtc.CudaModule(AXPY_SRC, exports=("axpy<float>", "axpy<double>"))
+    print(f"compiled: saxpy module (3 kernels) {mod.compile_seconds:.3f} s, "
+          f"axpy module (2 exports) {amod.compile_seconds:.3f} s", flush=True)
+    saxpy = mod.get_kernel("saxpy", SAXPY_SIG)
+
+    rs = np.random.RandomState(0)        # tests/test_rtc.py's numbers
+    a = np.float32(2.5)
+    x_np = rs.randn(16, 128).astype(np.float32)
+    y_np = rs.randn(16, 128).astype(np.float32)
+    x, y = nd.array(x_np, ctx=gpu), nd.array(y_np, ctx=gpu)
+    out = nd.zeros((16, 128), ctx=gpu)
+    saxpy.launch([x, y, out, float(a), x.size], gpu, (8,), (256,))
+    err = float(np.abs(out.asnumpy() - (a * x_np + y_np)).max())
+    check(err <= 1e-6, f"saxpy (16, 128): err {err} (tol 1e-6)")
+    print(f"saxpy (16, 128) a=2.5: max_abs_err {err:.3e} (tol 1e-6)",
+          flush=True)
+
+    tile = mod.get_kernel("tile_double", TILE_SIG)
+    xt_np = np.arange(32 * 128, dtype=np.float32).reshape(32, 128)
+    xt = nd.array(xt_np, ctx=gpu)
+    ot = nd.zeros((32, 128), ctx=gpu)
+    tile.launch([xt, ot, 128], gpu, (4, 1, 1), (128, 1, 1))
+    check(np.array_equal(ot.asnumpy(), 2 * xt_np), "tile_double != 2 * x")
+    print("tile_double (32, 128), grid of 4 (8, 128) tiles: equal to 2 * x",
+          flush=True)
+
+    for ctype, dt in (("float", np.float32), ("double", np.float64)):
+        k = amod.get_kernel(f"axpy<{ctype}>", f"const {ctype} *x, {ctype} *y, "
+                            f"{ctype} alpha, int n")
+        xa_np, ya_np = rs.randn(1000).astype(dt), rs.randn(1000).astype(dt)
+        xa = nd.array(xa_np, ctx=gpu, dtype=dt.__name__)
+        ya = nd.array(ya_np, ctx=gpu, dtype=dt.__name__)
+        k.launch([xa, ya, 0.75, 1000], gpu, (4,), (256,))
+        err = float(np.abs(ya.asnumpy() - (ya_np + dt(0.75) * xa_np)).max())
+        check(err <= 1e-6, f"axpy<{ctype}>: err {err}")
+        print(f"axpy<{ctype}> (1000,): y += 0.75 x in place, max_abs_err "
+              f"{err:.3e} (tol 1e-6)", flush=True)
+
+    rev = mod.get_kernel("segment_reverse", REVERSE_SIG)
+    seg = 16384
+    xr_np = rs.randn(3 * seg).astype(np.float32)
+    xr = nd.array(xr_np, ctx=gpu)
+    orv = nd.zeros((3 * seg,), ctx=gpu)
+    rev.launch([xr, orv, seg], gpu, (3,), (1024,), shared_mem=seg * 4)
+    want = xr_np.reshape(3, seg)[:, ::-1].reshape(-1)
+    check(np.array_equal(orv.asnumpy(), want), "segment_reverse")
+    print(f"segment_reverse: 3 blocks with {seg * 4} bytes of dynamic shared "
+          "memory each: equal to the reversed segments", flush=True)
+
+    n0 = saxpy.launches
+    expect_raise("an export that was not declared",
+                 lambda: amod.get_kernel("axpy<int>", "const int *x, int *y, "
+                                         "int alpha, int n"),
+                 ValueError, "not in exports")
+    expect_raise("a name that is not in the module",
+                 lambda: mod.get_kernel("no_such_kernel", "int n"),
+                 mx.base.MXTPUError, "cuModuleGetFunction")
+    expect_raise("a dtype that does not match the signature",
+                 lambda: saxpy.launch([x.astype("float64"), y, out, 1.0,
+                                       x.size], gpu, (8,), (256,)),
+                 TypeError, "must be torch.float32")
+    expect_raise("a CPU NDArray",
+                 lambda: saxpy.launch([nd.array(x_np, ctx=mx.cpu()), y, out,
+                                       1.0, x.size], gpu, (8,), (256,)),
+                 ValueError, "CPU NDArray")
+    expect_raise("source that does not compile",
+                 lambda: rtc.CudaModule('extern "C" __global__ void broken('
+                                        'float *x) { x[0] = undefined_name; }'),
+                 mx.base.MXTPUError, "undefined_name")
+    check(saxpy.launches == n0, "a refused launch was counted")
+
+    # saxpy at 2^26 elements: the drive (its launch count), then the timings
+    n = 1 << 26
+    g = torch.Generator(device="cuda").manual_seed(5)
+    xb = nd.NDArray(torch.randn(n, device="cuda", generator=g))
+    yb = nd.NDArray(torch.randn(n, device="cuda", generator=g))
+    ob = nd.empty((n,), ctx=gpu)
+    grid = ((n + 255) // 256,)
+    saxpy.launches = 0
+    saxpy.launch([xb, yb, ob, 2.5, n], gpu, grid, (256,))
+    launches = saxpy.launches
+    err = float((ob.data - (2.5 * xb + yb).data).abs().max())
+    check(err <= 1e-6 and launches == 1,
+          f"saxpy 2^26: err {err} (tol 1e-6), launches {launches}")
+    ms = timed_ms(torch, lambda: saxpy.launch([xb, yb, ob, 2.5, n], gpu, grid,
+                                              (256,)), 50)
+    plain_ms = timed_ms(torch, lambda: 2.5 * xb + yb, 50)
+    xt_, yt_ = xb.data, yb.data
+    lib_ms = timed_ms(torch, lambda: torch.add(yt_, xt_, alpha=2.5), 50)
+    bound_ms, bound_by = _bound(2.0 * n, 3 * 4 * n, "float32")
+    print(f"saxpy 2^26 f32: max_abs_err {err:.3e}; kernel {ms:.4f} ms, plain "
+          f"(nd: 2.5 * x + y) {plain_ms:.4f} ms, torch.add(y, x, alpha=2.5) "
+          f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{3 * 4 * n} bytes)", flush=True)
+    return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+
+
+def register_ce_ops(mx, fwd, bwd):
+    """Two ``CustomOp``s of per-row softmax cross-entropy (logits, float
+    labels) -> loss per row: ``rtc_softmax_ce`` launches the
+    runtime-compiled kernels ``fwd`` and ``bwd`` (``None`` where there is
+    no card); ``plain_softmax_ce`` computes the same with ``nd`` ops."""
+    nd, operator = mx.nd, mx.operator
+
+    class _Prop(operator.CustomOpProp):
+        def list_arguments(self):
+            return ["logits", "label"]
+
+        def list_outputs(self):
+            return ["loss"]
+
+        def infer_shape(self, in_shape):
+            return in_shape, [[in_shape[0][0]]], []
+
+    class RtcCE(operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            logits, label = in_data
+            rows, V = logits.shape
+            fwd.launch([logits, label, out_data[0], V], logits.context,
+                       (rows,), (CE_THREADS,), shared_mem=CE_SMEM)
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            logits, label = in_data
+            rows, V = logits.shape
+            bwd.launch([logits, label, out_grad[0], in_grad[0], V],
+                       logits.context, (rows,), (CE_THREADS,),
+                       shared_mem=CE_SMEM)
+
+    class PlainCE(operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            logits, label = in_data
+            self.assign(out_data[0], req[0],
+                        -nd.pick(nd.log_softmax(logits), label))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            logits, label = in_data
+            g = (nd.softmax(logits) - nd.one_hot(label, logits.shape[1])) \
+                * out_grad[0].reshape((-1, 1))
+            self.assign(in_grad[0], req[0], g)
+
+    @operator.register("rtc_softmax_ce")
+    class RtcProp(_Prop):
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            return RtcCE()
+
+    @operator.register("plain_softmax_ce")
+    class PlainProp(_Prop):
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            return PlainCE()
+
+
+def head_data(mx, ctx, rows, hidden, vocab, seed):
+    """x (rows, hidden) and float labels below ``vocab`` from ``seed`` on
+    ``ctx``, and the initial W (hidden, vocab) as numpy."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    x = mx.nd.array(rs.randn(rows, hidden).astype(np.float32), ctx=ctx)
+    label = mx.nd.array(rs.randint(0, vocab, rows).astype(np.float32),
+                        ctx=ctx)
+    w0 = (0.02 * rs.randn(hidden, vocab)).astype(np.float32)
+    return x, label, w0
+
+
+def head_steps(mx, op_type, x, label, W, steps, lr):
+    """``steps`` imperative steps of the output layer on the marked array
+    ``W``: ``nd.dot``, the ``Custom`` cross-entropy, ``backward``, ``W -=
+    lr * W.grad``; one readback at the end. Returns the losses."""
+    nd, autograd = mx.nd, mx.autograd
+    losses = []
+    for _ in range(steps):
+        with autograd.record():
+            logits = nd.dot(x, W)
+            loss = nd.mean(nd.Custom(logits, label, op_type=op_type))
+        loss.backward()
+        W -= lr * W.grad
+        losses.append(loss)
+    return [float(v.asscalar()) for v in losses]
+
+
+def train_head(mx, op_type, x, label, w0, steps, lr, ctx):
+    """``head_steps`` from W = ``w0`` (numpy) on ``ctx``. Returns (losses,
+    W, seconds of the steps)."""
+    W = mx.nd.array(w0, ctx=ctx)
+    W.attach_grad()
+    t0 = time.monotonic()
+    losses = head_steps(mx, op_type, x, label, W, steps, lr)
+    return losses, W, time.monotonic() - t0
+
+
+def phase_head(torch, mx):
+    """The flagship's output layer trained imperatively through the rtc
+    softmax-CE pair at full width (rows 8192, d1024 -> vocab 16384): the
+    learning gate, 10 launches of each kernel, parity with the plain
+    ``CustomOp``, then the pair checked and timed on one step's logits
+    against its plain version, its bound and ``F.cross_entropy``. Returns
+    the two kernels' records."""
+    import torch.nn.functional as F
+    nd, rtc = mx.nd, mx.rtc
+    gpu = mx.gpu(0)
+    mod = rtc.CudaModule(CE_SRC)
+    print(f"compiled: softmax-CE module (2 kernels) "
+          f"{mod.compile_seconds:.3f} s", flush=True)
+    fwd = mod.get_kernel("softmax_ce_fwd", CE_FWD_SIG)
+    bwd = mod.get_kernel("softmax_ce_bwd", CE_BWD_SIG)
+    register_ce_ops(mx, fwd, bwd)
+    R, D, V, steps, lr = (HEAD[k] for k in ("rows", "hidden", "vocab",
+                                           "steps", "lr"))
+    x, label, w0 = head_data(mx, gpu, R, D, V, HEAD["seed"])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fwd.launches = bwd.launches = 0
+    losses, W, secs = train_head(mx, "rtc_softmax_ce", x, label, w0, steps,
+                                 lr, gpu)
+    launches = dict(fwd=fwd.launches, bwd=bwd.launches)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(v) for v in losses), f"head losses {losses}")
+    check(launches == dict(fwd=steps, bwd=steps),
+          f"rtc launches {launches}: want {steps} each")
+    check(losses[0] - losses[-1] > 0.3,
+          f"learning gate: loss {losses[0]:.4f} -> {losses[-1]:.4f} (must "
+          "fall by 0.3)")
+    plain_losses, plain_W, plain_secs = train_head(
+        mx, "plain_softmax_ce", x, label, w0, steps, lr, gpu)
+    lrel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+    wdiff = float((W.data - plain_W.data).detach().abs().max())
+    check(lrel <= HEAD_TOL["loss_rel"] and wdiff <= HEAD_TOL["w_abs"],
+          f"rtc vs plain head: losses {losses} vs {plain_losses} (max rel "
+          f"{lrel:.3e}, tol {HEAD_TOL['loss_rel']:g}); final W max diff "
+          f"{wdiff:.3e} (tol {HEAD_TOL['w_abs']:g})")
+    print(f"imperative head rows {R} d{D} -> vocab {V} f32, lr {lr}: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} over {steps} steps (gate: "
+          f"fall by 0.3; uniform {math.log(V):.2f}); wall per step over the "
+          f"10 {secs / steps * 1e3:.2f} ms (rtc op, the process's first f32 "
+          f"GEMMs of this shape included), {plain_secs / steps * 1e3:.2f} ms "
+          f"(plain op, after it); launches {launches}; max_memory_allocated "
+          f"{peak} bytes; "
+          f"vs the plain CustomOp: losses max rel diff {lrel:.3e} (tol "
+          f"{HEAD_TOL['loss_rel']:g}), final W max abs diff {wdiff:.3e} (tol "
+          f"{HEAD_TOL['w_abs']:g})", flush=True)
+    print(f"  losses {losses}", flush=True)
+
+    # the pair on one step's logits: plain version, bound, library call
+    logits = nd.dot(x, W)
+    lt, yt = logits.data, label.data
+    og = nd.NDArray(torch.full((R,), 1.0 / R, device="cuda"))
+    loss_k = nd.zeros((R,), ctx=gpu)
+    grad_k = nd.zeros((R, V), ctx=gpu)
+
+    def run_fwd():
+        fwd.launch([logits, label, loss_k, V], gpu, (R,), (CE_THREADS,),
+                   CE_SMEM)
+
+    def run_bwd():
+        bwd.launch([logits, label, og, grad_k, V], gpu, (R,), (CE_THREADS,),
+                   CE_SMEM)
+
+    def plain_fwd():
+        return -nd.pick(nd.log_softmax(logits), label)
+
+    def plain_bwd():
+        return (nd.softmax(logits) - nd.one_hot(label, V)) * og.reshape((-1, 1))
+
+    run_fwd()
+    run_bwd()
+    ref_f, ref_b = plain_fwd().data, plain_bwd().data
+    fwd_err = float((loss_k.data - ref_f).abs().max())
+    bwd_err = float((grad_k.data - ref_b).abs().max())
+    tol_f = 1e-5 * float(ref_f.abs().max())
+    tol_b = 1e-5 * float(ref_b.abs().max())
+    check(fwd_err <= tol_f and bwd_err <= tol_b,
+          f"softmax-CE kernels vs plain: loss err {fwd_err} (tol {tol_f}), "
+          f"grad err {bwd_err} (tol {tol_b})")
+    ms_f, ms_b = timed_ms(torch, run_fwd, 20), timed_ms(torch, run_bwd, 20)
+    plain_f = timed_ms(torch, plain_fwd, 10)
+    plain_b = timed_ms(torch, plain_bwd, 10)
+    y_long = yt.long()
+    lib_f = timed_ms(torch, lambda: F.cross_entropy(lt, y_long), 20)
+    lg = lt.detach().clone().requires_grad_(True)
+    lib_fb = timed_ms(torch, lambda: F.cross_entropy(lg, y_long).backward(),
+                      20)
+    # one step on the trained W, and the device work it is made of: the
+    # two f32 GEMMs (logits, W's gradient), the pair, the update
+    step_ms = timed_ms(torch, lambda: head_steps(
+        mx, "rtc_softmax_ce", x, label, W, 1, lr), 10, warmup=2)
+    xt, wt, gt = x.data, W.data.detach(), grad_k.data
+    gemm_ms = timed_ms(torch, lambda: torch.matmul(xt, wt), 5)
+    dw_ms = timed_ms(torch, lambda: torch.matmul(xt.T, gt), 5)
+    upd_ms = timed_ms(torch, lambda: wt - lr * wt, 20)
+    device_ms = gemm_ms + dw_ms + ms_f + ms_b + upd_ms
+    print(f"imperative step {step_ms:.3f} ms (with its readback): logits "
+          f"GEMM {gemm_ms:.3f} ms, W-gradient GEMM {dw_ms:.3f} ms (2 x "
+          f"{2.0 * R * D * V:.3e} f32 flops), softmax-CE pair "
+          f"{ms_f + ms_b:.3f} ms, update {upd_ms:.3f} ms: device "
+          f"{device_ms:.3f} ms = {device_ms / step_ms:.3f} of the step, the "
+          f"rest host time and small ops", flush=True)
+    elems = R * V
+    b_f, by_f = _bound(3.0 * elems, 4 * elems + 8 * R, "float32")
+    b_b, by_b = _bound(5.0 * elems, 8 * elems + 12 * R, "float32")
+    print(f"softmax-CE pair at ({R}, {V}) f32: loss err {fwd_err:.3e} (tol "
+          f"{tol_f:.3e}), grad err {bwd_err:.3e} (tol {tol_b:.3e}); fwd "
+          f"{ms_f:.4f} ms + bwd {ms_b:.4f} ms = {ms_f + ms_b:.4f} ms, bound "
+          f"{b_f:.4f} + {b_b:.4f} = {b_f + b_b:.4f} ms ({by_f}: 3 x "
+          f"{4 * elems} bytes); plain (nd) {plain_f:.4f} + {plain_b:.4f} ms; "
+          f"F.cross_entropy fwd {lib_f:.4f} ms, fwd + bwd {lib_fb:.4f} ms",
+          flush=True)
+    common = dict(route="nvrtc", source="mxtpu_torch/rtc.py",
+                  kernel_source="chip_smoke.py:CE_SRC",
+                  replaces="mxtpu/rtc.py:47", path="imperative head")
+    return [dict(name="rtc softmax_ce_fwd", launches=launches["fwd"],
+                 max_abs_err=fwd_err, ms=ms_f, plain_ms=plain_f,
+                 bound_ms=b_f, bound_by=by_f, library_ms=lib_f, **common),
+            dict(name="rtc softmax_ce_bwd", launches=launches["bwd"],
+                 max_abs_err=bwd_err, ms=ms_b, plain_ms=plain_b,
+                 bound_ms=b_b, bound_by=by_b, library_ms=lib_fb - lib_f,
+                 **common)]
+
+
 def run():
     import torch
     if not torch.cuda.is_available():
@@ -734,6 +1209,7 @@ def run():
     from mxtpu_torch.quant import kv_quant
     from mxtpu_torch import optimizer, parallel, serving
     from mxtpu_torch.gluon import loss as loss_mod
+    import mxtpu_torch as mx
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -783,6 +1259,9 @@ def run():
     torch.cuda.empty_cache()
     timed_phase("train card vs CPU", phase_train_card_vs_cpu, torch, lm,
                 optimizer, loss_mod, parallel)
+    torch.cuda.empty_cache()
+    saxpy = timed_phase("K6 checks", phase_k6, torch, mx)
+    head = timed_phase("imperative head", phase_head, torch, mx)
     print(f"K1 launches: forward {k1_launches}, training "
           f"{train_launches['K1']}", flush=True)
 
@@ -811,7 +1290,11 @@ def run():
              source="mxtpu_torch/csrc/dequant_decode.cu",
              replaces="mxtpu/ops/quant_attention.py:99", path="serving",
              launches=k5_launches, **k5),
-    ]
+        dict(name="rtc saxpy", route="nvrtc", source="mxtpu_torch/rtc.py",
+             kernel_source="chip_smoke.py:SAXPY_SRC",
+             replaces="mxtpu/rtc.py:47", path="K6 checks, saxpy at 2^26",
+             **saxpy),
+    ] + head
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

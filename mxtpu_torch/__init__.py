@@ -5,15 +5,31 @@ through a one-card ``parallel.DataParallelTrainer``. The model's forward
 runs the hand-written flash-attention forward kernel (``csrc/flash_fwd.cu``),
 its backward the flash-attention backward kernels (``csrc/flash_bwd.cu``),
 and every prefill and decode step reads attention through the
-dequant-decode kernel (``csrc/dequant_decode.cu``). Module paths mirror
-``mxtpu/`` so each module's counterpart is easy to find.
+dequant-decode kernel (``csrc/dequant_decode.cu``). The imperative front
+end is here too: ``nd`` (NDArray and the op registry), ``autograd``,
+``random``, ``operator`` (``CustomOp``) and ``rtc`` (CUDA C compiled at
+runtime by NVRTC). Module paths mirror ``mxtpu/`` so each module's
+counterpart is easy to find.
 
 The package imports ``torch`` and never JAX or ``mxtpu``. Entry points run
-on the card unless the caller passes ``device="cpu"``.
+on the card unless the caller passes ``device="cpu"`` (or, for ``nd``,
+``ctx=mxtpu_torch.cpu()`` or a ``with mxtpu_torch.Context("cpu"):`` scope).
 """
 
-from .context import cpu, gpu, pin_fp32_math, resolve_device
+from .context import (Context, cpu, current_context, gpu, num_gpus,
+                      pin_fp32_math, resolve_device)
 
 pin_fp32_math()
 
-__all__ = ["cpu", "gpu", "resolve_device"]
+from . import base  # noqa: E402
+from . import rng  # noqa: E402
+from . import ndarray  # noqa: E402
+from . import ndarray as nd  # noqa: E402
+from . import autograd  # noqa: E402
+from . import random  # noqa: E402
+from . import operator  # noqa: E402
+from . import rtc  # noqa: E402
+from .ndarray import NDArray  # noqa: E402
+
+__all__ = ["Context", "NDArray", "autograd", "cpu", "current_context", "gpu",
+           "nd", "num_gpus", "operator", "random", "resolve_device", "rtc"]

@@ -1,0 +1,292 @@
+"""The port's ``autograd`` against the JAX package's, on the CPU.
+
+Each scenario runs the same code on the same numpy inputs through both
+packages and compares losses and gradients within 1e-6 relative and 1e-6
+of the largest entry absolute (the same f32 arithmetic in another order):
+the verify recipe's flow (a dot, a mean, backward, an in-place update),
+``grad_req`` write/add/null, ``head_grads``,
+``retain_graph`` and the second backward of a freed graph (it raises while
+nothing new is recorded, and does nothing once something is), an earlier
+graph keeping the value an in-place update replaced, ``pause`` and
+``train_mode``, ops outside ``record()`` recording nothing even on marked
+arrays, ``autograd.grad`` with ``create_graph`` (grad of grad), and a
+custom ``Function``.
+"""
+
+import numpy as np
+import pytest
+
+from mxtpu import autograd as jag
+from mxtpu import nd as jnd
+
+import mxtpu_torch
+from mxtpu_torch import autograd as tag
+from mxtpu_torch import nd as tnd
+
+TOL = dict(rtol=1e-6, atol=1e-6)
+PKGS = [(jnd, jag), (tnd, tag)]
+
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    with mxtpu_torch.Context("cpu"):
+        yield
+
+
+def _both(fn):
+    """``fn(nd, autograd)`` in each package; the results side by side."""
+    return [fn(nd, ag) for nd, ag in PKGS]
+
+
+def _close(a, b):
+    """Within 1e-6 relative, and 1e-6 of the array's largest entry (or of
+    1) absolute: f32 sums taken in another order."""
+    for x, y in zip(a if isinstance(a, (list, tuple)) else [a],
+                    b if isinstance(b, (list, tuple)) else [b]):
+        x, y = np.asarray(x), np.asarray(y)
+        scale = max(float(np.abs(x).max()) if x.size else 0.0, 1.0)
+        np.testing.assert_allclose(y, x, rtol=TOL["rtol"],
+                                   atol=TOL["atol"] * scale)
+
+
+def _xw(seed=0):
+    rs = np.random.RandomState(seed)
+    return rs.randn(64, 10).astype(np.float32), \
+        rs.randn(10, 1).astype(np.float32)
+
+
+def test_verify_recipe_flow():
+    """The canonical imperative flow: a dot, a mean, backward, then an
+    update; loss and gradient within 1e-6."""
+    x_np, w_np = _xw()
+
+    def run(nd, ag):
+        x, w = nd.array(x_np), nd.array(w_np)
+        w.attach_grad()
+        with ag.record():
+            loss = nd.mean(nd.square(nd.dot(x, w)))
+        loss.backward()
+        g = w.grad.asnumpy()
+        w -= 0.1 * w.grad
+        return float(loss.asscalar()), g, w.asnumpy()
+
+    (jl, jg, jw), (tl, tg, tw) = _both(run)
+    assert abs(jl - tl) <= 1e-6 * abs(jl)
+    _close(jg, tg)
+    _close(jw, tw)
+
+
+@pytest.mark.parametrize("req", ["write", "add", "null"])
+def test_grad_req(req):
+    x_np, w_np = _xw(1)
+
+    def run(nd, ag):
+        x, w = nd.array(x_np), nd.array(w_np)
+        w.attach_grad(grad_req=req)
+        grads = []
+        for scale in (1.0, 3.0):
+            with ag.record():
+                loss = (nd.dot(x, w) * scale).sum()
+            loss.backward()
+            grads.append(w.grad.asnumpy())
+        return grads
+
+    j, t = _both(run)
+    _close(j, t)
+    if req == "add":
+        _close(t[1], 4 * t[0])
+    if req == "null":
+        assert not np.any(t[1])
+
+
+def test_head_grads_and_two_heads():
+    x_np, w_np = _xw(2)
+    hg = np.random.RandomState(3).randn(64, 1).astype(np.float32)
+
+    def run(nd, ag):
+        x, w = nd.array(x_np), nd.array(w_np)
+        w.attach_grad()
+        with ag.record():
+            y = nd.dot(x, w)
+            z = nd.sum(y * y)
+        ag.backward([y, z], head_grads=[nd.array(hg), None])
+        return w.grad.asnumpy()
+
+    _close(*_both(run))
+
+
+def test_retain_graph_and_the_second_backward():
+    x_np, w_np = _xw(4)
+
+    def run(nd, ag):
+        x, w = nd.array(x_np), nd.array(w_np)
+        w.attach_grad(grad_req="add")
+        with ag.record():
+            loss = nd.sum(nd.tanh(nd.dot(x, w)))
+        loss.backward(retain_graph=True)
+        once = w.grad.asnumpy()
+        loss.backward()                      # the retained graph, once more
+        twice = w.grad.asnumpy()
+        with pytest.raises(RuntimeError, match="freed"):
+            loss.backward()                  # freed, nothing recorded since
+        with ag.record():
+            other = nd.sum(w * 2)            # something new on the tape
+        loss.backward()                      # the old head: does nothing
+        return once, twice, w.grad.asnumpy(), other
+
+    (j1, j2, j3, _), (t1, t2, t3, _) = _both(run)
+    _close([j1, j2, j3], [t1, t2, t3])
+    _close(t2, 2 * t1)
+    _close(t3, t2)
+
+
+def test_earlier_graph_keeps_the_value_an_update_replaced():
+    """``w -= ...`` rebinds the handle: a retained graph still reads the old
+    value, and its gradient still lands in ``w.grad``."""
+    w_np = np.random.RandomState(5).randn(3, 4).astype(np.float32)
+
+    def run(nd, ag):
+        w = nd.array(w_np)
+        w.attach_grad()
+        with ag.record():
+            loss = nd.sum(w * w)
+        loss.backward(retain_graph=True)
+        w -= 0.5 * w.grad                    # outside record: plain update
+        loss.backward()                      # the graph of the old w
+        return w.grad.asnumpy(), w.asnumpy()
+
+    (jg, jw), (tg, tw) = _both(run)
+    _close([jg, jw], [tg, tw])
+    _close(tg, 2 * w_np)
+
+
+def test_ops_outside_record_are_not_recorded():
+    x_np, w_np = _xw(6)
+
+    def run(nd, ag):
+        x, w = nd.array(x_np), nd.array(w_np)
+        w.attach_grad()
+        y = nd.sum(nd.dot(x, w))             # not recording
+        y.backward()                         # nothing to do
+        with ag.record():
+            with ag.pause():
+                z = nd.dot(x, w)             # paused: a constant
+            loss = nd.sum(z * z) + nd.sum(w)
+        loss.backward()
+        return w.grad.asnumpy(), ag.is_recording()
+
+    (jg, jr), (tg, tr) = _both(run)
+    _close(jg, tg)
+    _close(tg, np.ones_like(w_np))
+    assert jr is tr is False
+    assert tnd.dot(tnd.array(x_np), tnd.array(w_np)).data.grad_fn is None
+
+
+def test_train_mode_and_predict_mode_flags():
+    def run(nd, ag):
+        flags = [ag.is_training()]
+        with ag.record():
+            flags.append(ag.is_training())
+            with ag.predict_mode():
+                flags.append(ag.is_training())
+                y = nd.Dropout(nd.ones((4, 4)), p=0.5)
+            flags.append(ag.is_recording())
+        with ag.train_mode():
+            flags.append(ag.is_training())
+        with ag.record(train_mode=False):
+            flags.append(ag.is_training())
+        return flags, y.asnumpy()
+
+    (jf, jy), (tf, ty) = _both(run)
+    assert jf == tf == [False, True, False, True, True, False]
+    _close(jy, ty)
+
+
+def test_grad_with_create_graph_is_differentiable():
+    x_np = np.random.RandomState(7).uniform(-1, 1, (5,)).astype(np.float32)
+
+    def run(nd, ag):
+        x = nd.array(x_np)
+        x.attach_grad()
+        with ag.record():
+            y = nd.sum(x * x * x)
+            (dx,) = ag.grad(y, [x], create_graph=True)
+            z = nd.sum(dx * dx)
+        z.backward()
+        return dx.asnumpy(), x.grad.asnumpy()
+
+    (jd, jg), (td, tg) = _both(run)
+    _close([jd, jg], [td, tg])
+    _close(td, 3 * x_np ** 2)
+    _close(tg, 36 * x_np ** 3)
+
+
+def test_grad_returns_arrays_and_leaves_grad_buffers():
+    x_np, w_np = _xw(8)
+
+    def run(nd, ag):
+        x, w = nd.array(x_np), nd.array(w_np)
+        w.attach_grad()
+        x.attach_grad()
+        with ag.record():
+            loss = nd.sum(nd.exp(nd.dot(x, w) * 0.1))
+        gw, gx = ag.grad(loss, [w, x])
+        return gw.asnumpy(), gx.asnumpy(), w.grad.asnumpy()
+
+    j, t = _both(run)
+    _close(j, t)
+    assert not np.any(t[2])
+
+
+def test_mark_variables():
+    w_np = np.random.RandomState(9).randn(4).astype(np.float32)
+
+    def run(nd, ag):
+        w, g = nd.array(w_np), nd.zeros((4,))
+        ag.mark_variables([w], [g])
+        with ag.record():
+            loss = nd.sum(w * 3.0)
+        loss.backward()
+        return w.grad.asnumpy()
+
+    j, t = _both(run)
+    _close(j, t)
+    _close(t, np.full(4, 3.0))
+
+
+def test_custom_function():
+    x_np = np.random.RandomState(10).randn(6).astype(np.float32)
+
+    def run(nd, ag):
+        class Sigmoid(ag.Function):
+            def forward(self, x):
+                y = 1 / (1 + nd.exp(-x))
+                self.save_for_backward(y)
+                return y
+
+            def backward(self, dy):
+                y, = self.saved_tensors
+                return dy * y * (1 - y)
+
+        x = nd.array(x_np)
+        x.attach_grad()
+        with ag.record():
+            out = nd.sum(Sigmoid()(x) * 2.0)
+        out.backward()
+        return float(out.asscalar()), x.grad.asnumpy()
+
+    (jo, jg), (to, tg) = _both(run)
+    assert abs(jo - to) <= 1e-6 * abs(jo)
+    _close(jg, tg)
+
+
+def test_indexing_inside_record_carries_the_gradient():
+    """Slicing a recorded array inside ``record()`` keeps it on the graph
+    (the reference records the slice)."""
+    x = tnd.array(np.arange(6, dtype=np.float32))
+    x.attach_grad()
+    with tag.record():
+        loss = tnd.sum(x[1:4] * 2.0)
+    loss.backward()
+    np.testing.assert_array_equal(x.grad.asnumpy(), [0, 2, 2, 2, 0, 0])
+    assert float(loss.asscalar()) == 12.0

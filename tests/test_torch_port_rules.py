@@ -4,8 +4,9 @@
   JAX or the JAX package ``mxtpu`` (relative imports inside the port are
   its own).
 * Entry points run on the card unless the caller asks for the CPU: without
-  CUDA, building a model or an engine with no ``device`` raises instead of
-  running on the CPU.
+  CUDA, building a model or an engine with no ``device``, an ``nd`` array
+  with no ``ctx``, or an ``rtc`` module raises instead of running on the
+  CPU.
 """
 
 import ast
@@ -65,3 +66,8 @@ def test_entry_points_refuse_the_cpu_without_cuda():
     from mxtpu_torch.parallel import DataParallelTrainer
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DataParallelTrainer(net, lambda out, y: out.sum(), Adam())
+    from mxtpu_torch import nd, rtc
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        nd.array([1.0])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rtc.CudaModule("")

@@ -8,12 +8,17 @@ main paths on one NVIDIA GPU: serving, training, and the imperative
 Phases, in order; any failure exits non-zero without a result line:
 
 1. the card's name and power limit (``nvidia-smi``); build every kernel
-   with ``nvcc`` (one process per source, in parallel);
+   with ``nvcc`` (one process per source, in parallel); the compiler's
+   registers, shared memory and spills per kernel, and for the sm90
+   kernels (K1 and K3 on the tensor cores) no spill, and ``wgmma``
+   (``HGMMA``) and TMA (``UTMALDG``) instructions in their machine code;
 2. K1 (flash-attention forward) against its plain PyTorch version on the
    card at the forward's shapes (B=4, H=12, T=1024, D=64, causal) in f32
    and bf16, at the training shape (B=8, H=16, T=1024, D=64, causal,
    bf16), plus ragged and wide-head shapes: error, kernel, plain and
-   ``scaled_dot_product_attention`` times, and the bound;
+   ``scaled_dot_product_attention`` times, and the bound; every bf16 case
+   with D % 8 == 0 and D <= 128 must take the sm90 route, the rest the
+   simt route;
 3. K5 (dequant decode) against its plain version at the engine's decode
    shape (S=8, H=12, TOT=1024, D=64) with ragged cursors, int8 and fp8;
 4. forward: ``transformer_lm("base", vocab_size=50257)`` (GPT-2 124M
@@ -29,20 +34,24 @@ Phases, in order; any failure exits non-zero without a result line:
    the card at the training shape (B=8, H=16, T=1024, D=64, causal) in
    bf16 and f32, and at ragged shapes (T=1000, T != Tk, D=40, 128, 256),
    with an lse cotangent and with bf16 lse/Delta rows: kernel, plain and
-   ``scaled_dot_product_attention``-backward times, and the bounds; then
-   K2 + K3 timed against K4 on a small grid and without the causal mask;
+   ``scaled_dot_product_attention``-backward times, and the bounds; K3
+   takes the sm90 route by K1's rule; K4's dq equals K2's bit for bit,
+   and its dk and dv equal K3's (simt route) or agree with them within the
+   bf16 tolerance (sm90 route); then K2 + K3 timed against K4 on a small
+   grid and without the causal mask;
 8. training: ``transformer_lm("flagship", vocab_size=16384)`` in bf16
    (d1024, L8, H16) takes 1 + 24 Adam steps on one fixed (32, 1024) batch
    through ``DataParallelTrainer(micro_batches=4)``; the loss must fall by
    0.3 (the learning gate of the JAX package's benchmark) and K1, K2 and
-   K3 must launch once per layer, micro-batch and step; then one step
-   under ``torch.profiler``;
+   K3 must launch once per layer, micro-batch and step, K1 and K3 on the
+   sm90 route; then one step under ``torch.profiler``;
 9. the fused backward: 3 steps of the same run with the split pair, then 3
-   under ``MXTPU_FLASH_BWD=fused``; K4 must launch, and the losses and
-   the trained weights equal the split run's bit for bit;
+   under ``MXTPU_FLASH_BWD=fused``; K4 must launch, and the losses agree
+   with the split run's within 1e-2 relative and the trained weights
+   within 1.8e-3 (K4 runs the simt dk/dv body, the split pair sm90 K3);
 10. training card against CPU: base width, 2 layers, f32, B=4, T=256; the
     first batch's gradients, the losses of 3 Adam steps and the weights
-    after them agree;
+    after them agree; K1, K2 and K3 take the simt route;
 11. K6 checks (``rtc``: CUDA C compiled by NVRTC, launched through the
     driver API): saxpy and a gridded tile kernel against ``a*x + y`` and
     ``2*x`` on ``tests/test_rtc.py``'s numbers, a templated ``axpy<T>``
@@ -60,9 +69,10 @@ Phases, in order; any failure exits non-zero without a result line:
     ``F.cross_entropy``.
 
 Launch counts are set to 0 just before phases 4, 5, 8, 9 (its fused run),
-saxpy's drive in 11 and the 10 steps of 12, and read just after. The line
-before the last is the kernels' JSON record, with one K1 record for each
-path it runs on; the last line is ``{"ok": true, "device": {...}}``.
+10, saxpy's drive in 11 and the 10 steps of 12, and read just after. The
+line before the last is the kernels' JSON record, with one K1 and one K3
+record for each route and the path it runs on; the last line is
+``{"ok": true, "device": {...}}``.
 Weights and data are random, from fixed seeds.
 """
 
@@ -87,6 +97,32 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+SM90_SOURCES = ("flash_fwd_sm90", "flash_bwd_dkv_sm90")
+
+
+def check_build(build):
+    """Prints the compiler's registers, shared memory and spills for every
+    kernel; the sm90 kernels must not spill, and their machine code must
+    hold ``wgmma`` (``HGMMA``) and TMA loads (``UTMALDG``)."""
+    for name in build.SOURCES:
+        for ln in build.build_log(name).splitlines():
+            if "registers" in ln or "spill" in ln:
+                print(f"  ptxas {name}: {ln.strip()}", flush=True)
+                if name in SM90_SOURCES and "spill" in ln:
+                    check(" 0 bytes spill stores, 0 bytes spill loads" in ln,
+                          f"{name} spills: {ln.strip()}")
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    for name in SM90_SOURCES:
+        sass = subprocess.run([cuobjdump, "-sass", build.lib_path(name)],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+        n_mma, n_tma = sass.count("HGMMA"), sass.count("UTMALDG")
+        print(f"  sass {name}: {n_mma} HGMMA (wgmma), {n_tma} UTMALDG (TMA "
+              f"loads)", flush=True)
+        check(n_mma > 0 and n_tma > 0,
+              f"{name}: no wgmma or no TMA load in its machine code")
 
 
 def timed_ms(torch, fn, iters, warmup=3):
@@ -115,8 +151,9 @@ def _bound(flops, nbytes, dtype):
 
 def phase_k1(torch, attention):
     """K1 against its plain version; returns the record of each main path
-    by name: ``forward`` (f32, causal, the scoring forward's shape) and
-    ``train`` (bf16, causal, one training micro-batch)."""
+    by name: ``forward`` (f32, causal, the scoring forward's shape: the
+    simt route) and ``train`` (bf16, causal, one training micro-batch: the
+    sm90 route)."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
@@ -134,6 +171,9 @@ def phase_k1(torch, attention):
          None),
         ("f32 causal D=256", 1, 2, 200, 200, 256, f32, True, 1e-4, None),
         ("bf16 full D=40", 2, 3, 77, 130, 40, bf16, False, 1e-2, None),
+        ("bf16 causal ragged T=1000", 4, 12, 1000, 1000, 64, bf16, True,
+         1e-2, None),
+        ("bf16 causal D=128", 1, 4, 300, 300, 128, bf16, True, 1e-2, None),
     ]
     recs = {}
     for label, B, H, T, Tk, D, dt, causal, tol, record in cases:
@@ -141,16 +181,23 @@ def phase_k1(torch, attention):
         k = torch.randn(B, H, Tk, D, device=dev, generator=g).to(dt)
         v = torch.randn(B, H, Tk, D, device=dev, generator=g).to(dt)
         scale = 1.0 / math.sqrt(D)
+        route = attention._fwd_route(dt, D)
+        n0 = attention.flash_fwd.sm90_launches
         out, lse = attention.flash_fwd(q, k, v, causal, scale)
         ref, ref_lse = attention._chunk_reference_lse(q, k, v, causal, scale)
         torch.cuda.synchronize()
+        check(attention.flash_fwd.sm90_launches - n0 == (route == "sm90"),
+              f"K1 {label}: took the wrong route (want {route})")
+        check(route == ("sm90" if dt == bf16 and D % 8 == 0 and D <= 128
+                        else "simt"), f"K1 {label}: routed to {route}")
         err = (out.float() - ref.float()).abs().max().item()
         lse_err = (lse - ref_lse).abs().max().item()
         check(math.isfinite(err) and err <= tol and lse_err <= 1e-4,
               f"K1 {label}: out err {err} (tol {tol}), lse err {lse_err} "
               f"(tol 1e-4)")
-        line = (f"K1 {label} B{B} H{H} T{T} Tk{Tk} D{D}: max_abs_err out "
-                f"{err:.3e} (tol {tol:g}) lse {lse_err:.3e} (tol 1e-4)")
+        line = (f"K1 {label} B{B} H{H} T{T} Tk{Tk} D{D} ({route}): "
+                f"max_abs_err out {err:.3e} (tol {tol:g}) lse {lse_err:.3e} "
+                f"(tol 1e-4)")
         if record is None:
             print(line, flush=True)
             continue
@@ -232,8 +279,9 @@ def phase_k5(torch, quant_attention, kv_quant):
 
 
 def phase_bwd(torch, attention):
-    """K2, K3 and K4 against the plain backward; returns the main-path
-    records (bf16, causal, the training shape) by kernel name."""
+    """K2, K3 and K4 against the plain backward; returns the records at the
+    training shape (causal) by dtype (``bf16``: K3 on the sm90 route, the
+    training path; ``f32``: K3 on the simt route) and kernel name."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(7)
@@ -264,8 +312,12 @@ def phase_bwd(torch, attention):
         # order than the kernels (at the sizes above it uses their order)
         ("f32 causal T=64", 1, 1, 64, 64, 64, f32, True, False, False,
          False),
+        ("bf16 causal dlse T=1000 Tk=1021 D=40", 2, 4, 1000, 1021, 40, bf16,
+         True, True, False, False),
+        ("bf16 causal D=128 bf16 rows", 1, 4, 300, 300, 128, bf16, True,
+         True, True, False),
     ]
-    main = None
+    recs_by_dtype = {}
     for (label, B, H, T, Tk, D, dt, causal, with_dlse, bf16_rows,
          do_time) in cases:
         q, dout = (torch.randn(B, H, T, D, device=dev, generator=g).to(dt)
@@ -283,10 +335,16 @@ def phase_bwd(torch, attention):
             os.environ.pop("MXTPU_FLASH_LSE")
         args = (q, k, v, dout) + rows + (causal, scale)
         ref = attention._flash_bwd_plain(*args)
+        route = attention._dkv_route(dt, D)
+        n0 = attention.flash_bwd_dkv.sm90_launches
         split = (attention.flash_bwd_dq(*args),) + \
             attention.flash_bwd_dkv(*args)
         fused = attention.flash_bwd_fused(*args) if T == Tk else None
         torch.cuda.synchronize()
+        check(attention.flash_bwd_dkv.sm90_launches - n0 == (route == "sm90")
+              and route == ("sm90" if dt == bf16 and D % 8 == 0 and D <= 128
+                            else "simt"),
+              f"K3 {label}: took the wrong route (want {route})")
         tol_rel = 1e-4 if dt == f32 else 2e-2
         errs = {}
         for kern, outs in (("K2", split[:1]), ("K3", split[1:]),
@@ -302,23 +360,29 @@ def phase_bwd(torch, attention):
             check(math.isfinite(err) and err <= tol,
                   f"{kern} {label}: err {err} (tol {tol})")
             errs[kern] = (err, tol)
-        same = "n/a (T != Tk)" if fused is None else str(all(
-            torch.equal(a, b) for a, b in zip(split, fused)))
-        line = (f"K2/K3/K4 {label} B{B} H{H} T{T} Tk{Tk} D{D}: max_abs_err "
+        if fused is None:
+            same = "n/a (T != Tk)"
+        else:
+            # K4 runs K2's body and the simt K3 body: dq equals K2's bit for
+            # bit; dk and dv equal the simt K3's, and agree with the sm90
+            # K3's within the bf16 tolerance
+            check(torch.equal(fused[0], split[0]),
+                  f"K4 {label}: dq differs from K2's")
+            kv_err = max((a.float() - b.float()).abs().max().item()
+                         for a, b in zip(fused[1:], split[1:]))
+            kv_tol = 0.0 if route == "simt" else errs["K3"][1]
+            check(kv_err <= kv_tol, f"K4 {label}: dk/dv differ from K3's by "
+                  f"{kv_err} (tol {kv_tol})")
+            same = (f"dq bit-equal, dk/dv max diff {kv_err:.3e} (tol "
+                    f"{kv_tol:.3e})")
+        line = (f"K2/K3/K4 {label} B{B} H{H} T{T} Tk{Tk} D{D} (K3 {route}): "
+                f"max_abs_err "
                 + ", ".join(f"{kk} {e:.3e} (tol {t:.3e})"
                             for kk, (e, t) in errs.items())
-                + f"; K4 bit-equal to K2+K3: {same}")
+                + f"; K4 against K2 and K3: {same}")
         if not do_time:
             print(line, flush=True)
             continue
-        ms = {"K2": timed_ms(torch, lambda: attention.flash_bwd_dq(*args),
-                             10),
-              "K3": timed_ms(torch, lambda: attention.flash_bwd_dkv(*args),
-                             10),
-              "K4": timed_ms(torch, lambda: attention.flash_bwd_fused(
-                  *args), 10)}
-        plain_ms = timed_ms(torch, lambda: attention._flash_bwd_plain(*args),
-                            3, warmup=1)
         qs, ks, vs = (t.detach().clone().requires_grad_(True)
                       for t in (q, k, v))
 
@@ -331,8 +395,27 @@ def phase_bwd(torch, attention):
                 F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
                                                scale=scale)
 
-        lib_ms = timed_ms(torch, sdpa_fwd_bwd, 10) - \
-            timed_ms(torch, sdpa_fwd, 10)
+        # two rounds, each function in turn, the faster round kept: SDPA's
+        # backward varies between calls (PERF.md), so the kernels are held
+        # against it measured beside them
+        timers = {
+            "K2": lambda: timed_ms(
+                torch, lambda: attention.flash_bwd_dq(*args), 10),
+            "K3": lambda: timed_ms(
+                torch, lambda: attention.flash_bwd_dkv(*args), 10),
+            "K4": lambda: timed_ms(
+                torch, lambda: attention.flash_bwd_fused(*args), 10),
+            "sdpa": lambda: timed_ms(torch, sdpa_fwd_bwd, 10)
+            - timed_ms(torch, sdpa_fwd, 10),
+            "plain": lambda: timed_ms(
+                torch, lambda: attention._flash_bwd_plain(*args), 3,
+                warmup=1)}
+        ms = {}
+        for _ in range(2):
+            for name, timer in timers.items():
+                t = timer()
+                ms[name] = min(ms.get(name, t), t)
+        plain_ms, lib_ms = ms["plain"], ms["sdpa"]
         BH, elem = B * H, q.element_size()
         pairs = sum(min(i + 1, Tk) for i in range(T)) if causal else T * Tk
         in_bytes = BH * (2 * T + 2 * Tk) * D * elem \
@@ -355,10 +438,9 @@ def phase_bwd(torch, attention):
                      f"({bound_by}: {flops:.3e} flops, {nbytes} bytes)")
         print(f"{line}; plain backward {plain_ms:.4f} ms, sdpa backward "
               f"{lib_ms:.4f} ms", flush=True)
-        if main is None:
-            main = recs
+        recs_by_dtype.setdefault("bf16" if dt == bf16 else "f32", recs)
     split_vs_fused(torch, attention, g)
-    return main
+    return recs_by_dtype
 
 
 def split_vs_fused(torch, attention, g):
@@ -544,6 +626,17 @@ def _train_batch(torch):
     return torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
 
 
+def attention_launches(attention):
+    """The attention kernels' launch counts: K1 to K4, and K1 and K3 on
+    their sm90 route."""
+    return dict(K1=attention.flash_fwd.launches,
+                K1_sm90=attention.flash_fwd.sm90_launches,
+                K2=attention.flash_bwd_dq.launches,
+                K3=attention.flash_bwd_dkv.launches,
+                K3_sm90=attention.flash_bwd_dkv.sm90_launches,
+                K4=attention.flash_bwd_fused.launches)
+
+
 def phase_train(torch, lm, attention, optimizer, loss_mod, parallel, counts):
     """The flagship in bf16 memorises one batch (the JAX package's training
     benchmark); returns the launch counts."""
@@ -566,18 +659,17 @@ def phase_train(torch, lm, attention, optimizer, loss_mod, parallel, counts):
         losses.append(dpt.step_async(x, y))
     loss_end = float(losses[-1])             # one readback syncs the chain
     dt = time.monotonic() - t0
-    launches = dict(K1=attention.flash_fwd.launches,
-                    K2=attention.flash_bwd_dq.launches,
-                    K3=attention.flash_bwd_dkv.launches,
-                    K4=attention.flash_bwd_fused.launches)
+    launches = attention_launches(attention)
     peak = torch.cuda.max_memory_allocated()
     losses = [float(v) for v in losses]
     want = L * K * (steps + 1)
     check(all(math.isfinite(v) for v in losses), f"losses {losses}")
     check(launches["K1"] == launches["K2"] == launches["K3"] == want
+          and launches["K1_sm90"] == launches["K3_sm90"] == want
           and launches["K4"] == 0,
-          f"launches {launches}: want K1 = K2 = K3 = {want} (layers "
-          f"{L} x micro-batches {K} x steps {steps + 1}), K4 = 0")
+          f"launches {launches}: want K1 = K2 = K3 = K1_sm90 = K3_sm90 = "
+          f"{want} (layers {L} x micro-batches {K} x steps {steps + 1}), "
+          f"K4 = 0")
     check(loss_end < loss_start - 0.3,
           f"learning gate: loss {loss_start:.4f} -> {loss_end:.4f} (must "
           f"fall by 0.3)")
@@ -627,9 +719,12 @@ def profile_step(torch, dpt, x, y):
     print(f"profile train (1 step, profiler on): wall {wall_us / 1e3:.1f} "
           f"ms, device busy {busy / 1e3:.1f} ms = {busy / wall_us:.3f} of "
           f"wall, idle {1 - busy / wall_us:.3f}", flush=True)
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"  {us / busy:.3f} of device time, {us / 1e3:.1f} ms: "
-              f"{name[:110]}", flush=True)
+    # the top 10, and every attention kernel wherever it ranks
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    for rank, (name, us) in enumerate(ranked):
+        if rank < 10 or "flash_" in name:
+            print(f"  {us / busy:.3f} of device time, {us / 1e3:.1f} ms: "
+                  f"{name[:110]}", flush=True)
 
 
 def _max_diff(torch, a, b):
@@ -641,9 +736,14 @@ def _max_diff(torch, a, b):
 
 def phase_fused(torch, lm, attention, optimizer, loss_mod, parallel, counts):
     """3 steps of the training run with the split pair, then 3 from the same
-    weights under ``MXTPU_FLASH_BWD=fused``: K4 replaces K2 + K3, and the
-    losses and the trained weights equal the split run's bit for bit (K4
-    computes K2's and K3's outputs with their tiles, in their order)."""
+    weights under ``MXTPU_FLASH_BWD=fused``: K4 replaces K2 + K3. K4 runs
+    K2's dq body, bit for bit, and the simt dk/dv body, while the split
+    run's K3 takes the sm90 route (P and dS rounded to bf16 before their
+    products), so the two runs differ by the rounding of dk and dv, not
+    bit for bit: the losses must agree within 1e-2 relative, and the
+    weights within 2 x steps x lr = 1.8e-3, the most two Adam runs drift
+    apart when only the gradients' rounding differs (Adam moves a weight
+    by at most about lr a step)."""
     L, K = 0, TRAIN["micro_batches"]
     x, y = _train_batch(torch)
     runs = {}
@@ -672,22 +772,26 @@ def phase_fused(torch, lm, attention, optimizer, loss_mod, parallel, counts):
           launches["K3"] == 0, f"fused launches {launches}, want K4 = "
           f"{L * K * 3} and no K2/K3")
     (split_losses, split_w), (losses, w) = runs["split"], runs["fused"]
-    ldiff = max(abs(a - b) for a, b in zip(losses, split_losses))
+    lrel = max(abs(a - b) / abs(b) for a, b in zip(losses, split_losses))
     wdiff = _max_diff(torch, w, split_w)
-    check(ldiff == 0 and wdiff == 0,
-          f"fused losses {losses} vs split {split_losses}: diff {ldiff}; "
-          f"weights after 3 steps differ by {wdiff} (both must be 0)")
+    wtol = 2 * 3 * 3e-4
+    check(lrel <= 1e-2 and wdiff <= wtol,
+          f"fused losses {losses} vs split {split_losses}: max rel diff "
+          f"{lrel} (tol 1e-2); weights after 3 steps differ by {wdiff} (tol "
+          f"{wtol:g})")
     print(f"fused backward: 3 steps, losses {losses} vs split "
-          f"{split_losses}, max diff {ldiff:.3e}; weights after 3 steps max "
-          f"diff {wdiff:.3e} (both must be 0); launches {launches}",
-          flush=True)
+          f"{split_losses}, max rel diff {lrel:.3e} (tol 1e-2); weights "
+          f"after 3 steps max diff {wdiff:.3e} (tol {wtol:g}); launches "
+          f"{launches}", flush=True)
     return launches["K4"]
 
 
-def phase_train_card_vs_cpu(torch, lm, optimizer, loss_mod, parallel):
+def phase_train_card_vs_cpu(torch, lm, attention, optimizer, loss_mod,
+                            parallel, counts):
     """The same weights and batches train on the card and on the CPU (f32,
     base width, 2 layers, B=4, T=256): the gradients of the first batch,
-    the losses of 3 Adam steps and the weights after them agree."""
+    the losses of 3 Adam steps and the weights after them agree. Returns
+    the card's attention launch counts: f32 takes the simt routes."""
     import numpy as np
     cpu = lm.transformer_lm("base", vocab_size=16384, num_layers=2,
                             device="cpu", seed=11)
@@ -698,6 +802,7 @@ def phase_train_card_vs_cpu(torch, lm, optimizer, loss_mod, parallel):
                 rs.randint(0, 16384, (4, 256)).astype(np.float32))
                for _ in range(3)]
     grads, losses, weights = {}, {}, {}
+    counts(0)
     for name, net, dev in (("cuda", gpu, "cuda"), ("cpu", cpu, "cpu")):
         x, y = (torch.from_numpy(a).to(dev) for a in batches[0])
         grads[name] = torch.autograd.grad(
@@ -708,6 +813,11 @@ def phase_train_card_vs_cpu(torch, lm, optimizer, loss_mod, parallel):
             micro_batches=2, device=None if dev == "cuda" else dev)
         losses[name] = [dpt.step(x, y) for x, y in batches]
         weights[name] = dict(net.named_parameters())
+    launches = attention_launches(attention)
+    check(launches["K1"] > 0 and launches["K2"] == launches["K3"] > 0 and
+          launches["K1_sm90"] == launches["K3_sm90"] == 0,
+          f"f32 training launches {launches}: want K1, K2 = K3 > 0 on the "
+          f"simt route")
     # each gradient against its own largest entry, floored at 1e-3 of the
     # model's: the key bias's gradient is 0 (softmax ignores a shift shared
     # by a row's logits), so both sides hold rounding noise there
@@ -732,7 +842,9 @@ def phase_train_card_vs_cpu(torch, lm, optimizer, loss_mod, parallel):
           f"largest entry, in {gname} (tol {gtol:g}); 3 Adam steps, losses "
           f"card {losses['cuda']} CPU {losses['cpu']}, max diff "
           f"{ldiff:.3e} (tol {ltol:g}); weights max diff (tol {wtol:g}) "
-          + ", ".join(f"{d:.3e} in {n}" for d, n in wdiffs[:3]), flush=True)
+          + ", ".join(f"{d:.3e} in {n}" for d, n in wdiffs[:3])
+          + f"; launches {launches}", flush=True)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1223,16 +1335,15 @@ def run():
     print(f"built {sorted(built)} in {time.monotonic() - t0:.1f} s "
           f"(nvcc per kernel: "
           f"{ {k: round(v, 1) for k, v in built.items()} })", flush=True)
-    for name in _build.SOURCES:
-        for ln in _build.build_log(name).splitlines():
-            if "registers" in ln or "spill" in ln:
-                print(f"  ptxas {name}: {ln.strip()}", flush=True)
+    check_build(_build)
 
     def counts(n):
         for fn in (attention.flash_fwd, attention.flash_bwd_dq,
                    attention.flash_bwd_dkv, attention.flash_bwd_fused,
                    quant_attention.dequant_decode):
             fn.launches = n
+        attention.flash_fwd.sm90_launches = n
+        attention.flash_bwd_dkv.sm90_launches = n
 
     def timed_phase(name, fn, *args):
         t = time.monotonic()
@@ -1257,8 +1368,9 @@ def run():
     k4_launches = timed_phase("fused", phase_fused, torch, lm, attention,
                               optimizer, loss_mod, parallel, counts)
     torch.cuda.empty_cache()
-    timed_phase("train card vs CPU", phase_train_card_vs_cpu, torch, lm,
-                optimizer, loss_mod, parallel)
+    f32_launches = timed_phase("train card vs CPU", phase_train_card_vs_cpu,
+                               torch, lm, attention, optimizer, loss_mod,
+                               parallel, counts)
     torch.cuda.empty_cache()
     saxpy = timed_phase("K6 checks", phase_k6, torch, mx)
     head = timed_phase("imperative head", phase_head, torch, mx)
@@ -1266,26 +1378,32 @@ def run():
           f"{train_launches['K1']}", flush=True)
 
     bwd_src = "mxtpu_torch/csrc/flash_bwd.cu"
-    # K1 runs on two paths at two shapes and dtypes: one record each
+    # K1 and K3 run on two routes, each on its own path, shape and dtype:
+    # one record each
     kernels = [
         dict(name="flash_fwd", route="cuda",
              source="mxtpu_torch/csrc/flash_fwd.cu",
-             replaces="mxtpu/ops/attention.py:133", path="forward",
+             replaces="mxtpu/ops/attention.py:133", path="forward (f32)",
              launches=k1_launches, **k1["forward"]),
-        dict(name="flash_fwd", route="cuda",
-             source="mxtpu_torch/csrc/flash_fwd.cu",
-             replaces="mxtpu/ops/attention.py:133", path="train",
-             launches=train_launches["K1"], **k1["train"]),
+        dict(name="flash_fwd_sm90", route="cuda",
+             source="mxtpu_torch/csrc/flash_fwd_sm90.cu",
+             replaces="mxtpu/ops/attention.py:133", path="train (bf16)",
+             launches=train_launches["K1_sm90"], **k1["train"]),
         dict(name="flash_bwd_dq", route="cuda", source=bwd_src,
-             replaces="mxtpu/ops/attention.py:182", path="train",
-             launches=train_launches["K2"], **bwd["K2"]),
+             replaces="mxtpu/ops/attention.py:182", path="train (bf16)",
+             launches=train_launches["K2"], **bwd["bf16"]["K2"]),
+        dict(name="flash_bwd_dkv_sm90", route="cuda",
+             source="mxtpu_torch/csrc/flash_bwd_dkv_sm90.cu",
+             replaces="mxtpu/ops/attention.py:220", path="train (bf16)",
+             launches=train_launches["K3_sm90"], **bwd["bf16"]["K3"]),
         dict(name="flash_bwd_dkv", route="cuda", source=bwd_src,
-             replaces="mxtpu/ops/attention.py:220", path="train",
-             launches=train_launches["K3"], **bwd["K3"]),
+             replaces="mxtpu/ops/attention.py:220",
+             path="train card vs CPU (f32)", launches=f32_launches["K3"],
+             **bwd["f32"]["K3"]),
         dict(name="flash_bwd_fused", route="cuda", source=bwd_src,
              replaces="mxtpu/ops/attention.py:262",
              path="train, MXTPU_FLASH_BWD=fused", launches=k4_launches,
-             **bwd["K4"]),
+             **bwd["bf16"]["K4"]),
         dict(name="dequant_decode", route="cuda",
              source="mxtpu_torch/csrc/dequant_decode.cu",
              replaces="mxtpu/ops/quant_attention.py:99", path="serving",

@@ -1,0 +1,204 @@
+#!/usr/bin/env python3
+"""Sweep of the sm90 attention kernels on one NVIDIA GPU: K1
+(``flash_fwd``) and K3 (``flash_bwd_dkv``) on their tensor-core route,
+bf16, over ragged, causal, wide-head and training shapes, each against its
+plain PyTorch version; the timed shapes also against
+``scaled_dot_product_attention`` (its forward for K1, its backward for K3).
+
+    python3 kernel_sweep.py build          # build; registers, spills, SASS
+    python3 kernel_sweep.py drive fwd bwd  # every case, faults isolated
+
+``drive`` runs the cases of each kind in a child process and, when a case
+faults (a kernel fault poisons the process's CUDA context), starts a new
+child at the next case, so one run names every faulting case. Tolerances
+are ``chip_smoke.py``'s: K1 out 1e-2 and lse 1e-4, K3 2e-2 x max(|ref|,
+1). The last line is ``TOTAL FAILS n``; the exit code is 1 if n > 0.
+"""
+
+import math
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# (B, H, T, Tk, D, causal, timed)
+FWD = [(1, 1, 128, 128, 64, False, False), (1, 1, 128, 128, 64, True, False),
+       (2, 3, 77, 130, 40, False, False), (1, 2, 300, 300, 128, True, False),
+       (4, 12, 1000, 1000, 64, True, False),
+       (2, 4, 1000, 1021, 64, False, False),
+       (2, 2, 256, 256, 128, True, False), (2, 2, 333, 200, 64, True, False),
+       (4, 12, 1024, 1024, 64, True, True),
+       (8, 16, 1024, 1024, 64, True, True),
+       (8, 16, 1024, 1024, 128, True, True)]
+# (B, H, T, Tk, D, causal, bf16 lse/Delta rows, timed)
+BWD = [(1, 1, 128, 128, 64, False, False, False),
+       (1, 1, 128, 128, 64, True, False, False),
+       (2, 3, 128, 130, 40, False, False, False),
+       (2, 3, 77, 130, 40, False, False, False),
+       (2, 4, 1000, 1021, 40, True, False, False),
+       (1, 4, 300, 300, 128, True, False, False),
+       (2, 3, 200, 333, 64, True, False, False),
+       (2, 3, 333, 200, 64, True, False, False),
+       (2, 4, 512, 512, 64, True, True, False),
+       (1, 2, 256, 256, 128, False, True, False),
+       (8, 16, 1024, 1024, 64, True, False, True),
+       (8, 16, 1024, 1024, 128, True, False, True)]
+NAMES = ("flash_fwd_sm90", "flash_bwd_dkv_sm90")
+
+
+def timed(torch, fn, iters=20):
+    """Mean device time of ``fn`` (CUDA events, after 3 warm-up calls)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def build():
+    from mxtpu_torch import _build
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    t0 = time.time()
+    print(_build.build_all(NAMES), time.time() - t0, flush=True)
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
+                             "cuobjdump")
+    for name in NAMES:
+        for ln in _build.build_log(name).splitlines():
+            if any(w in ln for w in ("registers", "spill", "arning",
+                                     "Function properties")):
+                print(name, ln.strip()[:200])
+        sass = subprocess.run([cuobjdump, "-sass", _build.lib_path(name)],
+                              capture_output=True, text=True).stdout
+        print(name, "HGMMA", sass.count("HGMMA"), "UTMALDG",
+              sass.count("UTMALDG"), flush=True)
+
+
+def fwd_case(torch, A, F, case, g):
+    B, H, T, Tk, D, causal, do_time = case
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    q = torch.randn(B, H, T, D, device=dev, generator=g).to(bf16)
+    k = torch.randn(B, H, Tk, D, device=dev, generator=g).to(bf16)
+    v = torch.randn(B, H, Tk, D, device=dev, generator=g).to(bf16)
+    sc = 1 / math.sqrt(D)
+    n0 = A.flash_fwd.sm90_launches
+    out, lse = A.flash_fwd(q, k, v, causal, sc)
+    ref, ref_lse = A._chunk_reference_lse(q, k, v, causal, sc)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    lerr = (lse - ref_lse).abs().max().item()
+    ok = err <= 1e-2 and lerr <= 1e-4 and A.flash_fwd.sm90_launches == n0 + 1
+    line = (f"K1 B{B} H{H} T{T} Tk{Tk} D{D} causal={causal}: err {err:.3e} "
+            f"lse {lerr:.3e} {'OK' if ok else 'FAIL'}")
+    if do_time:
+        ms = timed(torch, lambda: A.flash_fwd(q, k, v, causal, sc))
+        lib = timed(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, scale=sc))
+        line += f"; kernel {ms:.4f} ms sdpa {lib:.4f} ms ratio {ms / lib:.2f}"
+    return ok, line
+
+
+def bwd_case(torch, A, F, case, g):
+    B, H, T, Tk, D, causal, rows_bf16, do_time = case
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    q, do = (torch.randn(B, H, T, D, device=dev, generator=g).to(bf16)
+             for _ in range(2))
+    k, v = (torch.randn(B, H, Tk, D, device=dev, generator=g).to(bf16)
+            for _ in range(2))
+    dlse = torch.randn(B, H, T, device=dev, generator=g)
+    sc = 1 / math.sqrt(D)
+    out, lse = A._chunk_reference_lse(q, k, v, causal, sc)
+    os.environ["MXTPU_FLASH_LSE"] = "bf16" if rows_bf16 else ""
+    rows = A._bwd_rows(out, lse, do, dlse)
+    os.environ.pop("MXTPU_FLASH_LSE")
+    args = (q, k, v, do) + rows + (causal, sc)
+    ref = A._flash_bwd_plain(*args)
+    n0 = A.flash_bwd_dkv.sm90_launches
+    dk, dv = A.flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    errs = [((o.float() - r.float()).abs().max().item(),
+             2e-2 * max(r.float().abs().max().item(), 1.0))
+            for o, r in ((dk, ref[1]), (dv, ref[2]))]
+    ok = all(e <= t for e, t in errs) and \
+        A.flash_bwd_dkv.sm90_launches == n0 + 1
+    line = (f"K3 B{B} H{H} T{T} Tk{Tk} D{D} causal={causal} rows_bf16="
+            f"{rows_bf16}: " + ", ".join(f"{e:.3e}/{t:.3e}" for e, t in errs)
+            + (" OK" if ok else " FAIL"))
+    if do_time:
+        ms = timed(torch, lambda: A.flash_bwd_dkv(*args), 10)
+        qs, ks, vs = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+
+        def fwd_bwd():
+            F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
+                                           scale=sc).backward(do)
+
+        def fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
+                                               scale=sc)
+
+        lib = timed(torch, fwd_bwd, 10) - timed(torch, fwd, 10)
+        line += (f"; kernel {ms:.4f} ms sdpa bwd {lib:.4f} ms ratio "
+                 f"{ms / lib:.2f}")
+    return ok, line
+
+
+def run(kind, start):
+    """Cases of one kind from index ``start``, printing ``DONE i`` after
+    each and ``FAILS n`` at the end."""
+    import torch
+    import torch.nn.functional as F
+    from mxtpu_torch.ops import attention as A
+    cases, one = (FWD, fwd_case) if kind == "fwd" else (BWD, bwd_case)
+    fails = 0
+    for idx in range(start, len(cases)):
+        g = torch.Generator(device="cuda").manual_seed(idx)
+        ok, line = one(torch, A, F, cases[idx], g)
+        fails += not ok
+        print(line, flush=True)
+        print(f"DONE {idx}", flush=True)
+    print(f"FAILS {fails}", flush=True)
+
+
+def drive(kinds):
+    total = 0
+    for kind in kinds:
+        n, start = len(FWD if kind == "fwd" else BWD), 0
+        while start < n:
+            p = subprocess.run([sys.executable, __file__, kind, str(start)],
+                               capture_output=True, text=True, timeout=300)
+            print(p.stdout, end="")
+            done = [int(ln.split()[1]) for ln in p.stdout.splitlines()
+                    if ln.startswith("DONE")]
+            finished = "FAILS" in p.stdout
+            if p.returncode != 0 or not finished:
+                print(f"CRASH in {kind} case "
+                      f"{done[-1] + 1 if done else start}: rc "
+                      f"{p.returncode}\n{p.stderr[-1500:]}", flush=True)
+                total += 1
+            total += sum(int(ln.split()[1]) for ln in p.stdout.splitlines()
+                         if ln.startswith("FAILS"))
+            start = (done[-1] + 1 if done else start) + (0 if finished
+                                                         else 1)
+    print("TOTAL FAILS", total)
+    return total
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, HERE)
+    if sys.argv[1] == "build":
+        build()
+    elif sys.argv[1] == "drive":
+        sys.exit(1 if drive(sys.argv[2:]) else 0)
+    else:
+        run(sys.argv[1], int(sys.argv[2]))

@@ -2,8 +2,9 @@
 with a plain C interface, loaded with ``ctypes``.
 
 Each source under ``csrc/`` compiles on its own, for ``sm_90a``, into
-``mxtpu_torch/build/lib<name>-<hash>.so``; the hash covers the source and
-the flags, so an edited kernel never loads a stale library. The build runs
+``mxtpu_torch/build/lib<name>-<hash>.so``; the hash covers the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited kernel or
+header never loads a stale library. The build runs
 on first use (or all at once through :func:`build_all`, one ``nvcc`` per
 source in parallel) and is written to a temporary name and renamed, so two
 processes building at once cannot load half a file.
@@ -20,7 +21,8 @@ import threading
 import time
 from typing import Dict, Iterable, Optional
 
-__all__ = ["SOURCES", "build_all", "build_log", "kernel", "nvcc_path"]
+__all__ = ["SOURCES", "build_all", "build_log", "kernel", "lib_path",
+           "nvcc_path"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PKG, "build")
@@ -30,6 +32,8 @@ SOURCES = {
     "flash_fwd": "csrc/flash_fwd.cu",
     "flash_bwd": "csrc/flash_bwd.cu",
     "dequant_decode": "csrc/dequant_decode.cu",
+    "flash_fwd_sm90": "csrc/flash_fwd_sm90.cu",
+    "flash_bwd_dkv_sm90": "csrc/flash_bwd_dkv_sm90.cu",
 }
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -55,9 +59,15 @@ def nvcc_path() -> str:
                        "toolkit is installed")
 
 
-def _lib_path(name: str) -> str:
-    with open(os.path.join(_PKG, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_FLAGS).encode())
+def lib_path(name: str) -> str:
+    """Where kernel ``name``'s library is (or will be) built."""
+    csrc = os.path.join(_PKG, "csrc")
+    headers = sorted(f for f in os.listdir(csrc) if f.endswith(".cuh"))
+    digest = hashlib.sha256(" ".join(_FLAGS).encode())
+    for path in [os.path.join(_PKG, SOURCES[name])] + [
+            os.path.join(csrc, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
@@ -71,7 +81,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     for name in names:
-        out = _lib_path(name)
+        out = lib_path(name)
         if os.path.exists(out):
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
@@ -99,7 +109,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
 def build_log(name: str) -> str:
     """The compiler's report for a built kernel (registers, shared memory,
     spills per instantiation)."""
-    with open(_lib_path(name) + ".log", "rb") as f:
+    with open(lib_path(name) + ".log", "rb") as f:
         return f.read().decode(errors="replace")
 
 
@@ -113,7 +123,7 @@ def kernel(name: str, symbol: str, argtypes):
             lib = _libs.get(name)
             if lib is None:
                 build_all([name])
-                lib = _libs[name] = ctypes.CDLL(_lib_path(name))
+                lib = _libs[name] = ctypes.CDLL(lib_path(name))
             fn = getattr(lib, symbol)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int

@@ -1,6 +1,12 @@
 """Attention ops — flash attention as hand-written CUDA kernels: the
-forward K1 (``csrc/flash_fwd.cu``) and the backward K2, K3 and the fused K4
-(``csrc/flash_bwd.cu``), each with its plain PyTorch version beside it.
+forward K1 and the backward K2, K3 and the fused K4, each with its plain
+PyTorch version beside it. K1 and K3 take one of two routes, chosen
+statically from the dtype and head dim (:func:`_fwd_route`,
+:func:`_dkv_route`): ``sm90`` for bf16 with D % 8 == 0 and D <= 128 (bf16
+tiles on the tensor cores through ``wgmma``, fed by TMA:
+``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_dkv_sm90.cu``), ``simt``
+otherwise (f32 sums on the CUDA cores: ``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``, which also hold K2 and K4).
 
 Port of ``mxtpu/ops/attention.py``. The public surface keeps the JAX
 layouts and contracts: q, k, v are ``(B, H, T, D)``; ``flash_chunk`` returns
@@ -43,7 +49,26 @@ _FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
     ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_FWD_SM90_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_DKV_SM90_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _BWD_DQ, _BWD_DKV, _BWD_FUSED = 0, 1, 2
+
+
+def _fwd_route(dtype, D: int) -> str:
+    """K1's route: ``'sm90'`` (``csrc/flash_fwd_sm90.cu``) for bf16 with
+    D % 8 == 0 and D <= 128, else ``'simt'`` (``csrc/flash_fwd.cu``). The
+    choice rests on dtype and D alone; neither route falls back on the
+    other."""
+    return "sm90" if (dtype == torch.bfloat16 and D % 8 == 0
+                      and D <= 128) else "simt"
+
+
+def _dkv_route(dtype, D: int) -> str:
+    """K3's route, by :func:`_fwd_route`'s rule: ``'sm90'``
+    (``csrc/flash_bwd_dkv_sm90.cu``) or ``'simt'`` (``csrc/flash_bwd.cu``)."""
+    return _fwd_route(dtype, D)
 
 
 def _bwd_mode() -> str:
@@ -158,42 +183,69 @@ def _check_qkv(name, q, k, v, *more):
     return B, H, T, Tk, D
 
 
+def _check_aligned(name, *ts):
+    """The sm90 route's TMA loads read from 16-byte aligned addresses."""
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{name} (sm90 route) takes 16-byte aligned "
+                         f"tensors")
+
+
 def flash_fwd(q, k, v, causal: bool, scale: float):
     """Launch K1 on CUDA tensors: ``(out (B,H,T,D) in q's dtype, lse
     (B,H,T) f32)``. Takes any T and Tk, D <= 256, f32 or bf16, contiguous
     inputs of one dtype; raises on anything else or on a refused launch.
-    ``flash_fwd.launches`` counts the launches.
+    ``flash_fwd.launches`` counts the launches of both routes,
+    ``flash_fwd.sm90_launches`` those of the sm90 route.
 
     K1 replaces the Pallas kernel ``mxtpu/ops/attention.py:
-    _flash_fwd_kernel``. It is bound by arithmetic (each K/V tile serves
-    64 query rows); this version runs on the CUDA cores in f32 and keeps
-    the T x T scores out of device memory (``csrc/flash_fwd.cu``)."""
+    _flash_fwd_kernel`` and keeps the T x T scores out of device memory.
+    Its route is :func:`_fwd_route`'s: ``sm90`` for bf16 with D % 8 == 0
+    and D <= 128 (``csrc/flash_fwd_sm90.cu``: 128 query rows a block, 64
+    at D > 64, K/V tiles streamed by TMA, both products on ``wgmma``, P
+    entering P·V as two bf16 terms), ``simt`` for the rest
+    (``csrc/flash_fwd.cu``: f32 on the CUDA cores)."""
     B, H, T, Tk, D = _check_qkv("flash_fwd", q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    fn = _kernel("flash_fwd", "mxt_flash_fwd", _FWD_ARGTYPES)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lse.data_ptr(), B * H, T, Tk, D, float(scale), int(causal),
-             _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), B * H, T, Tk, D, float(scale), int(causal))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    sm90 = _fwd_route(q.dtype, D) == "sm90"
+    if sm90:
+        _check_aligned("flash_fwd", q, k, v, out)
+        err = _kernel("flash_fwd_sm90", "mxt_flash_fwd_sm90",
+                      _FWD_SM90_ARGTYPES)(*args, stream)
+    else:
+        err = _kernel("flash_fwd", "mxt_flash_fwd", _FWD_ARGTYPES)(
+            *args, _DTYPES[q.dtype], stream)
     if err:
-        raise RuntimeError(f"flash_fwd launch failed (cudaError {err})")
+        raise RuntimeError(f"flash_fwd ({'sm90' if sm90 else 'simt'}) "
+                           f"launch failed (cudaError {err})")
     flash_fwd.launches += 1
+    flash_fwd.sm90_launches += sm90
     return out, lse
 
 
 flash_fwd.launches = 0
+flash_fwd.sm90_launches = 0
 
 
-def _launch_bwd(which, q, k, v, dout, lse, delta, causal, scale):
-    B, H, T, Tk, D = _check_qkv(_BWD_NAMES[which], q, k, v, dout)
-    rows_bf16 = lse.dtype == torch.bfloat16
+def _check_rows(q, lse, delta):
+    """The backward's row inputs: contiguous (B, H, T) lse and Delta on
+    q's device, f32 or bf16, of one dtype."""
     for r in (lse, delta):
-        if r.shape != (B, H, T) or r.device != q.device or not \
+        if r.shape != q.shape[:3] or r.device != q.device or not \
                 r.is_contiguous() or r.dtype != lse.dtype or r.dtype not in (
                     torch.float32, torch.bfloat16):
             raise ValueError(f"lse/delta rows must be contiguous (B, H, T) "
                              f"f32 or bf16 on {q.device}, one dtype; got "
                              f"{tuple(r.shape)} {r.dtype}")
+
+
+def _launch_bwd(which, q, k, v, dout, lse, delta, causal, scale):
+    B, H, T, Tk, D = _check_qkv(_BWD_NAMES[which], q, k, v, dout)
+    _check_rows(q, lse, delta)
+    rows_bf16 = lse.dtype == torch.bfloat16
     if which == _BWD_FUSED and T != Tk:
         raise ValueError(f"flash_bwd_fused takes T == Tk, got {T}, {Tk}")
     dq = torch.empty_like(q) if which != _BWD_DKV else None
@@ -230,14 +282,38 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool, scale: float):
 def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool, scale: float):
     """Launch K3 on CUDA tensors: ``(dk, dv)``, (B, H, Tk, D) in k's dtype,
     from the inputs :func:`flash_bwd_dq` takes. ``flash_bwd_dkv.launches``
-    counts the launches.
+    counts the launches of both routes, ``flash_bwd_dkv.sm90_launches``
+    those of the sm90 route.
 
     K3 replaces the Pallas kernel ``mxtpu/ops/attention.py:
-    _flash_bwd_dkv_kernel``: one block owns a key tile and streams the
-    query tiles from the causal start (``csrc/flash_bwd.cu``)."""
-    _, dk, dv = _launch_bwd(_BWD_DKV, q, k, v, dout, lse, delta, causal,
-                            scale)
+    _flash_bwd_dkv_kernel``: a block owns a key tile and streams the query
+    tiles from the causal start. Its route is :func:`_dkv_route`'s:
+    ``sm90`` for bf16 with D % 8 == 0 and D <= 128
+    (``csrc/flash_bwd_dkv_sm90.cu``: 128 keys a block, 64 at D > 64, q/dO
+    tiles streamed by TMA, the four products on ``wgmma``, P and dS rounded
+    to bf16 before theirs), ``simt`` for the rest (``csrc/flash_bwd.cu``'s
+    ``dkv_tile``: f32 on the CUDA cores)."""
+    if _dkv_route(q.dtype, q.shape[-1]) != "sm90":
+        _, dk, dv = _launch_bwd(_BWD_DKV, q, k, v, dout, lse, delta, causal,
+                                scale)
+        flash_bwd_dkv.launches += 1
+        return dk, dv
+    B, H, T, Tk, D = _check_qkv("flash_bwd_dkv", q, k, v, dout)
+    _check_rows(q, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _check_aligned("flash_bwd_dkv", q, k, v, dout)
+    fn = _kernel("flash_bwd_dkv_sm90", "mxt_flash_bwd_dkv_sm90",
+                 _DKV_SM90_ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             B * H, T, Tk, D, float(scale), int(causal),
+             int(lse.dtype == torch.bfloat16),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_bwd_dkv (sm90) launch failed (cudaError "
+                           f"{err})")
     flash_bwd_dkv.launches += 1
+    flash_bwd_dkv.sm90_launches += 1
     return dk, dv
 
 
@@ -258,6 +334,7 @@ _BWD_NAMES = {_BWD_DQ: "flash_bwd_dq", _BWD_DKV: "flash_bwd_dkv",
               _BWD_FUSED: "flash_bwd_fused"}
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.sm90_launches = 0
 flash_bwd_fused.launches = 0
 
 

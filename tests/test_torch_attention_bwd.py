@@ -173,3 +173,75 @@ def test_backward_wrappers_take_only_cuda_tensors():
     for fn in (ta.flash_bwd_dq, ta.flash_bwd_dkv, ta.flash_bwd_fused):
         with pytest.raises(ValueError, match="CUDA"):
             fn(q, k, v, g, rows, rows, True, 0.5)
+
+
+@pytest.mark.parametrize("dtype,D,route", [
+    (torch.bfloat16, 8, "sm90"), (torch.bfloat16, 32, "sm90"),
+    (torch.bfloat16, 40, "sm90"), (torch.bfloat16, 64, "sm90"),
+    (torch.bfloat16, 128, "sm90"), (torch.bfloat16, 36, "simt"),
+    (torch.bfloat16, 136, "simt"), (torch.bfloat16, 256, "simt"),
+    (torch.float32, 40, "simt"), (torch.float32, 64, "simt"),
+    (torch.float32, 128, "simt")])
+def test_dkv_route(dtype, D, route):
+    """K3's route: the tensor-core kernel exactly for bf16 with D % 8 == 0
+    and D <= 128, the CUDA-core kernel for everything else."""
+    assert ta._dkv_route(dtype, D) == route
+
+
+def test_sm90_dkv_refuses_cpu_tensors():
+    """Inputs the router sends to the sm90 kernel, on the CPU: the wrapper
+    raises and counts no launch, so nothing computes quietly in the plain
+    version."""
+    q, k, v, g, _ = (torch.from_numpy(a).to(torch.bfloat16)
+                     for a in _inputs(1, 2, 64, 64, 10))
+    rows = torch.zeros(1, 2, 64)
+    assert ta._dkv_route(q.dtype, 64) == "sm90"
+    before = (ta.flash_bwd_dkv.launches, ta.flash_bwd_dkv.sm90_launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        ta.flash_bwd_dkv(q, k, v, g, rows, rows, True, 0.125)
+    assert (ta.flash_bwd_dkv.launches,
+            ta.flash_bwd_dkv.sm90_launches) == before
+
+
+def _sm90_dkv_emulation(q, k, v, dout, lse, delta, causal, scale):
+    """The sm90 K3's arithmetic in plain PyTorch: f32 products of the bf16
+    inputs, P = exp(s - lse) and dS = P (dP - Delta) in f32, P and dS
+    rounded to bf16 before dv = P^T dO and dk = scale dS^T q, f32 sums,
+    the outputs rounded to bf16."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    p = torch.exp(s - lse.float()[..., None])
+    if causal:
+        p = p * torch.ones(s.shape[-2:]).tril()
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - delta.float()[..., None])
+    p16, ds16 = (t.to(torch.bfloat16).float() for t in (p, ds))
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds16, qf) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p16, dof)
+    return dk.to(torch.bfloat16), dv.to(torch.bfloat16)
+
+
+def test_sm90_dkv_rounding_fits_card_tolerance():
+    """The sm90 K3 rounds P and dS to bf16 before the products that make dv
+    and dk; the rest of its arithmetic is f32 on bf16 inputs. That
+    rounding, emulated here, stays within the card's check of K3
+    (``chip_smoke.py`` phase 7: 2e-2 x max(|ref|, 1)) against the Pallas
+    kernels in interpret mode."""
+    q, k, v, g, _ = _inputs(1, 2, 256, 64, seed=12)
+    q, k, v, g = (torch.from_numpy(a).to(torch.bfloat16)
+                  for a in (q, k, v, g))
+    scale = 1.0 / math.sqrt(64)
+    qa, ka, va, ga = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                      for t in (q, k, v, g))
+    out, lse = _flash_attention_pallas(qa, ka, va, causal=True, scale=scale,
+                                       interpret=True)
+    _, dk_j, dv_j = _flash_backward_pallas(qa, ka, va, out, lse, ga, True,
+                                           scale, interpret=True)
+    out_t = torch.from_numpy(np.array(out.astype(jnp.float32)))
+    lse_t = torch.from_numpy(np.array(lse).reshape(1, 2, 256))
+    rows = ta._bwd_rows(out_t.to(torch.bfloat16), lse_t, g, None)
+    emu = _sm90_dkv_emulation(q, k, v, g, *rows, True, scale)
+    for name, e, r in (("dk", emu[0], dk_j), ("dv", emu[1], dv_j)):
+        ref = torch.from_numpy(np.array(r.astype(jnp.float32)))
+        tol = 2e-2 * max(ref.abs().max().item(), 1.0)
+        assert (e.float() - ref).abs().max().item() <= tol, name

@@ -90,14 +90,19 @@ def _register(mod, pkg):
             return HostSplit()
 
 
-_register(joperator, "jax")
-_register(toperator, "port")
 PKGS = [(jnd, jag), (tnd, tag)]
 X = np.linspace(-2, 2, 12).reshape(3, 4).astype(np.float32)
 
 
 @pytest.fixture(autouse=True)
 def _on_cpu():
+    """Each test registers this file's ops in both packages as it starts:
+    other test files register their own ``scaled_sigmoid`` in the JAX
+    package's registry (``tests/test_numeric_grad.py`` imports
+    ``tests/test_custom_op.py`` again inside a test), and may run before
+    this one in the same process."""
+    _register(joperator, "jax")
+    _register(toperator, "port")
     SEEN.clear()
     with mxtpu_torch.Context("cpu"):
         yield

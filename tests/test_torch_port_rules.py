@@ -1,8 +1,8 @@
 """The port's standing rules, checked on the source tree.
 
-* Nothing under ``mxtpu_torch/`` and nothing in ``chip_smoke.py`` imports
-  JAX or the JAX package ``mxtpu`` (relative imports inside the port are
-  its own).
+* Nothing under ``mxtpu_torch/`` and nothing in ``chip_smoke.py`` or
+  ``kernel_sweep.py`` imports JAX or the JAX package ``mxtpu`` (relative
+  imports inside the port are its own).
 * Entry points run on the card unless the caller asks for the CPU: without
   CUDA, building a model or an engine with no ``device``, an ``nd`` array
   with no ``ctx``, or an ``rtc`` module raises instead of running on the
@@ -20,7 +20,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 def _port_sources():
     files = sorted((ROOT / "mxtpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "kernel_sweep.py"]
 
 
 def _forbidden(name: str) -> bool:

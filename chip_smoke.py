@@ -10,8 +10,9 @@ Phases, in order; any failure exits non-zero without a result line:
 1. the card's name and power limit (``nvidia-smi``); build every kernel
    with ``nvcc`` (one process per source, in parallel); the compiler's
    registers, shared memory and spills per kernel, and for the sm90
-   kernels (K1 and K3 on the tensor cores) no spill, and ``wgmma``
-   (``HGMMA``) and TMA (``UTMALDG``) instructions in their machine code;
+   kernels (K1, and K2, K3 and K4 on the tensor cores) no spill, and
+   ``wgmma`` (``HGMMA``) and TMA (``UTMALDG``) instructions in their
+   machine code;
 2. K1 (flash-attention forward) against its plain PyTorch version on the
    card at the forward's shapes (B=4, H=12, T=1024, D=64, causal) in f32
    and bf16, at the training shape (B=8, H=16, T=1024, D=64, causal,
@@ -34,21 +35,21 @@ Phases, in order; any failure exits non-zero without a result line:
    the card at the training shape (B=8, H=16, T=1024, D=64, causal) in
    bf16 and f32, and at ragged shapes (T=1000, T != Tk, D=40, 128, 256),
    with an lse cotangent and with bf16 lse/Delta rows: kernel, plain and
-   ``scaled_dot_product_attention``-backward times, and the bounds; K3
-   takes the sm90 route by K1's rule; K4's dq equals K2's bit for bit,
-   and its dk and dv equal K3's (simt route) or agree with them within the
-   bf16 tolerance (sm90 route); then K2 + K3 timed against K4 on a small
-   grid and without the causal mask;
+   ``scaled_dot_product_attention``-backward times, and the bounds; K2,
+   K3 and K4 take the sm90 route by K1's rule; K4's dq, dk and dv equal
+   K2's and K3's bit for bit on both routes; then K2 + K3 timed against
+   K4 on a small grid and without the causal mask;
 8. training: ``transformer_lm("flagship", vocab_size=16384)`` in bf16
    (d1024, L8, H16) takes 1 + 24 Adam steps on one fixed (32, 1024) batch
    through ``DataParallelTrainer(micro_batches=4)``; the loss must fall by
    0.3 (the learning gate of the JAX package's benchmark) and K1, K2 and
-   K3 must launch once per layer, micro-batch and step, K1 and K3 on the
+   K3 must launch once per layer, micro-batch and step, all three on the
    sm90 route; then one step under ``torch.profiler``;
 9. the fused backward: 3 steps of the same run with the split pair, then 3
-   under ``MXTPU_FLASH_BWD=fused``; K4 must launch, and the losses agree
-   with the split run's within 1e-2 relative and the trained weights
-   within 1.8e-3 (K4 runs the simt dk/dv body, the split pair sm90 K3);
+   under ``MXTPU_FLASH_BWD=fused``, K4 on the sm90 route; then the same
+   for phase 10's f32 model (base width, 2 layers), K4 on the simt route;
+   in both the losses and the trained weights equal the split run's bit
+   for bit;
 10. training card against CPU: base width, 2 layers, f32, B=4, T=256; the
     first batch's gradients, the losses of 3 Adam steps and the weights
     after them agree; K1, K2 and K3 take the simt route;
@@ -68,10 +69,10 @@ Phases, in order; any failure exits non-zero without a result line:
     then the pair timed against its plain version, its bound and
     ``F.cross_entropy``.
 
-Launch counts are set to 0 just before phases 4, 5, 8, 9 (its fused run),
-10, saxpy's drive in 11 and the 10 steps of 12, and read just after. The
-line before the last is the kernels' JSON record, with one K1 and one K3
-record for each route and the path it runs on; the last line is
+Launch counts are set to 0 just before phases 4, 5, 8, 9 (each fused
+run), 10, saxpy's drive in 11 and the 10 steps of 12, and read just after.
+The line before the last is the kernels' JSON record, with one K1, K2, K3
+and K4 record for each route and the path it runs on; the last line is
 ``{"ok": true, "device": {...}}``.
 Weights and data are random, from fixed seeds.
 """
@@ -99,7 +100,7 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
-SM90_SOURCES = ("flash_fwd_sm90", "flash_bwd_dkv_sm90")
+SM90_SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90")
 
 
 def check_build(build):
@@ -280,8 +281,8 @@ def phase_k5(torch, quant_attention, kv_quant):
 
 def phase_bwd(torch, attention):
     """K2, K3 and K4 against the plain backward; returns the records at the
-    training shape (causal) by dtype (``bf16``: K3 on the sm90 route, the
-    training path; ``f32``: K3 on the simt route) and kernel name."""
+    training shape (causal) by dtype (``bf16``: the sm90 route, the
+    training path; ``f32``: the simt route) and kernel name."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(7)
@@ -316,7 +317,13 @@ def phase_bwd(torch, attention):
          True, True, False, False),
         ("bf16 causal D=128 bf16 rows", 1, 4, 300, 300, 128, bf16, True,
          True, True, False),
+        ("bf16 causal dlse T=200 Tk=333 D=128", 1, 4, 200, 333, 128, bf16,
+         True, True, False, False),
     ]
+    wrappers = {"K2": attention.flash_bwd_dq, "K3": attention.flash_bwd_dkv,
+                "K4": attention.flash_bwd_fused}
+    routers = {"K2": attention._dq_route, "K3": attention._dkv_route,
+               "K4": attention._fused_route}
     recs_by_dtype = {}
     for (label, B, H, T, Tk, D, dt, causal, with_dlse, bf16_rows,
          do_time) in cases:
@@ -335,16 +342,19 @@ def phase_bwd(torch, attention):
             os.environ.pop("MXTPU_FLASH_LSE")
         args = (q, k, v, dout) + rows + (causal, scale)
         ref = attention._flash_bwd_plain(*args)
-        route = attention._dkv_route(dt, D)
-        n0 = attention.flash_bwd_dkv.sm90_launches
+        route = "sm90" if dt == bf16 and D % 8 == 0 and D <= 128 else "simt"
+        n0 = {kern: fn.sm90_launches for kern, fn in wrappers.items()}
         split = (attention.flash_bwd_dq(*args),) + \
             attention.flash_bwd_dkv(*args)
         fused = attention.flash_bwd_fused(*args) if T == Tk else None
         torch.cuda.synchronize()
-        check(attention.flash_bwd_dkv.sm90_launches - n0 == (route == "sm90")
-              and route == ("sm90" if dt == bf16 and D % 8 == 0 and D <= 128
-                            else "simt"),
-              f"K3 {label}: took the wrong route (want {route})")
+        for kern, fn in wrappers.items():
+            if kern == "K4" and fused is None:
+                continue
+            got = routers[kern](dt, D)
+            check(got == route and fn.sm90_launches - n0[kern] == (
+                route == "sm90"), f"{kern} {label}: routed to {got}, "
+                f"{fn.sm90_launches - n0[kern]} sm90 launches (want {route})")
         tol_rel = 1e-4 if dt == f32 else 2e-2
         errs = {}
         for kern, outs in (("K2", split[:1]), ("K3", split[1:]),
@@ -363,19 +373,13 @@ def phase_bwd(torch, attention):
         if fused is None:
             same = "n/a (T != Tk)"
         else:
-            # K4 runs K2's body and the simt K3 body: dq equals K2's bit for
-            # bit; dk and dv equal the simt K3's, and agree with the sm90
-            # K3's within the bf16 tolerance
-            check(torch.equal(fused[0], split[0]),
-                  f"K4 {label}: dq differs from K2's")
-            kv_err = max((a.float() - b.float()).abs().max().item()
-                         for a, b in zip(fused[1:], split[1:]))
-            kv_tol = 0.0 if route == "simt" else errs["K3"][1]
-            check(kv_err <= kv_tol, f"K4 {label}: dk/dv differ from K3's by "
-                  f"{kv_err} (tol {kv_tol})")
-            same = (f"dq bit-equal, dk/dv max diff {kv_err:.3e} (tol "
-                    f"{kv_tol:.3e})")
-        line = (f"K2/K3/K4 {label} B{B} H{H} T{T} Tk{Tk} D{D} (K3 {route}): "
+            # K4 runs the tile bodies of its route's K2 and K3: the same
+            # sums in the same order
+            for name, a, b in zip(("dq", "dk", "dv"), fused, split):
+                check(torch.equal(a, b), f"K4 {label}: {name} differs from "
+                      f"{'K2' if name == 'dq' else 'K3'}'s")
+            same = "dq, dk, dv bit-equal"
+        line = (f"K2/K3/K4 {label} B{B} H{H} T{T} Tk{Tk} D{D} ({route}): "
                 f"max_abs_err "
                 + ", ".join(f"{kk} {e:.3e} (tol {t:.3e})"
                             for kk, (e, t) in errs.items())
@@ -437,7 +441,9 @@ def phase_bwd(torch, attention):
             line += (f"; {kern} {ms[kern]:.4f} ms, bound {bound_ms:.4f} ms "
                      f"({bound_by}: {flops:.3e} flops, {nbytes} bytes)")
         print(f"{line}; plain backward {plain_ms:.4f} ms, sdpa backward "
-              f"{lib_ms:.4f} ms", flush=True)
+              f"{lib_ms:.4f} ms; K2 / sdpa backward {ms['K2'] / lib_ms:.3f}, "
+              f"K4 / (K2 + K3) {ms['K4'] / (ms['K2'] + ms['K3']):.3f}",
+              flush=True)
         recs_by_dtype.setdefault("bf16" if dt == bf16 else "f32", recs)
     split_vs_fused(torch, attention, g)
     return recs_by_dtype
@@ -627,14 +633,16 @@ def _train_batch(torch):
 
 
 def attention_launches(attention):
-    """The attention kernels' launch counts: K1 to K4, and K1 and K3 on
-    their sm90 route."""
+    """The attention kernels' launch counts: K1 to K4 on both routes, and
+    on their sm90 route."""
     return dict(K1=attention.flash_fwd.launches,
                 K1_sm90=attention.flash_fwd.sm90_launches,
                 K2=attention.flash_bwd_dq.launches,
+                K2_sm90=attention.flash_bwd_dq.sm90_launches,
                 K3=attention.flash_bwd_dkv.launches,
                 K3_sm90=attention.flash_bwd_dkv.sm90_launches,
-                K4=attention.flash_bwd_fused.launches)
+                K4=attention.flash_bwd_fused.launches,
+                K4_sm90=attention.flash_bwd_fused.sm90_launches)
 
 
 def phase_train(torch, lm, attention, optimizer, loss_mod, parallel, counts):
@@ -665,11 +673,11 @@ def phase_train(torch, lm, attention, optimizer, loss_mod, parallel, counts):
     want = L * K * (steps + 1)
     check(all(math.isfinite(v) for v in losses), f"losses {losses}")
     check(launches["K1"] == launches["K2"] == launches["K3"] == want
-          and launches["K1_sm90"] == launches["K3_sm90"] == want
-          and launches["K4"] == 0,
-          f"launches {launches}: want K1 = K2 = K3 = K1_sm90 = K3_sm90 = "
-          f"{want} (layers {L} x micro-batches {K} x steps {steps + 1}), "
-          f"K4 = 0")
+          and launches["K1_sm90"] == launches["K2_sm90"]
+          == launches["K3_sm90"] == want and launches["K4"] == 0,
+          f"launches {launches}: want K1 = K2 = K3 = K1_sm90 = K2_sm90 = "
+          f"K3_sm90 = {want} (layers {L} x micro-batches {K} x steps "
+          f"{steps + 1}), K4 = 0")
     check(loss_end < loss_start - 0.3,
           f"learning gate: loss {loss_start:.4f} -> {loss_end:.4f} (must "
           f"fall by 0.3)")
@@ -734,56 +742,81 @@ def _max_diff(torch, a, b):
                .max().item() for x, y in zip(a, b))
 
 
-def phase_fused(torch, lm, attention, optimizer, loss_mod, parallel, counts):
-    """3 steps of the training run with the split pair, then 3 from the same
-    weights under ``MXTPU_FLASH_BWD=fused``: K4 replaces K2 + K3. K4 runs
-    K2's dq body, bit for bit, and the simt dk/dv body, while the split
-    run's K3 takes the sm90 route (P and dS rounded to bf16 before their
-    products), so the two runs differ by the rounding of dk and dv, not
-    bit for bit: the losses must agree within 1e-2 relative, and the
-    weights within 2 x steps x lr = 1.8e-3, the most two Adam runs drift
-    apart when only the gradients' rounding differs (Adam moves a weight
-    by at most about lr a step)."""
-    L, K = 0, TRAIN["micro_batches"]
-    x, y = _train_batch(torch)
+def _split_and_fused(torch, attention, make_model, make_trainer, batches,
+                     counts):
+    """The same steps from the same weights with the split pair, then under
+    ``MXTPU_FLASH_BWD=fused``; returns ``(losses, weights)`` by mode, the
+    model's layer count and the fused run's launch counts."""
     runs = {}
     for mode in ("split", "fused"):
-        model = _flagship(lm)
+        model = make_model()
         L = len(model.blocks)
-        dpt = parallel.DataParallelTrainer(model, SeqLoss(loss_mod),
-                                           optimizer.Adam(learning_rate=3e-4),
-                                           micro_batches=K)
+        dpt = make_trainer(model)
         if mode == "fused":
             os.environ["MXTPU_FLASH_BWD"] = "fused"
             counts(0)
         try:
             losses = [float(v) for v in
-                      [dpt.step_async(x, y) for _ in range(3)]]
-            launches = dict(K2=attention.flash_bwd_dq.launches,
-                            K3=attention.flash_bwd_dkv.launches,
-                            K4=attention.flash_bwd_fused.launches)
+                      [dpt.step_async(x, y) for x, y in batches]]
+            launches = attention_launches(attention)
         finally:
             os.environ.pop("MXTPU_FLASH_BWD", None)
         runs[mode] = (losses, [p.detach().clone()
                                for p in model.parameters()])
         del model, dpt
         torch.cuda.empty_cache()
-    check(launches["K4"] == L * K * 3 and launches["K2"] == 0 and
-          launches["K3"] == 0, f"fused launches {launches}, want K4 = "
-          f"{L * K * 3} and no K2/K3")
-    (split_losses, split_w), (losses, w) = runs["split"], runs["fused"]
-    lrel = max(abs(a - b) / abs(b) for a, b in zip(losses, split_losses))
-    wdiff = _max_diff(torch, w, split_w)
-    wtol = 2 * 3 * 3e-4
-    check(lrel <= 1e-2 and wdiff <= wtol,
-          f"fused losses {losses} vs split {split_losses}: max rel diff "
-          f"{lrel} (tol 1e-2); weights after 3 steps differ by {wdiff} (tol "
-          f"{wtol:g})")
-    print(f"fused backward: 3 steps, losses {losses} vs split "
-          f"{split_losses}, max rel diff {lrel:.3e} (tol 1e-2); weights "
-          f"after 3 steps max diff {wdiff:.3e} (tol {wtol:g}); launches "
-          f"{launches}", flush=True)
-    return launches["K4"]
+    return runs, L, launches
+
+
+def phase_fused(torch, lm, attention, optimizer, loss_mod, parallel, counts):
+    """3 steps of the training run with the split pair, then 3 from the same
+    weights under ``MXTPU_FLASH_BWD=fused``: K4 replaces K2 + K3, on the
+    sm90 route (the bf16 flagship), then on the simt route (phase 10's f32
+    model, base width, 2 layers, B=4, T=256, 2 micro-batches). K4 runs its
+    route's K2 and K3 tile bodies, so the losses and the trained weights
+    equal the split run's bit for bit. Returns K4's launches on each
+    route."""
+    import numpy as np
+    K = TRAIN["micro_batches"]
+    rs = np.random.RandomState(9)
+    f32_batches = [tuple(torch.from_numpy(a).cuda() for a in (
+        rs.randint(0, 16384, (4, 256)).astype(np.int32),
+        rs.randint(0, 16384, (4, 256)).astype(np.float32)))
+        for _ in range(3)]
+    legs = {
+        "sm90": (lambda: _flagship(lm),
+                 lambda m: parallel.DataParallelTrainer(
+                     m, SeqLoss(loss_mod),
+                     optimizer.Adam(learning_rate=3e-4), micro_batches=K),
+                 [_train_batch(torch)] * 3, K),
+        "simt": (lambda: lm.transformer_lm("base", vocab_size=16384,
+                                           num_layers=2, seed=11),
+                 lambda m: parallel.DataParallelTrainer(
+                     m, SeqLoss(loss_mod),
+                     optimizer.Adam(learning_rate=1e-3), micro_batches=2),
+                 f32_batches, 2),
+    }
+    k4 = {}
+    for route, (make_model, make_trainer, batches, mb) in legs.items():
+        runs, L, launches = _split_and_fused(torch, attention, make_model,
+                                             make_trainer, batches, counts)
+        want = L * mb * len(batches)
+        check(launches["K4"] == want and launches["K4_sm90"] == (
+            want if route == "sm90" else 0) and launches["K2"] == 0 and
+            launches["K3"] == 0, f"fused {route} launches {launches}, want "
+            f"K4 = {want} on the {route} route and no K2/K3")
+        (split_losses, split_w), (losses, w) = runs["split"], runs["fused"]
+        same_w = all(torch.equal(a, b) for a, b in zip(w, split_w))
+        check(losses == split_losses and same_w,
+              f"fused ({route}) losses {losses} vs split {split_losses}; "
+              f"weights after {len(batches)} steps "
+              f"{'equal' if same_w else 'differ'} (max diff "
+              f"{_max_diff(torch, w, split_w):.3e}): want both bit-equal")
+        print(f"fused backward ({route}): {len(batches)} steps, losses "
+              f"{losses} equal the split run's, weights bit-equal; "
+              f"launches {launches}", flush=True)
+        k4[route] = launches["K4"]
+    return k4
 
 
 def phase_train_card_vs_cpu(torch, lm, attention, optimizer, loss_mod,
@@ -815,7 +848,8 @@ def phase_train_card_vs_cpu(torch, lm, attention, optimizer, loss_mod,
         weights[name] = dict(net.named_parameters())
     launches = attention_launches(attention)
     check(launches["K1"] > 0 and launches["K2"] == launches["K3"] > 0 and
-          launches["K1_sm90"] == launches["K3_sm90"] == 0,
+          launches["K1_sm90"] == launches["K2_sm90"]
+          == launches["K3_sm90"] == 0,
           f"f32 training launches {launches}: want K1, K2 = K3 > 0 on the "
           f"simt route")
     # each gradient against its own largest entry, floored at 1e-3 of the
@@ -1342,8 +1376,9 @@ def run():
                    attention.flash_bwd_dkv, attention.flash_bwd_fused,
                    quant_attention.dequant_decode):
             fn.launches = n
-        attention.flash_fwd.sm90_launches = n
-        attention.flash_bwd_dkv.sm90_launches = n
+        for fn in (attention.flash_fwd, attention.flash_bwd_dq,
+                   attention.flash_bwd_dkv, attention.flash_bwd_fused):
+            fn.sm90_launches = n
 
     def timed_phase(name, fn, *args):
         t = time.monotonic()
@@ -1378,7 +1413,9 @@ def run():
           f"{train_launches['K1']}", flush=True)
 
     bwd_src = "mxtpu_torch/csrc/flash_bwd.cu"
-    # K1 and K3 run on two routes, each on its own path, shape and dtype:
+    sm90_src = "mxtpu_torch/csrc/flash_bwd_sm90.cu"
+    f32_path = "train card vs CPU (f32)"
+    # K1 to K4 run on two routes, each on its own path, shape and dtype:
     # one record each
     kernels = [
         dict(name="flash_fwd", route="cuda",
@@ -1389,21 +1426,26 @@ def run():
              source="mxtpu_torch/csrc/flash_fwd_sm90.cu",
              replaces="mxtpu/ops/attention.py:133", path="train (bf16)",
              launches=train_launches["K1_sm90"], **k1["train"]),
-        dict(name="flash_bwd_dq", route="cuda", source=bwd_src,
+        dict(name="flash_bwd_dq_sm90", route="cuda", source=sm90_src,
              replaces="mxtpu/ops/attention.py:182", path="train (bf16)",
-             launches=train_launches["K2"], **bwd["bf16"]["K2"]),
-        dict(name="flash_bwd_dkv_sm90", route="cuda",
-             source="mxtpu_torch/csrc/flash_bwd_dkv_sm90.cu",
+             launches=train_launches["K2_sm90"], **bwd["bf16"]["K2"]),
+        dict(name="flash_bwd_dq", route="cuda", source=bwd_src,
+             replaces="mxtpu/ops/attention.py:182", path=f32_path,
+             launches=f32_launches["K2"], **bwd["f32"]["K2"]),
+        dict(name="flash_bwd_dkv_sm90", route="cuda", source=sm90_src,
              replaces="mxtpu/ops/attention.py:220", path="train (bf16)",
              launches=train_launches["K3_sm90"], **bwd["bf16"]["K3"]),
         dict(name="flash_bwd_dkv", route="cuda", source=bwd_src,
-             replaces="mxtpu/ops/attention.py:220",
-             path="train card vs CPU (f32)", launches=f32_launches["K3"],
-             **bwd["f32"]["K3"]),
+             replaces="mxtpu/ops/attention.py:220", path=f32_path,
+             launches=f32_launches["K3"], **bwd["f32"]["K3"]),
+        dict(name="flash_bwd_fused_sm90", route="cuda", source=sm90_src,
+             replaces="mxtpu/ops/attention.py:262",
+             path="train (bf16), MXTPU_FLASH_BWD=fused",
+             launches=k4_launches["sm90"], **bwd["bf16"]["K4"]),
         dict(name="flash_bwd_fused", route="cuda", source=bwd_src,
              replaces="mxtpu/ops/attention.py:262",
-             path="train, MXTPU_FLASH_BWD=fused", launches=k4_launches,
-             **bwd["bf16"]["K4"]),
+             path="train (f32, base width, 2 layers), MXTPU_FLASH_BWD=fused",
+             launches=k4_launches["simt"], **bwd["f32"]["K4"]),
         dict(name="dequant_decode", route="cuda",
              source="mxtpu_torch/csrc/dequant_decode.cu",
              replaces="mxtpu/ops/quant_attention.py:99", path="serving",

@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
 """Sweep of the sm90 attention kernels on one NVIDIA GPU: K1
-(``flash_fwd``) and K3 (``flash_bwd_dkv``) on their tensor-core route,
-bf16, over ragged, causal, wide-head and training shapes, each against its
-plain PyTorch version; the timed shapes also against
-``scaled_dot_product_attention`` (its forward for K1, its backward for K3).
+(``flash_fwd``), K2 (``flash_bwd_dq``), K3 (``flash_bwd_dkv``) and K4
+(``flash_bwd_fused``) on their tensor-core route, bf16, over ragged,
+causal, wide-head and training shapes, each against its plain PyTorch
+version; the timed shapes also against ``scaled_dot_product_attention``
+(its forward for K1, its backward for K2, K3 and K4). K4 is also held bit
+for bit against K2 + K3 and timed beside them.
 
-    python3 kernel_sweep.py build          # build; registers, spills, SASS
-    python3 kernel_sweep.py drive fwd bwd  # every case, faults isolated
+    python3 kernel_sweep.py build                    # registers, spills, SASS
+    python3 kernel_sweep.py drive fwd bwd dq fused   # every case, faults isolated
 
 ``drive`` runs the cases of each kind in a child process and, when a case
 faults (a kernel fault poisons the process's CUDA context), starts a new
 child at the next case, so one run names every faulting case. Tolerances
-are ``chip_smoke.py``'s: K1 out 1e-2 and lse 1e-4, K3 2e-2 x max(|ref|,
-1). The last line is ``TOTAL FAILS n``; the exit code is 1 if n > 0.
+are ``chip_smoke.py``'s: K1 out 1e-2 and lse 1e-4, K2-K4 2e-2 x max(|ref|,
+1). ``fused`` takes the shapes with T == Tk. The last line is ``TOTAL FAILS n``; the exit code is 1 if n > 0.
 """
 
 import math
@@ -37,15 +39,22 @@ BWD = [(1, 1, 128, 128, 64, False, False, False),
        (1, 1, 128, 128, 64, True, False, False),
        (2, 3, 128, 130, 40, False, False, False),
        (2, 3, 77, 130, 40, False, False, False),
+       (2, 3, 77, 77, 40, True, True, False),
        (2, 4, 1000, 1021, 40, True, False, False),
        (1, 4, 300, 300, 128, True, False, False),
+       (1, 4, 200, 333, 128, True, False, False),
+       (1, 4, 333, 200, 128, False, True, False),
        (2, 3, 200, 333, 64, True, False, False),
        (2, 3, 333, 200, 64, True, False, False),
        (2, 4, 512, 512, 64, True, True, False),
        (1, 2, 256, 256, 128, False, True, False),
        (8, 16, 1024, 1024, 64, True, False, True),
        (8, 16, 1024, 1024, 128, True, False, True)]
-NAMES = ("flash_fwd_sm90", "flash_bwd_dkv_sm90")
+NAMES = ("flash_fwd_sm90", "flash_bwd_sm90")
+# backward kind: (kernel, wrapper, indices of (dq, dk, dv) it returns)
+BWD_KINDS = {"dq": ("K2", "flash_bwd_dq", (0,)),
+             "bwd": ("K3", "flash_bwd_dkv", (1, 2)),
+             "fused": ("K4", "flash_bwd_fused", (0, 1, 2))}
 
 
 def timed(torch, fn, iters=20):
@@ -107,8 +116,10 @@ def fwd_case(torch, A, F, case, g):
     return ok, line
 
 
-def bwd_case(torch, A, F, case, g):
+def bwd_case(torch, A, F, case, g, kind):
     B, H, T, Tk, D, causal, rows_bf16, do_time = case
+    kern, wrapper, which = BWD_KINDS[kind]
+    fn = getattr(A, wrapper)
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     q, do = (torch.randn(B, H, T, D, device=dev, generator=g).to(bf16)
              for _ in range(2))
@@ -122,19 +133,25 @@ def bwd_case(torch, A, F, case, g):
     os.environ.pop("MXTPU_FLASH_LSE")
     args = (q, k, v, do) + rows + (causal, sc)
     ref = A._flash_bwd_plain(*args)
-    n0 = A.flash_bwd_dkv.sm90_launches
-    dk, dv = A.flash_bwd_dkv(*args)
+    n0 = fn.sm90_launches
+    outs = fn(*args)
+    outs = (outs,) if kind == "dq" else outs
     torch.cuda.synchronize()
-    errs = [((o.float() - r.float()).abs().max().item(),
-             2e-2 * max(r.float().abs().max().item(), 1.0))
-            for o, r in ((dk, ref[1]), (dv, ref[2]))]
-    ok = all(e <= t for e, t in errs) and \
-        A.flash_bwd_dkv.sm90_launches == n0 + 1
-    line = (f"K3 B{B} H{H} T{T} Tk{Tk} D{D} causal={causal} rows_bf16="
-            f"{rows_bf16}: " + ", ".join(f"{e:.3e}/{t:.3e}" for e, t in errs)
-            + (" OK" if ok else " FAIL"))
+    errs = [((o.float() - ref[i].float()).abs().max().item(),
+             2e-2 * max(ref[i].float().abs().max().item(), 1.0))
+            for o, i in zip(outs, which)]
+    ok = all(e <= t for e, t in errs) and fn.sm90_launches == n0 + 1
+    line = (f"{kern} B{B} H{H} T{T} Tk{Tk} D{D} causal={causal} rows_bf16="
+            f"{rows_bf16}: " + ", ".join(f"{e:.3e}/{t:.3e}" for e, t in errs))
+    if kind == "fused":
+        split = (A.flash_bwd_dq(*args),) + A.flash_bwd_dkv(*args)
+        same = all(torch.equal(a, b) for a, b in zip(outs, split))
+        ok = ok and same
+        line += ("; bit-equal to K2 + K3" if same
+                 else "; DIFFERS from K2 + K3")
+    line += " OK" if ok else " FAIL"
     if do_time:
-        ms = timed(torch, lambda: A.flash_bwd_dkv(*args), 10)
+        ms = timed(torch, lambda: fn(*args), 10)
         qs, ks, vs = (t.detach().clone().requires_grad_(True)
                       for t in (q, k, v))
 
@@ -150,7 +167,19 @@ def bwd_case(torch, A, F, case, g):
         lib = timed(torch, fwd_bwd, 10) - timed(torch, fwd, 10)
         line += (f"; kernel {ms:.4f} ms sdpa bwd {lib:.4f} ms ratio "
                  f"{ms / lib:.2f}")
+        if kind == "fused":
+            split_ms = timed(torch, lambda: (A.flash_bwd_dq(*args),
+                                             A.flash_bwd_dkv(*args)), 10)
+            line += (f"; K2 + K3 {split_ms:.4f} ms, K4 / (K2 + K3) "
+                     f"{ms / split_ms:.3f}")
     return ok, line
+
+
+def cases_of(kind):
+    """The cases of one kind: K4 takes only self-attention (T == Tk)."""
+    if kind == "fwd":
+        return FWD
+    return [c for c in BWD if kind != "fused" or c[2] == c[3]]
 
 
 def run(kind, start):
@@ -159,11 +188,14 @@ def run(kind, start):
     import torch
     import torch.nn.functional as F
     from mxtpu_torch.ops import attention as A
-    cases, one = (FWD, fwd_case) if kind == "fwd" else (BWD, bwd_case)
+    cases = cases_of(kind)
     fails = 0
     for idx in range(start, len(cases)):
         g = torch.Generator(device="cuda").manual_seed(idx)
-        ok, line = one(torch, A, F, cases[idx], g)
+        if kind == "fwd":
+            ok, line = fwd_case(torch, A, F, cases[idx], g)
+        else:
+            ok, line = bwd_case(torch, A, F, cases[idx], g, kind)
         fails += not ok
         print(line, flush=True)
         print(f"DONE {idx}", flush=True)
@@ -173,7 +205,7 @@ def run(kind, start):
 def drive(kinds):
     total = 0
     for kind in kinds:
-        n, start = len(FWD if kind == "fwd" else BWD), 0
+        n, start = len(cases_of(kind)), 0
         while start < n:
             p = subprocess.run([sys.executable, __file__, kind, str(start)],
                                capture_output=True, text=True, timeout=300)

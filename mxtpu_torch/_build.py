@@ -33,7 +33,7 @@ SOURCES = {
     "flash_bwd": "csrc/flash_bwd.cu",
     "dequant_decode": "csrc/dequant_decode.cu",
     "flash_fwd_sm90": "csrc/flash_fwd_sm90.cu",
-    "flash_bwd_dkv_sm90": "csrc/flash_bwd_dkv_sm90.cu",
+    "flash_bwd_sm90": "csrc/flash_bwd_sm90.cu",
 }
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

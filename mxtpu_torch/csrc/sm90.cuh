@@ -1,5 +1,5 @@
 // Hopper building blocks shared by the sm_90a attention kernels
-// (flash_fwd_sm90.cu, flash_bwd_dkv_sm90.cu): mbarriers, TMA tile loads,
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu): mbarriers, TMA tile loads,
 // warpgroup matrix multiplies (wgmma) and their shared-memory descriptors,
 // and the host-side tensor maps the TMA loads read.
 //

@@ -1,12 +1,12 @@
 """Attention ops — flash attention as hand-written CUDA kernels: the
 forward K1 and the backward K2, K3 and the fused K4, each with its plain
-PyTorch version beside it. K1 and K3 take one of two routes, chosen
-statically from the dtype and head dim (:func:`_fwd_route`,
-:func:`_dkv_route`): ``sm90`` for bf16 with D % 8 == 0 and D <= 128 (bf16
-tiles on the tensor cores through ``wgmma``, fed by TMA:
-``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_dkv_sm90.cu``), ``simt``
-otherwise (f32 sums on the CUDA cores: ``csrc/flash_fwd.cu``,
-``csrc/flash_bwd.cu``, which also hold K2 and K4).
+PyTorch version beside it. Each takes one of two routes, chosen statically
+from the dtype and head dim (:func:`_fwd_route`, and :func:`_dq_route`,
+:func:`_dkv_route`, :func:`_fused_route` by its rule): ``sm90`` for bf16
+with D % 8 == 0 and D <= 128 (bf16 tiles on the tensor cores through
+``wgmma``, fed by TMA: ``csrc/flash_fwd_sm90.cu``, and
+``csrc/flash_bwd_sm90.cu`` for K2, K3 and K4), ``simt`` otherwise (f32
+sums on the CUDA cores: ``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``).
 
 Port of ``mxtpu/ops/attention.py``. The public surface keeps the JAX
 layouts and contracts: q, k, v are ``(B, H, T, D)``; ``flash_chunk`` returns
@@ -51,8 +51,8 @@ _BWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
     ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _FWD_SM90_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-_DKV_SM90_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_BWD_SM90_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
+    ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _BWD_DQ, _BWD_DKV, _BWD_FUSED = 0, 1, 2
 
 
@@ -65,18 +65,21 @@ def _fwd_route(dtype, D: int) -> str:
                       and D <= 128) else "simt"
 
 
-def _dkv_route(dtype, D: int) -> str:
-    """K3's route, by :func:`_fwd_route`'s rule: ``'sm90'``
-    (``csrc/flash_bwd_dkv_sm90.cu``) or ``'simt'`` (``csrc/flash_bwd.cu``)."""
-    return _fwd_route(dtype, D)
+# K2's, K3's and K4's routes, by K1's rule: ``'sm90'``
+# (``csrc/flash_bwd_sm90.cu``) or ``'simt'`` (``csrc/flash_bwd.cu``).
+_dq_route = _dkv_route = _fused_route = _fwd_route
 
 
 def _bwd_mode() -> str:
     """``'fused'`` under ``MXTPU_FLASH_BWD=fused`` (K4, taken only where
     T == Tk, as the reference takes it), else ``'split'`` (K2 then K3).
     The default and the knob are the reference's, so both packages run
-    the same backward for the same setting; K4 gives the same bits as
-    K2 + K3 and is not slower at any shape measured (PERF.md)."""
+    the same backward for the same setting. On either route K4 gives the
+    same bits as that route's K2 + K3 (it runs their tile bodies) and was
+    not slower at any shape measured: at the training shape (B 8, H 16,
+    T 1024, D 64, causal) 0.2560 ms against 0.1332 + 0.1646 in bf16 and
+    5.0130 against 2.6963 + 3.0378 in f32, on an H100 80GB HBM3 at 700 W
+    (PERF.md)."""
     return "fused" if os.environ.get(
         "MXTPU_FLASH_BWD", "").strip().lower() == "fused" else "split"
 
@@ -243,25 +246,40 @@ def _check_rows(q, lse, delta):
 
 
 def _launch_bwd(which, q, k, v, dout, lse, delta, causal, scale):
-    B, H, T, Tk, D = _check_qkv(_BWD_NAMES[which], q, k, v, dout)
+    """Launch K2, K3 or K4 (``which``) on the route its router gives q's
+    dtype and head dim; count the launch on the wrapper. Returns
+    ``(dq, dk, dv)``, None for what ``which`` does not write."""
+    name = _BWD_NAMES[which]
+    B, H, T, Tk, D = _check_qkv(name, q, k, v, dout)
     _check_rows(q, lse, delta)
-    rows_bf16 = lse.dtype == torch.bfloat16
     if which == _BWD_FUSED and T != Tk:
-        raise ValueError(f"flash_bwd_fused takes T == Tk, got {T}, {Tk}")
+        raise ValueError(f"{name} takes T == Tk, got {T}, {Tk}")
     dq = torch.empty_like(q) if which != _BWD_DKV else None
     dk = torch.empty_like(k) if which != _BWD_DQ else None
     dv = torch.empty_like(v) if which != _BWD_DQ else None
-    fn = _kernel("flash_bwd", "mxt_flash_bwd", _BWD_ARGTYPES)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(),
-             0 if dq is None else dq.data_ptr(),
-             0 if dk is None else dk.data_ptr(),
-             0 if dv is None else dv.data_ptr(), B * H, T, Tk, D,
-             float(scale), int(causal), _DTYPES[q.dtype], int(rows_bf16),
-             which, torch.cuda.current_stream(q.device).cuda_stream)
+    outs = [t for t in (dq, dk, dv) if t is not None]
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(),
+            0 if dq is None else dq.data_ptr(),
+            0 if dk is None else dk.data_ptr(),
+            0 if dv is None else dv.data_ptr(), B * H, T, Tk, D,
+            float(scale), int(causal))
+    rows_bf16 = int(lse.dtype == torch.bfloat16)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    sm90 = _ROUTES[which](q.dtype, D) == "sm90"
+    if sm90:
+        _check_aligned(name, q, k, v, dout, *outs)
+        err = _kernel("flash_bwd_sm90", "mxt_flash_bwd_sm90",
+                      _BWD_SM90_ARGTYPES)(*args, rows_bf16, which, stream)
+    else:
+        err = _kernel("flash_bwd", "mxt_flash_bwd", _BWD_ARGTYPES)(
+            *args, _DTYPES[q.dtype], rows_bf16, which, stream)
     if err:
-        raise RuntimeError(f"{_BWD_NAMES[which]} launch failed "
-                           f"(cudaError {err})")
+        raise RuntimeError(f"{name} ({'sm90' if sm90 else 'simt'}) launch "
+                           f"failed (cudaError {err})")
+    fn = _BWD_FNS[which]
+    fn.launches += 1
+    fn.sm90_launches += sm90
     return dq, dk, dv
 
 
@@ -269,14 +287,24 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool, scale: float):
     """Launch K2 on CUDA tensors: dq (B, H, T, D) in q's dtype, from q and
     dO (B, H, T, D), k and v (B, H, Tk, D), and the lse and Delta rows
     (B, H, T), f32 or bf16. Takes what K1 takes; raises on anything else
-    or on a refused launch. ``flash_bwd_dq.launches`` counts the launches.
+    or on a refused launch. ``flash_bwd_dq.launches`` counts the launches
+    of both routes, ``flash_bwd_dq.sm90_launches`` those of the sm90
+    route.
 
     K2 replaces the Pallas kernel ``mxtpu/ops/attention.py:
-    _flash_bwd_dq_kernel``: one block owns 64 query rows and streams the
-    key tiles up to the causal diagonal (``csrc/flash_bwd.cu``)."""
-    dq = _launch_bwd(_BWD_DQ, q, k, v, dout, lse, delta, causal, scale)[0]
-    flash_bwd_dq.launches += 1
-    return dq
+    _flash_bwd_dq_kernel``: a block owns a tile of query rows and streams
+    the key tiles up to the causal diagonal. Its route is
+    :func:`_dq_route`'s: ``sm90`` for bf16 with D % 8 == 0 and D <= 128
+    (``csrc/flash_bwd_sm90.cu``: 128 query rows a block, 64 at D > 64, K/V
+    tiles streamed by TMA, the three products on ``wgmma``, dS rounded to
+    bf16 before dS·K), ``simt`` for the rest (``csrc/flash_bwd.cu``'s
+    ``dq_tile``: f32 on the CUDA cores). At the training shape (B 8, H 16,
+    T 1024, D 64, causal) it took 0.1332 ms in bf16 (sm90) and 2.6963 ms
+    in f32 (simt) on an H100 80GB HBM3 at 700 W, against 0.3076 and
+    1.7197 ms for the whole backward of ``scaled_dot_product_attention``
+    (PERF.md)."""
+    return _launch_bwd(_BWD_DQ, q, k, v, dout, lse, delta, causal,
+                       scale)[0]
 
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool, scale: float):
@@ -289,53 +317,38 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool, scale: float):
     _flash_bwd_dkv_kernel``: a block owns a key tile and streams the query
     tiles from the causal start. Its route is :func:`_dkv_route`'s:
     ``sm90`` for bf16 with D % 8 == 0 and D <= 128
-    (``csrc/flash_bwd_dkv_sm90.cu``: 128 keys a block, 64 at D > 64, q/dO
+    (``csrc/flash_bwd_sm90.cu``: 128 keys a block, 64 at D > 64, q/dO
     tiles streamed by TMA, the four products on ``wgmma``, P and dS rounded
     to bf16 before theirs), ``simt`` for the rest (``csrc/flash_bwd.cu``'s
     ``dkv_tile``: f32 on the CUDA cores)."""
-    if _dkv_route(q.dtype, q.shape[-1]) != "sm90":
-        _, dk, dv = _launch_bwd(_BWD_DKV, q, k, v, dout, lse, delta, causal,
-                                scale)
-        flash_bwd_dkv.launches += 1
-        return dk, dv
-    B, H, T, Tk, D = _check_qkv("flash_bwd_dkv", q, k, v, dout)
-    _check_rows(q, lse, delta)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _check_aligned("flash_bwd_dkv", q, k, v, dout)
-    fn = _kernel("flash_bwd_dkv_sm90", "mxt_flash_bwd_dkv_sm90",
-                 _DKV_SM90_ARGTYPES)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             B * H, T, Tk, D, float(scale), int(causal),
-             int(lse.dtype == torch.bfloat16),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"flash_bwd_dkv (sm90) launch failed (cudaError "
-                           f"{err})")
-    flash_bwd_dkv.launches += 1
-    flash_bwd_dkv.sm90_launches += 1
-    return dk, dv
+    return _launch_bwd(_BWD_DKV, q, k, v, dout, lse, delta, causal,
+                       scale)[1:]
 
 
 def flash_bwd_fused(q, k, v, dout, lse, delta, causal: bool, scale: float):
     """Launch K4 on CUDA tensors with T == Tk: ``(dq, dk, dv)`` in one
-    launch, equal to K2 and K3's. ``flash_bwd_fused.launches`` counts the
-    launches.
+    launch, bit for bit K2's and K3's on the same route.
+    ``flash_bwd_fused.launches`` counts the launches of both routes,
+    ``flash_bwd_fused.sm90_launches`` those of the sm90 route.
 
     K4 replaces the Pallas kernel ``mxtpu/ops/attention.py:
-    _flash_bwd_fused_kernel``: block i computes dq of query tile i and dk,
-    dv of key tile i (``csrc/flash_bwd.cu``)."""
-    out = _launch_bwd(_BWD_FUSED, q, k, v, dout, lse, delta, causal, scale)
-    flash_bwd_fused.launches += 1
-    return out
+    _flash_bwd_fused_kernel``: block i computes dq of query tile i with
+    K2's tile body, then dk, dv of key tile i with K3's. Its route is
+    :func:`_fused_route`'s: ``sm90`` (``csrc/flash_bwd_sm90.cu``) or
+    ``simt`` (``csrc/flash_bwd.cu``). Its times are in
+    :func:`_bwd_mode`'s note."""
+    return _launch_bwd(_BWD_FUSED, q, k, v, dout, lse, delta, causal, scale)
 
 
 _BWD_NAMES = {_BWD_DQ: "flash_bwd_dq", _BWD_DKV: "flash_bwd_dkv",
               _BWD_FUSED: "flash_bwd_fused"}
-flash_bwd_dq.launches = 0
-flash_bwd_dkv.launches = 0
-flash_bwd_dkv.sm90_launches = 0
-flash_bwd_fused.launches = 0
+_BWD_FNS = {_BWD_DQ: flash_bwd_dq, _BWD_DKV: flash_bwd_dkv,
+            _BWD_FUSED: flash_bwd_fused}
+_ROUTES = {_BWD_DQ: _dq_route, _BWD_DKV: _dkv_route,
+           _BWD_FUSED: _fused_route}
+flash_bwd_dq.launches = flash_bwd_dq.sm90_launches = 0
+flash_bwd_dkv.launches = flash_bwd_dkv.sm90_launches = 0
+flash_bwd_fused.launches = flash_bwd_fused.sm90_launches = 0
 
 
 def flash_bwd(q, k, v, out, lse, dout, dlse, causal: bool, scale: float):

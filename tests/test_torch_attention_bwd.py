@@ -175,32 +175,57 @@ def test_backward_wrappers_take_only_cuda_tensors():
             fn(q, k, v, g, rows, rows, True, 0.5)
 
 
-@pytest.mark.parametrize("dtype,D,route", [
+_ROUTE_CASES = [
     (torch.bfloat16, 8, "sm90"), (torch.bfloat16, 32, "sm90"),
     (torch.bfloat16, 40, "sm90"), (torch.bfloat16, 64, "sm90"),
     (torch.bfloat16, 128, "sm90"), (torch.bfloat16, 36, "simt"),
     (torch.bfloat16, 136, "simt"), (torch.bfloat16, 256, "simt"),
     (torch.float32, 40, "simt"), (torch.float32, 64, "simt"),
-    (torch.float32, 128, "simt")])
+    (torch.float32, 128, "simt")]
+
+
+@pytest.mark.parametrize("dtype,D,route", _ROUTE_CASES)
 def test_dkv_route(dtype, D, route):
     """K3's route: the tensor-core kernel exactly for bf16 with D % 8 == 0
     and D <= 128, the CUDA-core kernel for everything else."""
     assert ta._dkv_route(dtype, D) == route
 
 
-def test_sm90_dkv_refuses_cpu_tensors():
+@pytest.mark.parametrize("dtype,D,route", _ROUTE_CASES)
+def test_dq_route(dtype, D, route):
+    """K2's route, by the same rule as K3's."""
+    assert ta._dq_route(dtype, D) == route
+
+
+@pytest.mark.parametrize("dtype,D,route", _ROUTE_CASES)
+def test_fused_route(dtype, D, route):
+    """K4's route, by the same rule: K4 runs the tile bodies of the K2 and
+    K3 of its route."""
+    assert ta._fused_route(dtype, D) == route
+
+
+def _assert_sm90_refuses_cpu(fn, router):
     """Inputs the router sends to the sm90 kernel, on the CPU: the wrapper
     raises and counts no launch, so nothing computes quietly in the plain
     version."""
     q, k, v, g, _ = (torch.from_numpy(a).to(torch.bfloat16)
                      for a in _inputs(1, 2, 64, 64, 10))
     rows = torch.zeros(1, 2, 64)
-    assert ta._dkv_route(q.dtype, 64) == "sm90"
-    before = (ta.flash_bwd_dkv.launches, ta.flash_bwd_dkv.sm90_launches)
+    assert router(q.dtype, 64) == "sm90"
+    before = (fn.launches, fn.sm90_launches)
     with pytest.raises(ValueError, match="CUDA"):
-        ta.flash_bwd_dkv(q, k, v, g, rows, rows, True, 0.125)
-    assert (ta.flash_bwd_dkv.launches,
-            ta.flash_bwd_dkv.sm90_launches) == before
+        fn(q, k, v, g, rows, rows, True, 0.125)
+    assert (fn.launches, fn.sm90_launches) == before
+
+
+def test_sm90_dkv_refuses_cpu_tensors():
+    _assert_sm90_refuses_cpu(ta.flash_bwd_dkv, ta._dkv_route)
+
+
+@pytest.mark.parametrize("name", ["dq", "fused"])
+def test_sm90_dq_and_fused_refuse_cpu_tensors(name):
+    _assert_sm90_refuses_cpu(getattr(ta, f"flash_bwd_{name}"),
+                             getattr(ta, f"_{name}_route"))
 
 
 def _sm90_dkv_emulation(q, k, v, dout, lse, delta, causal, scale):
@@ -245,3 +270,42 @@ def test_sm90_dkv_rounding_fits_card_tolerance():
         ref = torch.from_numpy(np.array(r.astype(jnp.float32)))
         tol = 2e-2 * max(ref.abs().max().item(), 1.0)
         assert (e.float() - ref).abs().max().item() <= tol, name
+
+
+def _sm90_dq_emulation(q, k, v, dout, lse, delta, causal, scale):
+    """The sm90 K2's arithmetic in plain PyTorch: f32 products of the bf16
+    inputs, P = exp(s - lse) and dS = P (dP - Delta) in f32, dS rounded to
+    bf16 before dq = scale dS K, f32 sums, dq rounded to bf16."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    p = torch.exp(s - lse.float()[..., None])
+    if causal:
+        p = p * torch.ones(s.shape[-2:]).tril()
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds16 = (p * (dp - delta.float()[..., None])).to(torch.bfloat16).float()
+    return (torch.einsum("bhqk,bhkd->bhqd", ds16, kf) * scale).to(
+        torch.bfloat16)
+
+
+def test_sm90_dq_rounding_fits_card_tolerance():
+    """The sm90 K2 rounds dS to bf16 before dS K; the rest of its
+    arithmetic is f32 on bf16 inputs. That rounding, emulated here, stays
+    within the card's check of K2 (``chip_smoke.py`` phase 7: 2e-2 x
+    max(|ref|, 1)) against the Pallas kernels in interpret mode."""
+    q, k, v, g, _ = _inputs(1, 2, 256, 64, seed=13)
+    q, k, v, g = (torch.from_numpy(a).to(torch.bfloat16)
+                  for a in (q, k, v, g))
+    scale = 1.0 / math.sqrt(64)
+    qa, ka, va, ga = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                      for t in (q, k, v, g))
+    out, lse = _flash_attention_pallas(qa, ka, va, causal=True, scale=scale,
+                                       interpret=True)
+    dq_j = _flash_backward_pallas(qa, ka, va, out, lse, ga, True, scale,
+                                  interpret=True)[0]
+    out_t = torch.from_numpy(np.array(out.astype(jnp.float32)))
+    lse_t = torch.from_numpy(np.array(lse).reshape(1, 2, 256))
+    rows = ta._bwd_rows(out_t.to(torch.bfloat16), lse_t, g, None)
+    emu = _sm90_dq_emulation(q, k, v, g, *rows, True, scale)
+    ref = torch.from_numpy(np.array(dq_j.astype(jnp.float32)))
+    tol = 2e-2 * max(ref.abs().max().item(), 1.0)
+    assert (emu.float() - ref).abs().max().item() <= tol

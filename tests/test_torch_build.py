@@ -28,10 +28,10 @@ def test_library_name_follows_source_and_headers(csrc_copy, edited):
 
 
 def test_library_name_is_stable(csrc_copy):
-    assert _build.lib_path("flash_bwd_dkv_sm90") == _build.lib_path(
-        "flash_bwd_dkv_sm90")
+    assert _build.lib_path("flash_bwd_sm90") == _build.lib_path(
+        "flash_bwd_sm90")
     assert _build.lib_path("flash_fwd_sm90") != _build.lib_path(
-        "flash_bwd_dkv_sm90")
+        "flash_bwd_sm90")
 
 
 def test_every_source_is_listed():

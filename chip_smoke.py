@@ -9,7 +9,9 @@ Phases, in order; any failure exits non-zero without a result line:
 
 1. the card's name and power limit (``nvidia-smi``); build every kernel
    with ``nvcc`` (one process per source, in parallel); the compiler's
-   registers, shared memory and spills per kernel, and for the sm90
+   registers, shared memory and spills per kernel; for the simt kernels
+   (K1 to K4 on the CUDA cores) registers and spills per instantiation
+   and no spill at DMAX 64 and 128 (DMAX 256's printed); for the sm90
    kernels (K1, and K2, K3 and K4 on the tensor cores) no spill, and
    ``wgmma`` (``HGMMA``) and TMA (``UTMALDG``) instructions in their
    machine code;
@@ -82,6 +84,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -101,13 +104,52 @@ def check(cond, msg):
 
 
 SM90_SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90")
+SIMT_SOURCES = ("flash_fwd", "flash_bwd")
+# a simt instantiation's mangled name: kernel, dtype (f or bf16), DMAX
+_PTXAS_KERNEL = re.compile(
+    r"\d(flash_[a-z_]+?_kernel)I(f|13__nv_bfloat16)Li(\d+)E")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def simt_instantiations(log):
+    """``(kernel, dtype, DMAX, registers, spill stores, spill loads)`` for
+    each instantiation in a simt kernel's compiler report."""
+    out, name, spill = [], None, None
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            name, spill = _PTXAS_KERNEL.search(ln), None
+        elif name and _PTXAS_SPILL.search(ln):
+            spill = tuple(int(x) for x in _PTXAS_SPILL.search(ln).groups())
+        elif name and spill and _PTXAS_REGS.search(ln):
+            out.append((name.group(1), "f32" if name.group(2) == "f"
+                        else "bf16", int(name.group(3)),
+                        int(_PTXAS_REGS.search(ln).group(1))) + spill)
+            name = None
+    return out
 
 
 def check_build(build):
     """Prints the compiler's registers, shared memory and spills for every
-    kernel; the sm90 kernels must not spill, and their machine code must
-    hold ``wgmma`` (``HGMMA``) and TMA loads (``UTMALDG``)."""
+    kernel. The simt kernels (K1 to K4 on the CUDA cores) must not spill at
+    DMAX 64 and 128; the sm90 kernels must not spill, and their machine
+    code must hold ``wgmma`` (``HGMMA``) and TMA loads (``UTMALDG``)."""
+    spills = []
     for name in build.SOURCES:
+        if name in SIMT_SOURCES:
+            insts = simt_instantiations(build.build_log(name))
+            check(len(insts) == (6 if name == "flash_fwd" else 18),
+                  f"{name}: {len(insts)} instantiations in the compiler's "
+                  f"report")
+            for kern, dt, dmax, regs, st, ld in insts:
+                print(f"  ptxas {kern}<{dt}, DMAX {dmax}>: {regs} registers,"
+                      f" spill stores {st} bytes, spill loads {ld} bytes",
+                      flush=True)
+                check(dmax == 256 or st + ld == 0,
+                      f"{kern}<{dt}, DMAX {dmax}> spills: {st} + {ld} bytes")
+                if st + ld:
+                    spills.append((kern, dt, dmax, st, ld))
+            continue
         for ln in build.build_log(name).splitlines():
             if "registers" in ln or "spill" in ln:
                 print(f"  ptxas {name}: {ln.strip()}", flush=True)
@@ -124,6 +166,7 @@ def check_build(build):
               f"loads)", flush=True)
         check(n_mma > 0 and n_tma > 0,
               f"{name}: no wgmma or no TMA load in its machine code")
+    print(f"simt spills (DMAX 256): {spills or 'none'}", flush=True)
 
 
 def timed_ms(torch, fn, iters, warmup=3):

@@ -1,20 +1,27 @@
 #!/usr/bin/env python3
-"""Sweep of the sm90 attention kernels on one NVIDIA GPU: K1
+"""Sweep of the attention kernels on one NVIDIA GPU, route by route: K1
 (``flash_fwd``), K2 (``flash_bwd_dq``), K3 (``flash_bwd_dkv``) and K4
-(``flash_bwd_fused``) on their tensor-core route, bf16, over ragged,
-causal, wide-head and training shapes, each against its plain PyTorch
-version; the timed shapes also against ``scaled_dot_product_attention``
-(its forward for K1, its backward for K2, K3 and K4). K4 is also held bit
-for bit against K2 + K3 and timed beside them.
+(``flash_bwd_fused``) over ragged, causal, T != Tk, wide-head and training
+shapes, each against its plain PyTorch version; the timed shapes also
+against ``scaled_dot_product_attention`` (its forward for K1, its backward
+for K2, K3 and K4). K4 is also held bit for bit against K2 + K3 and timed
+beside them. The sm90 kinds (``fwd``, ``dq``, ``bwd``, ``fused``) run the
+tensor-core route in bf16; the simt kinds (``simt-fwd``, ``simt-dq``,
+``simt-bwd``, ``simt-fused``) run the CUDA-core route in f32 at D = 40,
+64, 128 and 256 and in bf16 at the head dims the tensor-core route
+refuses (D = 36, 100 and 256).
 
-    python3 kernel_sweep.py build                    # registers, spills, SASS
-    python3 kernel_sweep.py drive fwd bwd dq fused   # every case, faults isolated
+    python3 kernel_sweep.py build [simt]             # registers, spills, SASS
+    python3 kernel_sweep.py drive fwd bwd dq fused   # faults isolated
+    python3 kernel_sweep.py drive simt-fwd simt-dq simt-bwd simt-fused
 
 ``drive`` runs the cases of each kind in a child process and, when a case
 faults (a kernel fault poisons the process's CUDA context), starts a new
 child at the next case, so one run names every faulting case. Tolerances
-are ``chip_smoke.py``'s: K1 out 1e-2 and lse 1e-4, K2-K4 2e-2 x max(|ref|,
-1). ``fused`` takes the shapes with T == Tk. The last line is ``TOTAL FAILS n``; the exit code is 1 if n > 0.
+are ``chip_smoke.py``'s: K1 out 1e-4 in f32 and 1e-2 in bf16, lse 1e-4;
+K2-K4 1e-4 x max(|ref|, 1) in f32 and 2e-2 x max(|ref|, 1) in bf16. Every
+case must take its kind's route. ``fused`` takes the shapes with T == Tk.
+The last line is ``TOTAL FAILS n``; the exit code is 1 if n > 0.
 """
 
 import math
@@ -25,32 +32,77 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# (B, H, T, Tk, D, causal, timed)
-FWD = [(1, 1, 128, 128, 64, False, False), (1, 1, 128, 128, 64, True, False),
-       (2, 3, 77, 130, 40, False, False), (1, 2, 300, 300, 128, True, False),
-       (4, 12, 1000, 1000, 64, True, False),
-       (2, 4, 1000, 1021, 64, False, False),
-       (2, 2, 256, 256, 128, True, False), (2, 2, 333, 200, 64, True, False),
-       (4, 12, 1024, 1024, 64, True, True),
-       (8, 16, 1024, 1024, 64, True, True),
-       (8, 16, 1024, 1024, 128, True, True)]
-# (B, H, T, Tk, D, causal, bf16 lse/Delta rows, timed)
-BWD = [(1, 1, 128, 128, 64, False, False, False),
-       (1, 1, 128, 128, 64, True, False, False),
-       (2, 3, 128, 130, 40, False, False, False),
-       (2, 3, 77, 130, 40, False, False, False),
-       (2, 3, 77, 77, 40, True, True, False),
-       (2, 4, 1000, 1021, 40, True, False, False),
-       (1, 4, 300, 300, 128, True, False, False),
-       (1, 4, 200, 333, 128, True, False, False),
-       (1, 4, 333, 200, 128, False, True, False),
-       (2, 3, 200, 333, 64, True, False, False),
-       (2, 3, 333, 200, 64, True, False, False),
-       (2, 4, 512, 512, 64, True, True, False),
-       (1, 2, 256, 256, 128, False, True, False),
-       (8, 16, 1024, 1024, 64, True, False, True),
-       (8, 16, 1024, 1024, 128, True, False, True)]
-NAMES = ("flash_fwd_sm90", "flash_bwd_sm90")
+F32, BF = "float32", "bfloat16"
+# (B, H, T, Tk, D, causal, dtype, timed)
+FWD = [(1, 1, 128, 128, 64, False, BF, False),
+       (1, 1, 128, 128, 64, True, BF, False),
+       (2, 3, 77, 130, 40, False, BF, False),
+       (1, 2, 300, 300, 128, True, BF, False),
+       (4, 12, 1000, 1000, 64, True, BF, False),
+       (2, 4, 1000, 1021, 64, False, BF, False),
+       (2, 2, 256, 256, 128, True, BF, False),
+       (2, 2, 333, 200, 64, True, BF, False),
+       (4, 12, 1024, 1024, 64, True, BF, True),
+       (8, 16, 1024, 1024, 64, True, BF, True),
+       (8, 16, 1024, 1024, 128, True, BF, True)]
+SIMT_FWD = [(2, 3, 77, 130, 40, False, F32, False),
+            (1, 2, 300, 300, 40, True, F32, False),
+            (4, 12, 1000, 1000, 64, True, F32, False),
+            (2, 4, 1000, 1021, 64, False, F32, False),
+            (2, 3, 333, 200, 64, True, F32, False),
+            (2, 3, 200, 333, 64, True, F32, False),
+            (1, 4, 300, 300, 128, True, F32, False),
+            (2, 2, 256, 256, 128, False, F32, False),
+            (1, 2, 200, 200, 256, True, F32, False),
+            (1, 2, 77, 130, 256, False, F32, False),
+            (2, 3, 77, 130, 36, False, BF, False),
+            (2, 4, 1000, 1021, 36, True, BF, False),
+            (1, 2, 200, 200, 256, True, BF, False),
+            (1, 2, 333, 200, 256, True, BF, False),
+            (1, 2, 300, 300, 100, True, BF, False),
+            (4, 12, 1024, 1024, 64, True, F32, True),
+            (4, 12, 1024, 1024, 128, True, F32, True),
+            (4, 12, 1024, 1024, 256, True, F32, True),
+            (4, 12, 1024, 1024, 36, True, BF, True),
+            (4, 12, 1024, 1024, 256, True, BF, True)]
+# (B, H, T, Tk, D, causal, bf16 lse/Delta rows, dtype, timed)
+BWD = [(1, 1, 128, 128, 64, False, False, BF, False),
+       (1, 1, 128, 128, 64, True, False, BF, False),
+       (2, 3, 128, 130, 40, False, False, BF, False),
+       (2, 3, 77, 130, 40, False, False, BF, False),
+       (2, 3, 77, 77, 40, True, True, BF, False),
+       (2, 4, 1000, 1021, 40, True, False, BF, False),
+       (1, 4, 300, 300, 128, True, False, BF, False),
+       (1, 4, 200, 333, 128, True, False, BF, False),
+       (1, 4, 333, 200, 128, False, True, BF, False),
+       (2, 3, 200, 333, 64, True, False, BF, False),
+       (2, 3, 333, 200, 64, True, False, BF, False),
+       (2, 4, 512, 512, 64, True, True, BF, False),
+       (1, 2, 256, 256, 128, False, True, BF, False),
+       (8, 16, 1024, 1024, 64, True, False, BF, True),
+       (8, 16, 1024, 1024, 128, True, False, BF, True)]
+SIMT_BWD = [(2, 3, 77, 130, 40, False, False, F32, False),
+            (2, 3, 150, 150, 40, True, True, F32, False),
+            (2, 4, 1000, 1021, 64, True, False, F32, False),
+            (2, 4, 1000, 1000, 64, True, False, F32, False),
+            (2, 3, 200, 333, 64, True, False, F32, False),
+            (2, 3, 333, 200, 64, False, True, F32, False),
+            (2, 4, 512, 512, 64, True, True, F32, False),
+            (1, 4, 300, 300, 128, True, False, F32, False),
+            (1, 4, 200, 333, 128, True, False, F32, False),
+            (1, 2, 200, 200, 256, True, True, F32, False),
+            (1, 2, 130, 77, 256, False, False, F32, False),
+            (2, 3, 77, 130, 36, False, False, BF, False),
+            (2, 3, 150, 150, 36, True, True, BF, False),
+            (1, 2, 200, 200, 256, True, False, BF, False),
+            (1, 2, 200, 333, 256, True, True, BF, False),
+            (1, 2, 333, 333, 100, False, False, BF, False),
+            (8, 16, 1024, 1024, 64, True, False, F32, True),
+            (4, 12, 1024, 1024, 128, True, False, F32, True),
+            (4, 12, 1024, 1024, 36, True, False, BF, True),
+            (4, 12, 1024, 1024, 256, True, False, BF, True)]
+NAMES = {"sm90": ("flash_fwd_sm90", "flash_bwd_sm90"),
+         "simt": ("flash_fwd", "flash_bwd")}
 # backward kind: (kernel, wrapper, indices of (dq, dk, dv) it returns)
 BWD_KINDS = {"dq": ("K2", "flash_bwd_dq", (0,)),
              "bwd": ("K3", "flash_bwd_dkv", (1, 2)),
@@ -72,58 +124,71 @@ def timed(torch, fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
-def build():
+def build(route):
     from mxtpu_torch import _build
+    names = NAMES[route]
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     t0 = time.time()
-    print(_build.build_all(NAMES), time.time() - t0, flush=True)
+    print(_build.build_all(names), time.time() - t0, flush=True)
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
                              "cuobjdump")
-    for name in NAMES:
+    for name in names:
         for ln in _build.build_log(name).splitlines():
             if any(w in ln for w in ("registers", "spill", "arning",
                                      "Function properties")):
                 print(name, ln.strip()[:200])
-        sass = subprocess.run([cuobjdump, "-sass", _build.lib_path(name)],
-                              capture_output=True, text=True).stdout
-        print(name, "HGMMA", sass.count("HGMMA"), "UTMALDG",
-              sass.count("UTMALDG"), flush=True)
+        if route == "sm90":
+            sass = subprocess.run([cuobjdump, "-sass",
+                                   _build.lib_path(name)],
+                                  capture_output=True, text=True).stdout
+            print(name, "HGMMA", sass.count("HGMMA"), "UTMALDG",
+                  sass.count("UTMALDG"), flush=True)
 
 
-def fwd_case(torch, A, F, case, g):
-    B, H, T, Tk, D, causal, do_time = case
-    dev, bf16 = torch.device("cuda"), torch.bfloat16
-    q = torch.randn(B, H, T, D, device=dev, generator=g).to(bf16)
-    k = torch.randn(B, H, Tk, D, device=dev, generator=g).to(bf16)
-    v = torch.randn(B, H, Tk, D, device=dev, generator=g).to(bf16)
+def took_route(fn, n0, route):
+    """Whether ``fn`` launched once since its counts were ``n0`` (launches,
+    sm90 launches), on ``route``."""
+    return (fn.launches - n0[0], fn.sm90_launches - n0[1]) == (
+        1, int(route == "sm90"))
+
+
+def fwd_case(torch, A, F, case, g, route):
+    B, H, T, Tk, D, causal, dtype, do_time = case
+    dev, dt = torch.device("cuda"), getattr(torch, dtype)
+    q = torch.randn(B, H, T, D, device=dev, generator=g).to(dt)
+    k = torch.randn(B, H, Tk, D, device=dev, generator=g).to(dt)
+    v = torch.randn(B, H, Tk, D, device=dev, generator=g).to(dt)
     sc = 1 / math.sqrt(D)
-    n0 = A.flash_fwd.sm90_launches
-    out, lse = A.flash_fwd(q, k, v, causal, sc)
+    fn = A.flash_fwd
+    n0 = (fn.launches, fn.sm90_launches)
+    out, lse = fn(q, k, v, causal, sc)
     ref, ref_lse = A._chunk_reference_lse(q, k, v, causal, sc)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     lerr = (lse - ref_lse).abs().max().item()
-    ok = err <= 1e-2 and lerr <= 1e-4 and A.flash_fwd.sm90_launches == n0 + 1
-    line = (f"K1 B{B} H{H} T{T} Tk{Tk} D{D} causal={causal}: err {err:.3e} "
-            f"lse {lerr:.3e} {'OK' if ok else 'FAIL'}")
+    tol = 1e-4 if dt == torch.float32 else 1e-2
+    ok = err <= tol and lerr <= 1e-4 and took_route(fn, n0, route)
+    line = (f"K1 {route} {dtype} B{B} H{H} T{T} Tk{Tk} D{D} causal={causal}"
+            f": err {err:.3e} (tol {tol:g}) lse {lerr:.3e} "
+            f"{'OK' if ok else 'FAIL'}")
     if do_time:
-        ms = timed(torch, lambda: A.flash_fwd(q, k, v, causal, sc))
+        ms = timed(torch, lambda: fn(q, k, v, causal, sc))
         lib = timed(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal, scale=sc))
         line += f"; kernel {ms:.4f} ms sdpa {lib:.4f} ms ratio {ms / lib:.2f}"
     return ok, line
 
 
-def bwd_case(torch, A, F, case, g, kind):
-    B, H, T, Tk, D, causal, rows_bf16, do_time = case
+def bwd_case(torch, A, F, case, g, kind, route):
+    B, H, T, Tk, D, causal, rows_bf16, dtype, do_time = case
     kern, wrapper, which = BWD_KINDS[kind]
     fn = getattr(A, wrapper)
-    dev, bf16 = torch.device("cuda"), torch.bfloat16
-    q, do = (torch.randn(B, H, T, D, device=dev, generator=g).to(bf16)
+    dev, dt = torch.device("cuda"), getattr(torch, dtype)
+    q, do = (torch.randn(B, H, T, D, device=dev, generator=g).to(dt)
              for _ in range(2))
-    k, v = (torch.randn(B, H, Tk, D, device=dev, generator=g).to(bf16)
+    k, v = (torch.randn(B, H, Tk, D, device=dev, generator=g).to(dt)
             for _ in range(2))
     dlse = torch.randn(B, H, T, device=dev, generator=g)
     sc = 1 / math.sqrt(D)
@@ -133,16 +198,18 @@ def bwd_case(torch, A, F, case, g, kind):
     os.environ.pop("MXTPU_FLASH_LSE")
     args = (q, k, v, do) + rows + (causal, sc)
     ref = A._flash_bwd_plain(*args)
-    n0 = fn.sm90_launches
+    n0 = (fn.launches, fn.sm90_launches)
     outs = fn(*args)
     outs = (outs,) if kind == "dq" else outs
     torch.cuda.synchronize()
+    tol = 1e-4 if dt == torch.float32 else 2e-2
     errs = [((o.float() - ref[i].float()).abs().max().item(),
-             2e-2 * max(ref[i].float().abs().max().item(), 1.0))
+             tol * max(ref[i].float().abs().max().item(), 1.0))
             for o, i in zip(outs, which)]
-    ok = all(e <= t for e, t in errs) and fn.sm90_launches == n0 + 1
-    line = (f"{kern} B{B} H{H} T{T} Tk{Tk} D{D} causal={causal} rows_bf16="
-            f"{rows_bf16}: " + ", ".join(f"{e:.3e}/{t:.3e}" for e, t in errs))
+    ok = all(e <= t for e, t in errs) and took_route(fn, n0, route)
+    line = (f"{kern} {route} {dtype} B{B} H{H} T{T} Tk{Tk} D{D} causal="
+            f"{causal} rows_bf16={rows_bf16}: "
+            + ", ".join(f"{e:.3e}/{t:.3e}" for e, t in errs))
     if kind == "fused":
         split = (A.flash_bwd_dq(*args),) + A.flash_bwd_dkv(*args)
         same = all(torch.equal(a, b) for a, b in zip(outs, split))
@@ -175,11 +242,19 @@ def bwd_case(torch, A, F, case, g, kind):
     return ok, line
 
 
+def split_kind(kind):
+    """``(route, kind)``: ``simt-dq`` is the dq kind on the simt route."""
+    return ("simt", kind[5:]) if kind.startswith("simt-") else ("sm90",
+                                                                 kind)
+
+
 def cases_of(kind):
     """The cases of one kind: K4 takes only self-attention (T == Tk)."""
-    if kind == "fwd":
-        return FWD
-    return [c for c in BWD if kind != "fused" or c[2] == c[3]]
+    route, base = split_kind(kind)
+    if base == "fwd":
+        return SIMT_FWD if route == "simt" else FWD
+    cases = SIMT_BWD if route == "simt" else BWD
+    return [c for c in cases if base != "fused" or c[2] == c[3]]
 
 
 def run(kind, start):
@@ -188,14 +263,15 @@ def run(kind, start):
     import torch
     import torch.nn.functional as F
     from mxtpu_torch.ops import attention as A
+    route, base = split_kind(kind)
     cases = cases_of(kind)
     fails = 0
     for idx in range(start, len(cases)):
         g = torch.Generator(device="cuda").manual_seed(idx)
-        if kind == "fwd":
-            ok, line = fwd_case(torch, A, F, cases[idx], g)
+        if base == "fwd":
+            ok, line = fwd_case(torch, A, F, cases[idx], g, route)
         else:
-            ok, line = bwd_case(torch, A, F, cases[idx], g, kind)
+            ok, line = bwd_case(torch, A, F, cases[idx], g, base, route)
         fails += not ok
         print(line, flush=True)
         print(f"DONE {idx}", flush=True)
@@ -229,7 +305,7 @@ def drive(kinds):
 if __name__ == "__main__":
     sys.path.insert(0, HERE)
     if sys.argv[1] == "build":
-        build()
+        build(sys.argv[2] if len(sys.argv) > 2 else "sm90")
     elif sys.argv[1] == "drive":
         sys.exit(1 if drive(sys.argv[2:]) else 0)
     else:

@@ -9,11 +9,11 @@
 //   K3  _flash_bwd_dkv_kernel    dk, dv for one key tile
 //   K4  _flash_bwd_fused_kernel  tile i in both roles (MXTPU_FLASH_BWD=fused)
 // Every kernel recomputes the probabilities from the forward's saved
-// log-sum-exp, P = exp(s - lse) with s = (scale q) . k, and takes the row
+// log-sum-exp, P = exp(s - lse) with s = scale q . k, and takes the row
 // term Delta = rowsum(dO * O) - dlse from the launcher (computed outside
 // any kernel, as the reference does):
 //   dP = dO . V^T,  dS = P * (dP - Delta),
-//   dq = scale * dS . K,  dk = dS^T . (scale q),  dv = P^T . dO.
+//   dq = scale * dS . K,  dk = scale * dS^T . q,  dv = P^T . dO.
 // Causal masking is top-left (key j is visible to row i iff j <= i);
 // masked and out-of-range entries get P = 0, which is what exp(-1e30 -
 // lse) gives the reference. lse and Delta arrive as f32 rows, or as bf16
@@ -26,20 +26,22 @@
 // D = 64) they sit far above the H100's flops-per-byte balance and are
 // bound by arithmetic: in f32 at the training shape (B 8, H 16, causal)
 // 0.385 ms for K2, 0.513 for K3 and 0.642 for K4 at the 67 TFLOP/s f32
-// peak (NVIDIA H100 80GB HBM3, 700 W). These bodies run the products on
-// the CUDA cores in f32 (no wgmma, no TMA), at 2.7, 3.1 and 5.0 ms there
-// (PERF.md): their ceiling is the f32 FMA rate and, within it, the
-// shared-memory load rate. As K1 does, the design keeps the T x Tk
-// probabilities out of device memory and gives every output element
-// exactly one writer, so there are no atomics and the result does not
-// depend on the order the blocks run in:
-//   K2  one block owns 64 query rows (4 threads per row, D/4 columns of dq
-//       each in registers) and streams 32-key K/V tiles through shared
-//       memory up to the causal diagonal;
-//   K3  one block owns BKV key rows (64, or 32 at D > 128 so that the dk
-//       and dv accumulators stay in registers: 256/BKV threads per key row,
-//       D/(256/BKV) columns of each) and streams 32-row q/dO tiles from the
-//       tile holding its first key (the causal start) to the end;
+// peak (NVIDIA H100 80GB HBM3, 700 W). The bodies run every product on
+// register micro-tiles (simt.cuh), keep the T x Tk probabilities out of
+// device memory and give every output element exactly one writer, so
+// there are no atomics and the result does not depend on the order the
+// blocks run in:
+//   K2  one block owns BQ query rows (scale q and dO resident in shared
+//       memory; 128 at D <= 64) and streams K/V tiles of BK keys (64),
+//       double-buffered by cp.async, up to the causal diagonal; per tile
+//       S and dP (8 rows x 4 keys a thread at D <= 64), dS into shared
+//       memory, dq += dS K (8 rows x 4 columns a thread, in registers);
+//   K3  one block owns BKV key rows (scale k and v resident; 128 at
+//       D <= 64) and streams q/dO tiles of BQ2 rows (64), double-buffered
+//       by cp.async, from the tile holding its first key (the causal
+//       start) to the end; per tile S and dP (4 rows x 8 keys a thread),
+//       P and dS into shared memory, dv += P^T dO and dk += dS^T q (4 keys
+//       x 8 columns of each a thread);
 //   K4  block i runs K2's body for query tile i, then K3's for key tile i:
 //       key tiles j <= i for dq and query tiles j >= i for dk/dv, so under
 //       causal masking every block does about the same work. Its sums are
@@ -51,34 +53,11 @@
 // rule with its T % 128 gate. Any T, any Tk and any D <= 256 are taken;
 // ragged edges are masked here. K4 needs T == Tk, as the reference's.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "simt.cuh"
 
 namespace {
 
-constexpr int NTHREADS = 256;
-// K2 tiles (K1's layout)
-constexpr int BQ = 64;                 // query rows per block
-constexpr int BK = 32;                 // keys per shared-memory tile
-constexpr int QLANES = NTHREADS / BQ;  // threads per query row
-// K3 tiles: BKV key rows per block (a template argument), BQ2 query rows
-// per shared-memory tile
-constexpr int BQ2 = 32;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+using namespace simt;
 
 __device__ __forceinline__ float load_row(const void* p, size_t i,
                                           int bf16) {
@@ -100,246 +79,263 @@ struct Args {
   float scale;
   int causal;
   int rows_bf16;
+  int async;          // stream tiles by cp.async (f32, D % 4 == 0, aligned)
 };
 
-// Shared floats each phase needs (its layout is in the function below).
-__host__ __device__ constexpr size_t dq_smem_floats(int D) {
-  return (size_t)(2 * BQ + 2 * BK) * (D + 1) + (size_t)BQ * (BK + 1);
-}
-__host__ __device__ constexpr size_t dkv_smem_floats(int D, int bkv) {
-  return (size_t)(2 * bkv + 2 * BQ2) * (D + 1) +
-         (size_t)2 * BQ2 * (bkv + 1) + 2 * BQ2;
+// K2's tiles: BQ resident query rows, BK keys a streamed tile.
+template <int DMAX>
+struct DqTiles {
+  static constexpr int BQ = DMAX <= 64 ? 128 : DMAX <= 128 ? 64 : 32;
+  static constexpr int BK = DMAX <= 64 ? 64 : 32;
+  static constexpr int LD = DMAX + kPad, LDS = BK + kPadP;
+  static constexpr int TM = BQ / 16, TN = BK / 16, TJ = DMAX / 64;
+  // resident q, dO; two stages of (k, v); the tile's dS
+  static constexpr size_t kFloats =
+      (size_t)2 * BQ * LD + (size_t)4 * BK * LD + (size_t)BQ * LDS;
+};
+
+// K3's tiles: BKV resident keys, BQ2 query rows a streamed tile. The
+// dk/dv outputs (BKV x DMAX each) go to KG = BKV / 4 key groups of 4
+// keys by CG column groups, TJ chunks of 4 columns, CS columns apart.
+template <int DMAX>
+struct DkvTiles {
+  static constexpr int BKV = DMAX <= 64 ? 128 : 32;
+  static constexpr int BQ2 = DMAX <= 128 ? 64 : 32;
+  static constexpr int LD = DMAX + kPad, LDS = BKV + kPadP;
+  static constexpr int TM = BQ2 / 16, TN = BKV / 16;
+  static constexpr int CG = kThreads / (BKV / 4), CS = 4 * CG,
+                       TJ = DMAX / CS;
+  // resident k, v; two stages of (q, dO); the tile's P and dS
+  static constexpr size_t kFloats =
+      (size_t)2 * BKV * LD + (size_t)4 * BQ2 * LD + (size_t)2 * BQ2 * LDS;
+};
+
+// K4 runs both bodies in one block, in the larger body's shared memory.
+template <int DMAX> constexpr size_t FusedFloats() {
+  return DqTiles<DMAX>::kFloats > DkvTiles<DMAX>::kFloats
+             ? DqTiles<DMAX>::kFloats : DkvTiles<DMAX>::kFloats;
 }
 
 // dq for query rows [q0, q0 + BQ) of head bh (K2's body).
 template <typename T, int DMAX>
 __device__ __forceinline__ void dq_tile(const Args& a, int bh, int q0,
                                         float* smem) {
-  const int D = a.D, ld = D + 1;  // odd row stride: distinct banks
-  float* sq = smem;               // [BQ][ld]  scale * q
-  float* sdo = sq + BQ * ld;      // [BQ][ld]  dO
-  float* sk = sdo + BQ * ld;      // [BK][ld]
-  float* sv = sk + BK * ld;       // [BK][ld]
-  float* sds = sv + BK * ld;      // [BQ][BK + 1]  dS of the tile
+  using C = DqTiles<DMAX>;
+  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, LDS = C::LDS;
+  constexpr int TM = C::TM, TN = C::TN, TJ = C::TJ;
+  float* sq = smem;                // [BQ][LD]  scale * q
+  float* sdo = sq + BQ * LD;       // [BQ][LD]  dO
+  float* skv = sdo + BQ * LD;      // [2 stages][k, v][BK][LD]
+  float* sds = skv + 4 * BK * LD;  // [BQ][LDS]  dS of the tile
 
-  const int tid = threadIdx.x;
-  const int row = tid / QLANES;
-  const int lane = tid % QLANES;
-  const int grow = q0 + row;
-  const T* qb = static_cast<const T*>(a.q) + (size_t)bh * a.Tq * D;
-  const T* dob = static_cast<const T*>(a.dout) + (size_t)bh * a.Tq * D;
+  const int D = a.D;
+  const int rg = threadIdx.x >> 4, cg = threadIdx.x & 15;
   const T* kb = static_cast<const T*>(a.k) + (size_t)bh * a.Tk * D;
   const T* vb = static_cast<const T*>(a.v) + (size_t)bh * a.Tk * D;
 
-  for (int e = tid; e < BQ * D; e += NTHREADS) {
-    const int r = e / D, c = e - r * D;
-    const bool ok = q0 + r < a.Tq;
-    const size_t g = (size_t)(q0 + r) * D + c;
-    sq[r * ld + c] = ok ? to_f32(qb[g]) * a.scale : 0.f;
-    sdo[r * ld + c] = ok ? to_f32(dob[g]) : 0.f;
-  }
-  const bool row_ok = grow < a.Tq;
-  const size_t ri = (size_t)bh * a.Tq + grow;
-  const float lse = row_ok ? load_row(a.lse, ri, a.rows_bf16) : 0.f;
-  const float delta = row_ok ? load_row(a.delta, ri, a.rows_bf16) : 0.f;
-
-  float acc[DMAX / QLANES];
-#pragma unroll
-  for (int i = 0; i < DMAX / QLANES; ++i) acc[i] = 0.f;
-
   // causal: keys past the tile's last row are masked for every row in it
   const int kend = a.causal ? min(a.Tk, q0 + BQ) : a.Tk;
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();  // the previous tile is consumed; sq/sdo are staged
-    for (int e = tid; e < BK * D; e += NTHREADS) {
-      const int r = e / D, c = e - r * D;
-      const bool ok = k0 + r < a.Tk;
-      const size_t g = (size_t)(k0 + r) * D + c;
-      sk[r * ld + c] = ok ? to_f32(kb[g]) : 0.f;
-      sv[r * ld + c] = ok ? to_f32(vb[g]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[BK / QLANES], dp[BK / QLANES];
+  const int ntiles = (kend + BK - 1) / BK;
+  auto issue = [&](int t) {
+    float* st = skv + (t & 1) * 2 * BK * LD;
+    stage<BK, DMAX>(st, LD, kb, t * BK, a.Tk, D, a.async);
+    stage<BK, DMAX>(st + BK * LD, LD, vb, t * BK, a.Tk, D, a.async);
+    cp_async_commit();
+  };
+  issue(0);
+  const size_t qo = (size_t)bh * a.Tq * D;
+  stage_sync<BQ, DMAX>(sq, LD, static_cast<const T*>(a.q) + qo, q0, a.Tq, D,
+                       a.scale);
+  stage_sync<BQ, DMAX>(sdo, LD, static_cast<const T*>(a.dout) + qo, q0, a.Tq,
+                       D, 1.f);
+  float lse[TM], delta[TM];
 #pragma unroll
-    for (int t = 0; t < BK / QLANES; ++t) s[t] = dp[t] = 0.f;
-    const float* qr = sq + row * ld;
-    const float* dor = sdo + row * ld;
-    for (int d = 0; d < D; ++d) {
-      const float qd = qr[d], dod = dor[d];
-#pragma unroll
-      for (int t = 0; t < BK / QLANES; ++t) {
-        const int kr = (lane + QLANES * t) * ld + d;
-        s[t] = fmaf(qd, sk[kr], s[t]);
-        dp[t] = fmaf(dod, sv[kr], dp[t]);
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < BK / QLANES; ++t) {
-      const int col = k0 + lane + QLANES * t;
-      const bool vis = row_ok && col < a.Tk && !(a.causal && col > grow);
-      const float p = vis ? expf(s[t] - lse) : 0.f;
-      sds[row * (BK + 1) + lane + QLANES * t] = p * (dp[t] - delta);
-    }
-    __syncwarp();  // a row's dS comes from its own quad
-
-    const float* dsr = sds + row * (BK + 1);
-    for (int kk = 0; kk < BK; ++kk) {
-      const float ds = dsr[kk];
-      const float* kr = sk + kk * ld;
-#pragma unroll
-      for (int i = 0; i < DMAX / QLANES; ++i) {
-        const int c = lane + QLANES * i;
-        if (c < D) acc[i] = fmaf(ds, kr[c], acc[i]);
-      }
-    }
+  for (int i = 0; i < TM; ++i) {
+    const int row = q0 + rg + 16 * i;
+    const size_t ri = (size_t)bh * a.Tq + row;
+    lse[i] = row < a.Tq ? load_row(a.lse, ri, a.rows_bf16) : 0.f;
+    delta[i] = row < a.Tq ? load_row(a.delta, ri, a.rows_bf16) : 0.f;
   }
 
-  if (row_ok) {
-    T* out = static_cast<T*>(a.dq) + ri * D;
-#pragma unroll
-    for (int i = 0; i < DMAX / QLANES; ++i) {
-      const int c = lane + QLANES * i;
-      if (c < D) out[c] = from_f32<T>(acc[i] * a.scale);
+  float acc[TM][4 * TJ] = {};
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) {
+      issue(t + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    __syncthreads();  // tile t (and q, dO) are in shared memory
+    const float* sk = skv + (t & 1) * 2 * BK * LD;
+    const float* sv = sk + BK * LD;
+    const int k0 = t * BK;
+
+    float s[TM][TN] = {}, dp[TM][TN] = {};
+    nt<TM, TN, DMAX>(s, sq + rg * LD, 16 * LD, sk + cg * LD, 16 * LD);
+    nt<TM, TN, DMAX>(dp, sdo + rg * LD, 16 * LD, sv + cg * LD, 16 * LD);
+    const bool edge = edge_tile(q0, BQ, k0, BK, a.Tq, a.Tk, a.causal);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int row = q0 + rg + 16 * i, col = k0 + cg + 16 * j;
+        const bool vis = !edge || visible(row, col, a.Tq, a.Tk, a.causal);
+        const float p = vis ? expf(s[i][j] - lse[i]) : 0.f;
+        sds[(rg + 16 * i) * LDS + cg + 16 * j] = p * (dp[i][j] - delta[i]);
+      }
+    __syncwarp();  // a row's dS comes from its own half-warp
+    nn<TM, TJ, BK>(acc, sds + rg * LDS, 16 * LDS, sk + cg * 4, LD);
+    __syncthreads();  // tile t and dS are consumed
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = q0 + rg + 16 * i;
+    if (row >= a.Tq) continue;
+    T* out = static_cast<T*>(a.dq) + ((size_t)bh * a.Tq + row) * D;
+#pragma unroll
+    for (int u = 0; u < TJ; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 64 * u + 4 * cg + e;
+        if (c < D) out[c] = from_f32<T>(acc[i][4 * u + e] * a.scale);
+      }
   }
 }
 
 // dk, dv for key rows [k0, k0 + BKV) of head bh (K3's body).
-template <typename T, int DMAX, int BKV>
+template <typename T, int DMAX>
 __device__ __forceinline__ void dkv_tile(const Args& a, int bh, int k0,
                                          float* smem) {
-  constexpr int LANES = NTHREADS / BKV;  // threads per key row
-  constexpr int NS = BQ2 / LANES;        // query rows per thread per tile
-  constexpr int NC = DMAX / LANES;       // columns per thread
-  const int D = a.D, ld = D + 1;
-  float* sk = smem;                 // [BKV][ld]
-  float* sv = sk + BKV * ld;        // [BKV][ld]
-  float* sq = sv + BKV * ld;        // [BQ2][ld]  scale * q
-  float* sdo = sq + BQ2 * ld;       // [BQ2][ld]
-  float* sp = sdo + BQ2 * ld;       // [BQ2][BKV + 1]  P of the tile
-  float* sds = sp + BQ2 * (BKV + 1);  // [BQ2][BKV + 1]  dS of the tile
-  float* slse = sds + BQ2 * (BKV + 1);  // [BQ2]
-  float* sdel = slse + BQ2;             // [BQ2]
+  using C = DkvTiles<DMAX>;
+  constexpr int BKV = C::BKV, BQ2 = C::BQ2, LD = C::LD, LDS = C::LDS;
+  constexpr int TM = C::TM, TN = C::TN, CS = C::CS, TJ = C::TJ;
+  float* sk = smem;                 // [BKV][LD]  scale * k
+  float* sv = sk + BKV * LD;        // [BKV][LD]
+  float* sqd = sv + BKV * LD;       // [2 stages][q, dO][BQ2][LD]
+  float* sp = sqd + 4 * BQ2 * LD;   // [BQ2][LDS]  P of the tile
+  float* sds = sp + BQ2 * LDS;      // [BQ2][LDS]  dS of the tile
 
-  const int tid = threadIdx.x;
-  const int key = tid / LANES;
-  const int lane = tid % LANES;
-  const int gkey = k0 + key;
-  const T* qb = static_cast<const T*>(a.q) + (size_t)bh * a.Tq * D;
-  const T* dob = static_cast<const T*>(a.dout) + (size_t)bh * a.Tq * D;
-  const T* kb = static_cast<const T*>(a.k) + (size_t)bh * a.Tk * D;
-  const T* vb = static_cast<const T*>(a.v) + (size_t)bh * a.Tk * D;
-
-  for (int e = tid; e < BKV * D; e += NTHREADS) {
-    const int r = e / D, c = e - r * D;
-    const bool ok = k0 + r < a.Tk;
-    const size_t g = (size_t)(k0 + r) * D + c;
-    sk[r * ld + c] = ok ? to_f32(kb[g]) : 0.f;
-    sv[r * ld + c] = ok ? to_f32(vb[g]) : 0.f;
-  }
-
-  float dk[NC], dv[NC];
-#pragma unroll
-  for (int i = 0; i < NC; ++i) dk[i] = dv[i] = 0.f;
+  const int D = a.D;
+  const int rg = threadIdx.x >> 4, cg = threadIdx.x & 15;
+  // the dk/dv thread: keys 4 kg .. 4 kg + 3, column chunks at 4 oc + CS u
+  const int kg = threadIdx.x / C::CG, oc = threadIdx.x % C::CG;
+  const size_t qo = (size_t)bh * a.Tq * D;
+  const T* qb = static_cast<const T*>(a.q) + qo;
+  const T* dob = static_cast<const T*>(a.dout) + qo;
 
   // causal: rows before the tile's first key see none of its keys
   const int qstart = a.causal ? (k0 / BQ2) * BQ2 : 0;
-  for (int q0 = qstart; q0 < a.Tq; q0 += BQ2) {
-    __syncthreads();  // the previous tile is consumed; sk/sv are staged
-    for (int e = tid; e < BQ2 * D; e += NTHREADS) {
-      const int r = e / D, c = e - r * D;
-      const bool ok = q0 + r < a.Tq;
-      const size_t g = (size_t)(q0 + r) * D + c;
-      sq[r * ld + c] = ok ? to_f32(qb[g]) * a.scale : 0.f;
-      sdo[r * ld + c] = ok ? to_f32(dob[g]) : 0.f;
-    }
-    for (int r = tid; r < BQ2; r += NTHREADS) {
-      const bool ok = q0 + r < a.Tq;
-      const size_t ri = (size_t)bh * a.Tq + q0 + r;
-      slse[r] = ok ? load_row(a.lse, ri, a.rows_bf16) : 0.f;
-      sdel[r] = ok ? load_row(a.delta, ri, a.rows_bf16) : 0.f;
-    }
-    __syncthreads();
+  const int ntiles = a.Tq > qstart ? (a.Tq - qstart + BQ2 - 1) / BQ2 : 0;
+  auto issue = [&](int t) {
+    float* st = sqd + (t & 1) * 2 * BQ2 * LD;
+    stage<BQ2, DMAX>(st, LD, qb, qstart + t * BQ2, a.Tq, D, a.async);
+    stage<BQ2, DMAX>(st + BQ2 * LD, LD, dob, qstart + t * BQ2, a.Tq, D,
+                     a.async);
+    cp_async_commit();
+  };
+  if (ntiles > 0) issue(0);
+  const size_t ko = (size_t)bh * a.Tk * D;
+  stage_sync<BKV, DMAX>(sk, LD, static_cast<const T*>(a.k) + ko, k0, a.Tk, D,
+                        a.scale);
+  stage_sync<BKV, DMAX>(sv, LD, static_cast<const T*>(a.v) + ko, k0, a.Tk, D,
+                        1.f);
 
-    float s[NS], dp[NS];
+  float dk[4][4 * TJ] = {}, dv[4][4 * TJ] = {};
+  for (int t = 0; t < ntiles; ++t) {
+    const int q0 = qstart + t * BQ2;
+    float lse[TM], delta[TM];
 #pragma unroll
-    for (int t = 0; t < NS; ++t) s[t] = dp[t] = 0.f;
-    const float* kr = sk + key * ld;
-    const float* vr = sv + key * ld;
-    for (int d = 0; d < D; ++d) {
-      const float kd = kr[d], vd = vr[d];
-#pragma unroll
-      for (int t = 0; t < NS; ++t) {
-        const int qr = (lane + LANES * t) * ld + d;
-        s[t] = fmaf(sq[qr], kd, s[t]);
-        dp[t] = fmaf(sdo[qr], vd, dp[t]);
-      }
+    for (int i = 0; i < TM; ++i) {
+      const int row = q0 + rg + 16 * i;
+      const size_t ri = (size_t)bh * a.Tq + row;
+      lse[i] = row < a.Tq ? load_row(a.lse, ri, a.rows_bf16) : 0.f;
+      delta[i] = row < a.Tq ? load_row(a.delta, ri, a.rows_bf16) : 0.f;
     }
-#pragma unroll
-    for (int t = 0; t < NS; ++t) {
-      const int r = lane + LANES * t;
-      const int grow = q0 + r;
-      const bool vis =
-          grow < a.Tq && gkey < a.Tk && !(a.causal && gkey > grow);
-      const float p = vis ? expf(s[t] - slse[r]) : 0.f;
-      sp[r * (BKV + 1) + key] = p;
-      sds[r * (BKV + 1) + key] = p * (dp[t] - sdel[r]);
+    if (t + 1 < ntiles) {
+      issue(t + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    __syncwarp();  // a key's P and dS come from its own lane group
+    __syncthreads();  // tile t (and k, v) are in shared memory
+    const float* sq = sqd + (t & 1) * 2 * BQ2 * LD;
+    const float* sdo = sq + BQ2 * LD;
 
-    for (int r = 0; r < BQ2; ++r) {
-      const float p = sp[r * (BKV + 1) + key];
-      const float ds = sds[r * (BKV + 1) + key];
-      const float* qrow = sq + r * ld;
-      const float* dorow = sdo + r * ld;
+    float s[TM][TN] = {}, dp[TM][TN] = {};
+    nt<TM, TN, DMAX>(s, sq + rg * LD, 16 * LD, sk + cg * LD, 16 * LD);
+    nt<TM, TN, DMAX>(dp, sdo + rg * LD, 16 * LD, sv + cg * LD, 16 * LD);
+    const bool edge = edge_tile(q0, BQ2, k0, BKV, a.Tq, a.Tk, a.causal);
 #pragma unroll
-      for (int i = 0; i < NC; ++i) {
-        const int c = lane + LANES * i;
-        if (c < D) {
-          dv[i] = fmaf(p, dorow[c], dv[i]);
-          dk[i] = fmaf(ds, qrow[c], dk[i]);  // scale rides in through q
-        }
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int row = q0 + rg + 16 * i, col = k0 + cg + 16 * j;
+        const bool vis = !edge || visible(row, col, a.Tq, a.Tk, a.causal);
+        const float p = vis ? expf(s[i][j] - lse[i]) : 0.f;
+        const int o = (rg + 16 * i) * LDS + cg + 16 * j;
+        sp[o] = p;
+        sds[o] = p * (dp[i][j] - delta[i]);
       }
-    }
+    __syncthreads();  // every row's P and dS of the tile are written
+    tn<TJ, CS, BQ2>(dv, sp + 4 * kg, LDS, sdo + 4 * oc, LD);
+    tn<TJ, CS, BQ2>(dk, sds + 4 * kg, LDS, sq + 4 * oc, LD);
+    __syncthreads();  // tile t, P and dS are consumed
   }
 
-  if (gkey < a.Tk) {
-    const size_t o = ((size_t)bh * a.Tk + gkey) * D;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int key = k0 + 4 * kg + e;
+    if (key >= a.Tk) continue;
+    const size_t o = ((size_t)bh * a.Tk + key) * D;
     T* dko = static_cast<T*>(a.dk) + o;
     T* dvo = static_cast<T*>(a.dv) + o;
 #pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      const int c = lane + LANES * i;
-      if (c < D) {
-        dko[c] = from_f32<T>(dk[i]);
-        dvo[c] = from_f32<T>(dv[i]);
+    for (int u = 0; u < TJ; ++u)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int c = CS * u + 4 * oc + f;
+        if (c < D) {
+          dko[c] = from_f32<T>(dk[e][4 * u + f] * a.scale);
+          dvo[c] = from_f32<T>(dv[e][4 * u + f]);
+        }
       }
-    }
   }
 }
 
 template <typename T, int DMAX>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(Args a) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(kThreads,
+                                  min_blocks(DqTiles<DMAX>::kFloats))
+    flash_bwd_dq_kernel(Args a) {
+  extern __shared__ float4 smem4[];
   // causal: the last query tiles have the most keys, so they start first
-  dq_tile<T, DMAX>(a, blockIdx.y, (gridDim.x - 1 - blockIdx.x) * BQ, smem);
+  dq_tile<T, DMAX>(a, blockIdx.y,
+                   (gridDim.x - 1 - blockIdx.x) * DqTiles<DMAX>::BQ,
+                   reinterpret_cast<float*>(smem4));
 }
 
-template <typename T, int DMAX, int BKV>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(Args a) {
-  extern __shared__ float smem[];
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kThreads,
+                                  min_blocks(DkvTiles<DMAX>::kFloats))
+    flash_bwd_dkv_kernel(Args a) {
+  extern __shared__ float4 smem4[];
   // causal: the first key tiles have the most query rows
-  dkv_tile<T, DMAX, BKV>(a, blockIdx.y, blockIdx.x * BKV, smem);
+  dkv_tile<T, DMAX>(a, blockIdx.y, blockIdx.x * DkvTiles<DMAX>::BKV,
+                    reinterpret_cast<float*>(smem4));
 }
 
-template <typename T, int DMAX, int BKV>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_fused_kernel(Args a) {
-  extern __shared__ float smem[];
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kThreads,
+                                  min_blocks(FusedFloats<DMAX>()))
+    flash_bwd_fused_kernel(Args a) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   const int i = blockIdx.x;
-  if (i * BQ < a.Tq) dq_tile<T, DMAX>(a, blockIdx.y, i * BQ, smem);
+  if (i * DqTiles<DMAX>::BQ < a.Tq)
+    dq_tile<T, DMAX>(a, blockIdx.y, i * DqTiles<DMAX>::BQ, smem);
   __syncthreads();  // the phases share the shared memory
-  if (i * BKV < a.Tk) dkv_tile<T, DMAX, BKV>(a, blockIdx.y, i * BKV, smem);
+  if (i * DkvTiles<DMAX>::BKV < a.Tk)
+    dkv_tile<T, DMAX>(a, blockIdx.y, i * DkvTiles<DMAX>::BKV, smem);
 }
 
 enum Which { kDq = 0, kDkv = 1, kFused = 2 };
@@ -352,26 +348,25 @@ cudaError_t launch_one(Kern kern, dim3 grid, size_t smem, const Args& a,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  kern<<<grid, NTHREADS, smem, stream>>>(a);
+  kern<<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T, int DMAX>
 cudaError_t launch(const Args& a, int BH, int which, cudaStream_t stream) {
-  // dk/dv accumulators in registers: 2 * DMAX / (256 / BKV) floats a thread
-  constexpr int BKV = DMAX <= 128 ? 64 : 32;
-  const int nq = (a.Tq + BQ - 1) / BQ;
-  const int nk = (a.Tk + BKV - 1) / BKV;
-  const size_t fq = dq_smem_floats(a.D), fkv = dkv_smem_floats(a.D, BKV);
+  using Q = DqTiles<DMAX>;
+  using K = DkvTiles<DMAX>;
+  const int nq = (a.Tq + Q::BQ - 1) / Q::BQ;
+  const int nk = (a.Tk + K::BKV - 1) / K::BKV;
   if (which == kDq)
     return launch_one(flash_bwd_dq_kernel<T, DMAX>, dim3(nq, BH),
-                      fq * sizeof(float), a, stream);
+                      Q::kFloats * sizeof(float), a, stream);
   if (which == kDkv)
-    return launch_one(flash_bwd_dkv_kernel<T, DMAX, BKV>, dim3(nk, BH),
-                      fkv * sizeof(float), a, stream);
-  return launch_one(flash_bwd_fused_kernel<T, DMAX, BKV>,
+    return launch_one(flash_bwd_dkv_kernel<T, DMAX>, dim3(nk, BH),
+                      K::kFloats * sizeof(float), a, stream);
+  return launch_one(flash_bwd_fused_kernel<T, DMAX>,
                     dim3(nq > nk ? nq : nk, BH),
-                    (fq > fkv ? fq : fkv) * sizeof(float), a, stream);
+                    FusedFloats<DMAX>() * sizeof(float), a, stream);
 }
 
 template <typename T>
@@ -398,8 +393,12 @@ extern "C" int mxt_flash_bwd(const void* q, const void* k, const void* v,
   if (BH <= 0 || BH > 65535 || Tq <= 0 || Tk <= 0 || D <= 0 || D > 256 ||
       which < kDq || which > kFused || (which == kFused && Tq != Tk))
     return (int)cudaErrorInvalidValue;
+  // streamed tiles (k, v for dq; q, dO for dk/dv) go by cp.async where
+  // they are 16-byte aligned f32 rows
+  const int async = dtype == 0 && D % 4 == 0 && aligned16(q) &&
+                    aligned16(k) && aligned16(v) && aligned16(dout);
   const Args a{q, k, v, dout, lse, delta, dq, dk, dv,
-               Tq, Tk, D, scale, causal, rows_bf16};
+               Tq, Tk, D, scale, causal, rows_bf16, async};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)dispatch_d<float>(a, BH, which, s);
   if (dtype == 1) return (int)dispatch_d<__nv_bfloat16>(a, BH, which, s);

@@ -77,8 +77,8 @@ def _bwd_mode() -> str:
     the same backward for the same setting. On either route K4 gives the
     same bits as that route's K2 + K3 (it runs their tile bodies) and was
     not slower at any shape measured: at the training shape (B 8, H 16,
-    T 1024, D 64, causal) 0.2560 ms against 0.1332 + 0.1646 in bf16 and
-    5.0130 against 2.6963 + 3.0378 in f32, on an H100 80GB HBM3 at 700 W
+    T 1024, D 64, causal) 0.2571 ms against 0.1321 + 0.1648 in bf16 and
+    2.0437 against 0.9347 + 1.2694 in f32, on an H100 80GB HBM3 at 700 W
     (PERF.md)."""
     return "fused" if os.environ.get(
         "MXTPU_FLASH_BWD", "").strip().lower() == "fused" else "split"
@@ -206,7 +206,9 @@ def flash_fwd(q, k, v, causal: bool, scale: float):
     and D <= 128 (``csrc/flash_fwd_sm90.cu``: 128 query rows a block, 64
     at D > 64, K/V tiles streamed by TMA, both products on ``wgmma``, P
     entering P·V as two bf16 terms), ``simt`` for the rest
-    (``csrc/flash_fwd.cu``: f32 on the CUDA cores)."""
+    (``csrc/flash_fwd.cu``: f32 register micro-tiles on the CUDA cores,
+    K/V tiles streamed by ``cp.async``; the tile products, staging and
+    mask shared with K2-K4 in ``csrc/simt.cuh``)."""
     B, H, T, Tk, D = _check_qkv("flash_fwd", q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
@@ -298,10 +300,11 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool, scale: float):
     (``csrc/flash_bwd_sm90.cu``: 128 query rows a block, 64 at D > 64, K/V
     tiles streamed by TMA, the three products on ``wgmma``, dS rounded to
     bf16 before dS·K), ``simt`` for the rest (``csrc/flash_bwd.cu``'s
-    ``dq_tile``: f32 on the CUDA cores). At the training shape (B 8, H 16,
-    T 1024, D 64, causal) it took 0.1332 ms in bf16 (sm90) and 2.6963 ms
-    in f32 (simt) on an H100 80GB HBM3 at 700 W, against 0.3076 and
-    1.7197 ms for the whole backward of ``scaled_dot_product_attention``
+    ``dq_tile``: f32 register micro-tiles on the CUDA cores, K/V tiles
+    streamed by ``cp.async``). At the training shape (B 8, H 16, T 1024,
+    D 64, causal) it took 0.1321 ms in bf16 (sm90) and 0.9347 ms in f32
+    (simt) on an H100 80GB HBM3 at 700 W, against 0.2669 and 1.7206 ms
+    for the whole backward of ``scaled_dot_product_attention``
     (PERF.md)."""
     return _launch_bwd(_BWD_DQ, q, k, v, dout, lse, delta, causal,
                        scale)[0]
@@ -320,7 +323,8 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool, scale: float):
     (``csrc/flash_bwd_sm90.cu``: 128 keys a block, 64 at D > 64, q/dO
     tiles streamed by TMA, the four products on ``wgmma``, P and dS rounded
     to bf16 before theirs), ``simt`` for the rest (``csrc/flash_bwd.cu``'s
-    ``dkv_tile``: f32 on the CUDA cores)."""
+    ``dkv_tile``: f32 register micro-tiles on the CUDA cores, q/dO tiles
+    streamed by ``cp.async``)."""
     return _launch_bwd(_BWD_DKV, q, k, v, dout, lse, delta, causal,
                        scale)[1:]
 

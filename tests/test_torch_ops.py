@@ -22,6 +22,7 @@ import pytest
 
 import mxtpu
 import mxtpu.operator  # noqa: F401  (registers Custom)
+from mxtpu import rng as jrng
 from mxtpu.ops import registry as jreg
 
 import mxtpu_torch
@@ -519,6 +520,10 @@ def test_op_matches_jax(key):
 def _check_random(key, op):
     np_args, np_kwargs, _ = _arrays(RANDOM[op.name], seed=0)
     jop = jreg.get_op(key)
+    # The JAX package makes a thread's global key on its first draw; made
+    # inside the trace below, it would be a leaked tracer for every later
+    # draw of this process. Make it here, outside any trace.
+    jrng._global()
     j_out = jax.eval_shape(lambda: jop.fn(
         *[jnp.asarray(a) for a in np_args], **np_kwargs))
     j_out = j_out if isinstance(j_out, (tuple, list)) else (j_out,)

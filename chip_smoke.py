@@ -14,6 +14,7 @@ Phases, in order; any failure exits non-zero without a result line:
    and no spill at DMAX 64 and 128 (DMAX 256's printed); for the sm90
    kernels (K1, and K2, K3 and K4 on the tensor cores) no spill, and
    ``wgmma`` (``HGMMA``) and TMA (``UTMALDG``) instructions in their
+   machine code; for K5 no spill, and ``cp.async`` (``LDGSTS``) in its
    machine code;
 2. K1 (flash-attention forward) against its plain PyTorch version on the
    card at the forward's shapes (B=4, H=12, T=1024, D=64, causal) in f32
@@ -23,13 +24,19 @@ Phases, in order; any failure exits non-zero without a result line:
    with D % 8 == 0 and D <= 128 must take the sm90 route, the rest the
    simt route;
 3. K5 (dequant decode) against its plain version at the engine's decode
-   shape (S=8, H=12, TOT=1024, D=64) with ragged cursors, int8 and fp8;
+   shape (S=8, H=12, TOT=1024, D=64) with ragged cursors, int8 and fp8,
+   twice (the same bits), at the one-position prefill shape (S=1, H=12,
+   TOT=256 and 704, the last position), the "wide" preset's head (H=16,
+   D=128), q in bf16, cursors past the bucket and D=40; the timed cases
+   on a CUDA graph (the device alone), eagerly, and against the launch
+   floor and the byte bound;
 4. forward: ``transformer_lm("base", vocab_size=50257)`` (GPT-2 124M
    dimensions) scores a (4, 1024) batch; K1 must launch;
 5. serving: ``ServingEngine(that model, slots=8, quant="int8_kv")`` answers
    8 greedy requests (prompts of 64-700 tokens, 128 new tokens each);
-   K5 must launch on every layer of every step; then the same requests
-   again under ``torch.profiler`` for the device's busy share;
+   K5 must launch on every layer of every step; then two of the requests
+   again under ``torch.profiler`` for the device's busy share and K5's
+   launches and mean time per launch;
 6. card against CPU: at base width with 2 layers, the same weights on the
    card and on the CPU give the same greedy tokens for 2 requests of 32
    new tokens (int8 and fp8 KV), and forward logits that agree;
@@ -105,6 +112,7 @@ def check(cond, msg):
 
 SM90_SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90")
 SIMT_SOURCES = ("flash_fwd", "flash_bwd")
+NO_SPILL_SOURCES = SM90_SOURCES + ("dequant_decode",)
 # a simt instantiation's mangled name: kernel, dtype (f or bf16), DMAX
 _PTXAS_KERNEL = re.compile(
     r"\d(flash_[a-z_]+?_kernel)I(f|13__nv_bfloat16)Li(\d+)E")
@@ -133,7 +141,9 @@ def check_build(build):
     """Prints the compiler's registers, shared memory and spills for every
     kernel. The simt kernels (K1 to K4 on the CUDA cores) must not spill at
     DMAX 64 and 128; the sm90 kernels must not spill, and their machine
-    code must hold ``wgmma`` (``HGMMA``) and TMA loads (``UTMALDG``)."""
+    code must hold ``wgmma`` (``HGMMA``) and TMA loads (``UTMALDG``); K5
+    (``dequant_decode``) must not spill, and its machine code must hold
+    ``cp.async`` (``LDGSTS``)."""
     spills = []
     for name in build.SOURCES:
         if name in SIMT_SOURCES:
@@ -153,7 +163,7 @@ def check_build(build):
         for ln in build.build_log(name).splitlines():
             if "registers" in ln or "spill" in ln:
                 print(f"  ptxas {name}: {ln.strip()}", flush=True)
-                if name in SM90_SOURCES and "spill" in ln:
+                if name in NO_SPILL_SOURCES and "spill" in ln:
                     check(" 0 bytes spill stores, 0 bytes spill loads" in ln,
                           f"{name} spills: {ln.strip()}")
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
@@ -166,6 +176,13 @@ def check_build(build):
               f"loads)", flush=True)
         check(n_mma > 0 and n_tma > 0,
               f"{name}: no wgmma or no TMA load in its machine code")
+    sass = subprocess.run([cuobjdump, "-sass",
+                           build.lib_path("dequant_decode")],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    n_async = sass.count("LDGSTS")
+    print(f"  sass dequant_decode: {n_async} LDGSTS (cp.async)", flush=True)
+    check(n_async > 0, "dequant_decode: no cp.async in its machine code")
     print(f"simt spills (DMAX 256): {spills or 'none'}", flush=True)
 
 
@@ -268,58 +285,228 @@ def phase_k1(torch, attention):
     return recs
 
 
+K5_CACHES = 12   # one cache per layer of the base model, as a serving step
+
+
+def capture(torch, fn, iters):
+    """``iters`` calls of ``fn`` captured into one CUDA graph (after one
+    warm-up call on a side stream) and replayed once; returns the graph
+    and the captured calls' results, which each replay writes anew."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn() for _ in range(iters)]
+    graph.replay()
+    torch.cuda.synchronize()
+    return graph, outs
+
+
+def graph_ms(torch, fn, iters, reps=3):
+    """Mean device time of one call of ``fn``: ``iters`` calls captured into
+    one CUDA graph, replayed once to warm up, then ``reps`` times between
+    CUDA events. The host's time per call (argument checks, ``ctypes``) is
+    not in it: the replays launch back to back on the device."""
+    def call():
+        fn()    # not kept: each call's output memory is reused in the graph
+
+    graph, _ = capture(torch, call, iters)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
+
+
+def launch_floor_ms(torch, iters):
+    """``graph_ms`` of one one-element ``add_`` per call: what a launch of
+    a kernel that does nothing costs in a graph."""
+    x = torch.zeros(1, device="cuda")
+    return graph_ms(torch, lambda: x.add_(1.0), iters)
+
+
+def k5_caches(torch, kv_quant, g, S, H, TOT, D, mode, n):
+    """``n`` quantized (kd, ks, vd, vs) caches of one shape."""
+    out = []
+    for _ in range(n):
+        kd, ks = kv_quant.quantize_rows(
+            torch.randn(S, H, TOT, D, device="cuda", generator=g), mode)
+        vd, vs = kv_quant.quantize_rows(
+            torch.randn(S, H, TOT, D, device="cuda", generator=g), mode)
+        out.append((kd, ks, vd, vs))
+    return out
+
+
+def k5_cursors(torch, g, S, TOT, how, C):
+    """``ragged``: first row, last row and spread between; ``last``: every
+    slot at TOT - 1 (a prefill step's last position); ``past``: cursors
+    past the bucket, which the kernel clips into it; ``early``: every
+    cursor in chunk 0 of C positions, the last at C - 1 (a prefill's
+    first positions in a page longer than C)."""
+    if how == "early":
+        pc = torch.randint(0, C, (S,), device="cuda", generator=g,
+                           dtype=torch.int32)
+        pc[-1] = C - 1
+        return pc
+    if how == "last":
+        return torch.full((S,), TOT - 1, dtype=torch.int32, device="cuda")
+    if how == "past":
+        return torch.tensor([TOT + 37, 2 ** 31 - 1, 40][:S],
+                            dtype=torch.int32, device="cuda")
+    pc = torch.randint(0, TOT, (S,), device="cuda", generator=g,
+                       dtype=torch.int32)
+    pc[0], pc[-1] = 0, TOT - 1
+    return pc
+
+
+def k5_bytes(pc, H, TOT, D, q):
+    """Bytes K5 must move: the K and V rows (one byte a value) and their
+    f32 scales up to each slot's clipped cursor, q in, out, pc."""
+    rows = int((pc.long().clamp(0, TOT - 1) + 1).sum().item()) * H
+    return 2 * rows * (D + 4) + 2 * q.numel() * q.element_size() \
+        + pc.numel() * 4, rows
+
+
+def k5_error(torch, out, ref):
+    """Largest error of K5's output against the plain version's f32
+    result; for a bf16 output less half a bf16 step of each value (the one
+    rounding of the f32 result to 8 significant bits, at most 2^-8 of
+    it)."""
+    diff = (out.float() - ref).abs()
+    if out.dtype == torch.bfloat16:
+        diff = diff - ref.abs() * 2.0 ** -8
+    return diff.max().item()
+
+
+def k5_followed(torch, quant_attention, q, caches, pc, scale, replays=3):
+    """Largest error, against the plain version, of K5's output as a copy
+    kernel that follows it in one CUDA graph reads it, one K5 call and one
+    copy per cache, over ``replays`` replays: the kernel after K5 on the
+    stream must see the whole output, also where K5's merge kernel has no
+    chunk to merge and ends at once."""
+    refs = [quant_attention._decode_plain(q.float(), *c, pc, scale)
+            for c in caches]
+    turn = [0]
+
+    def call():
+        turn[0] += 1
+        i = turn[0] % len(caches)
+        return i, quant_attention.dequant_decode(q, *caches[i], pc,
+                                                 scale).clone()
+
+    graph, outs = capture(torch, call, len(caches))
+    err = 0.0
+    for _ in range(replays):
+        graph.replay()
+        torch.cuda.synchronize()
+        for i, out in outs:
+            err = max(err, k5_error(torch, out, refs[i]))
+    return err
+
+
 def phase_k5(torch, quant_attention, kv_quant):
-    """K5 against its plain version; returns the main-path record (int8
-    cache, the engine's decode shape)."""
+    """K5 against its plain version at 1e-5 x max(|ref|, 1). The timed
+    cases cycle through ``K5_CACHES`` caches, as a serving step reads one
+    cache per layer, and print the graph time (the record's ``ms``), the
+    eager-call time (``eager_ms``), the launch floor, the plain version's
+    graph time and the byte bound. The decode case runs twice and must
+    give the same bits. Returns the main-path record (int8 cache, the
+    engine's decode shape) with the last prefill shape's times in it."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
-    cases = [  # (label, S, H, TOT, D, mode, timed)
-        ("int8", 8, 12, 1024, 64, "int8", True),
-        ("fp8", 8, 12, 1024, 64, "fp8", True),
-        ("int8 D=40 TOT=96", 3, 2, 96, 40, "int8", False),
-        ("fp8 D=40 TOT=32", 2, 3, 32, 40, "fp8", False),
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # (label, S, H, TOT, D, mode, q dtype, cursors, timed)
+        ("decode int8", 8, 12, 1024, 64, "int8", f32, "ragged", True),
+        ("decode fp8", 8, 12, 1024, 64, "fp8", f32, "ragged", True),
+        ("prefill int8", 1, 12, 256, 64, "int8", f32, "last", True),
+        ("prefill int8", 1, 12, 704, 64, "int8", f32, "last", True),
+        ("wide head int8", 8, 16, 1024, 128, "int8", f32, "ragged", True),
+        ("decode int8, q bf16", 8, 12, 1024, 64, "int8", bf16, "ragged",
+         False),
+        ("int8, pc past TOT", 3, 2, 96, 64, "int8", f32, "past", False),
+        ("int8 D=40", 3, 2, 96, 40, "int8", f32, "ragged", False),
+        ("fp8 D=40", 2, 3, 32, 40, "fp8", f32, "ragged", False),
+        ("prefill int8, cursor in chunk 0", 1, 12, 704, 64, "int8", f32,
+         "early", False),
+        ("decode fp8, cursors in chunk 0", 8, 12, 1024, 64, "fp8", bf16,
+         "early", False),
     ]
-    main = None
-    for label, S, H, TOT, D, mode, do_time in cases:
-        q = torch.randn(S, H, D, device=dev, generator=g)
-        kd, ks = kv_quant.quantize_rows(
-            torch.randn(S, H, TOT, D, device=dev, generator=g), mode)
-        vd, vs = kv_quant.quantize_rows(
-            torch.randn(S, H, TOT, D, device=dev, generator=g), mode)
-        # ragged cursors: first row, last row, and spread between
-        pc = torch.randint(0, TOT, (S,), device=dev, generator=g,
-                           dtype=torch.int32)
-        pc[0], pc[-1] = 0, TOT - 1
+    iters = 10 * K5_CACHES
+    floor_ms = launch_floor_ms(torch, iters)
+    print(f"K5 launch floor (graph, one 1-element add_ per call): "
+          f"{floor_ms:.5f} ms", flush=True)
+    main, prefill = None, None
+    for label, S, H, TOT, D, mode, qdt, how, do_time in cases:
+        q = torch.randn(S, H, D, device=dev, generator=g).to(qdt)
+        caches = k5_caches(torch, kv_quant, g, S, H, TOT, D, mode,
+                           K5_CACHES if do_time or how == "early" else 1)
+        C = quant_attention._card_chunk(dev, S, H, TOT, D)
+        pc = k5_cursors(torch, g, S, TOT, how, C)
         scale = 1.0 / math.sqrt(D)
-        out = quant_attention.dequant_decode(q, kd, ks, vd, vs, pc, scale)
-        ref = quant_attention._decode_plain(q, kd, ks, vd, vs, pc, scale)
+        out = quant_attention.dequant_decode(q, *caches[0], pc, scale)
+        ref = quant_attention._decode_plain(q.float(), *caches[0], pc,
+                                            scale)
         torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
+        err = k5_error(torch, out, ref)
         tol = 1e-5 * max(ref.abs().max().item(), 1.0)
-        check(math.isfinite(err) and err <= tol,
+        check(out.dtype == qdt and math.isfinite(err) and err <= tol,
               f"K5 {label}: err {err} (tol {tol})")
-        line = (f"K5 {label} S{S} H{H} TOT{TOT} D{D} pc={pc.tolist()}: "
-                f"max_abs_err {err:.3e} (tol {tol:.3e})")
+        line = (f"K5 {label} S{S} H{H} TOT{TOT} D{D} q {str(qdt)[6:]} "
+                f"C{C} pc={pc.tolist()}: max_abs_err {err:.3e} (tol "
+                f"{tol:.3e})")
+        if how == "early":
+            check(TOT > C, f"K5 {label}: TOT {TOT} is not split at C {C}")
+            err = k5_followed(torch, quant_attention, q, caches, pc, scale)
+            check(math.isfinite(err) and err <= tol,
+                  f"K5 {label}: read after it in a graph: err {err}")
+            line += (f"; read by the next kernel of a graph, "
+                     f"{K5_CACHES} calls x 3 replays: err {err:.3e}")
+        if label == "decode int8":
+            again = quant_attention.dequant_decode(q, *caches[0], pc, scale)
+            check(torch.equal(out, again),
+                  f"K5 {label}: a second run gave other bits")
+            line += "; a second run bit-equal"
         if not do_time:
             print(line, flush=True)
             continue
-        ms = timed_ms(torch, lambda: quant_attention.dequant_decode(
-            q, kd, ks, vd, vs, pc, scale), 200)
-        plain_ms = timed_ms(torch, lambda: quant_attention._decode_plain(
-            q, kd, ks, vd, vs, pc, scale), 50)
-        rows = int((pc.long() + 1).sum().item()) * H
-        nbytes = 2 * rows * (D * kd.element_size() + 4) \
-            + 2 * S * H * D * 4 + S * 4
-        flops = 4.0 * rows * D
-        bound_ms, bound_by = _bound(flops, nbytes, "float32")
-        print(f"{line}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library none, bound {bound_ms:.5f} ms ({bound_by}: {nbytes} "
-              f"bytes)", flush=True)
+        turn = [0]
+
+        def cycled(fn):
+            def call():
+                turn[0] += 1
+                return fn(q, *caches[turn[0] % K5_CACHES], pc, scale)
+            return call
+
+        ms = graph_ms(torch, cycled(quant_attention.dequant_decode), iters)
+        eager_ms = timed_ms(torch, cycled(quant_attention.dequant_decode),
+                            iters)
+        plain_ms = graph_ms(torch, cycled(quant_attention._decode_plain),
+                            2 * K5_CACHES, reps=1)
+        nbytes, rows = k5_bytes(pc, H, TOT, D, q)
+        bound_ms, bound_by = _bound(4.0 * rows * D, nbytes, "float32")
+        cache_mb = K5_CACHES * sum(t.numel() * t.element_size()
+                                   for t in caches[0]) / 1e6
+        where = "stay in" if cache_mb < 50 else "exceed"
+        print(f"{line}; kernel {ms:.5f} ms (graph), eager {eager_ms:.5f} "
+              f"ms, launch floor {floor_ms:.5f} ms, plain {plain_ms:.4f} ms,"
+              f" library none, bound {bound_ms:.5f} ms ({bound_by}: "
+              f"{nbytes} bytes); {K5_CACHES} caches of {cache_mb:.1f} MB "
+              f"in all {where} the 50 MB L2", flush=True)
+        rec = dict(max_abs_err=err, ms=ms, eager_ms=eager_ms,
+                   launch_floor_ms=floor_ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         if main is None:
-            main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bound_ms, bound_by=bound_by,
-                        library_ms=None)
-    return main
+            main = rec
+        if label == "prefill int8":
+            prefill = dict(TOT=TOT, ms=ms, eager_ms=eager_ms,
+                           bound_ms=bound_ms)
+    return dict(main, prefill=prefill)
 
 
 def phase_bwd(torch, attention):
@@ -582,7 +769,8 @@ def phase_profile(torch, model, serving):
     170 and 250 tokens, 128 new) again under ``torch.profiler`` (device
     activity only; the profiler's processing grows with the kernel count,
     so the window is kept short), reporting the device's busy share of the
-    run's wall time and the kernels that take it."""
+    run's wall time, the kernels that take it, and K5's launches and mean
+    device time per launch (its kernels' names hold ``dequant_``)."""
     from torch.profiler import ProfilerActivity, profile
     prompts = serving_prompts(torch)[2:4]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -592,11 +780,14 @@ def phase_profile(torch, model, serving):
                 r.result(timeout=900)
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
-    by_name = {}
+    by_name, k5 = {}, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) \
-                + e.time_range.elapsed_us()
+            us = e.time_range.elapsed_us()
+            by_name[e.name] = by_name.get(e.name, 0.0) + us
+            if "dequant_" in e.name:
+                n, tot = k5.get(e.name, (0, 0.0))
+                k5[e.name] = (n + 1, tot + us)
     busy = sum(by_name.values())
     if not busy:
         print("profile: the profiler recorded no device time", flush=True)
@@ -607,6 +798,9 @@ def phase_profile(torch, model, serving):
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {us / busy:.3f} of device time, {us / 1e3:.1f} ms: "
               f"{name[:110]}", flush=True)
+    for name, (n, us) in sorted(k5.items()):
+        print(f"profile K5: {n} launches, mean {us / n:.3f} us, "
+              f"{us / busy:.3f} of device time: {name[:90]}", flush=True)
 
 
 def phase_card_vs_cpu(torch, lm, serving):

@@ -9,17 +9,23 @@ beside them. The sm90 kinds (``fwd``, ``dq``, ``bwd``, ``fused``) run the
 tensor-core route in bf16; the simt kinds (``simt-fwd``, ``simt-dq``,
 ``simt-bwd``, ``simt-fused``) run the CUDA-core route in f32 at D = 40,
 64, 128 and 256 and in bf16 at the head dims the tensor-core route
-refuses (D = 36, 100 and 256).
+refuses (D = 36, 100 and 256). The ``decode`` kind runs K5
+(``dequant_decode``) over slots S = 1, 8, 32, buckets TOT = 32 to 2048,
+head dims D = 40 to 512, int8 and fp8 caches, q in f32 and bf16 and
+ragged cursors, against its plain version; its timed cases on a CUDA graph
+(``chip_smoke.graph_ms``) beside the launch floor and the byte bound.
 
     python3 kernel_sweep.py build [simt]             # registers, spills, SASS
     python3 kernel_sweep.py drive fwd bwd dq fused   # faults isolated
     python3 kernel_sweep.py drive simt-fwd simt-dq simt-bwd simt-fused
+    python3 kernel_sweep.py build && python3 kernel_sweep.py drive decode
 
 ``drive`` runs the cases of each kind in a child process and, when a case
 faults (a kernel fault poisons the process's CUDA context), starts a new
 child at the next case, so one run names every faulting case. Tolerances
 are ``chip_smoke.py``'s: K1 out 1e-4 in f32 and 1e-2 in bf16, lse 1e-4;
-K2-K4 1e-4 x max(|ref|, 1) in f32 and 2e-2 x max(|ref|, 1) in bf16. Every
+K2-K4 1e-4 x max(|ref|, 1) in f32 and 2e-2 x max(|ref|, 1) in bf16; K5
+1e-5 x max(|ref|, 1) (bf16 q: plus half a bf16 step of each output). Every
 case must take its kind's route. ``fused`` takes the shapes with T == Tk.
 The last line is ``TOTAL FAILS n``; the exit code is 1 if n > 0.
 """
@@ -101,7 +107,39 @@ SIMT_BWD = [(2, 3, 77, 130, 40, False, False, F32, False),
             (4, 12, 1024, 1024, 128, True, False, F32, True),
             (4, 12, 1024, 1024, 36, True, False, BF, True),
             (4, 12, 1024, 1024, 256, True, False, BF, True)]
-NAMES = {"sm90": ("flash_fwd_sm90", "flash_bwd_sm90"),
+# K5: (S, H, TOT, D, cache, q dtype, cursors, timed); cursors as
+# chip_smoke.k5_cursors: ragged (0, TOT - 1 and between), last (TOT - 1),
+# early (every cursor in chunk 0 of a split cache; also read by the next
+# kernel of a CUDA graph)
+DECODE = [(1, 12, 32, 64, "int8", F32, "last", False),
+          (1, 12, 96, 40, "fp8", BF, "last", False),
+          (1, 12, 256, 128, "int8", BF, "last", False),
+          (1, 12, 1024, 256, "fp8", F32, "last", False),
+          (1, 12, 2048, 512, "int8", F32, "last", False),
+          (8, 12, 32, 40, "int8", F32, "ragged", False),
+          (8, 12, 96, 512, "fp8", BF, "ragged", False),
+          (8, 12, 256, 256, "int8", F32, "ragged", False),
+          (8, 16, 1024, 128, "fp8", BF, "ragged", False),
+          (8, 12, 2048, 64, "fp8", F32, "ragged", False),
+          (32, 12, 32, 512, "fp8", F32, "ragged", False),
+          (32, 12, 96, 64, "int8", BF, "ragged", False),
+          (32, 12, 256, 40, "fp8", F32, "ragged", False),
+          (32, 12, 1024, 256, "int8", BF, "ragged", False),
+          (32, 4, 2048, 128, "int8", F32, "ragged", False),
+          (1, 12, 704, 64, "int8", F32, "early", False),
+          (1, 12, 2048, 512, "fp8", BF, "early", False),
+          (8, 12, 1024, 64, "fp8", BF, "early", False),
+          (8, 12, 2048, 40, "int8", F32, "early", False),
+          (1, 12, 704, 64, "int8", F32, "last", True),
+          (1, 12, 704, 64, "fp8", F32, "last", True),
+          (1, 12, 2048, 64, "int8", F32, "last", True),
+          (8, 12, 1024, 64, "int8", F32, "ragged", True),
+          (8, 12, 1024, 64, "int8", BF, "ragged", True),
+          (8, 12, 2048, 64, "int8", F32, "last", True),
+          (8, 16, 1024, 128, "int8", F32, "last", True),
+          (32, 12, 1024, 64, "fp8", F32, "last", True),
+          (8, 12, 1024, 512, "int8", F32, "ragged", True)]
+NAMES = {"sm90": ("flash_fwd_sm90", "flash_bwd_sm90", "dequant_decode"),
          "simt": ("flash_fwd", "flash_bwd")}
 # backward kind: (kernel, wrapper, indices of (dq, dk, dv) it returns)
 BWD_KINDS = {"dq": ("K2", "flash_bwd_dq", (0,)),
@@ -144,7 +182,8 @@ def build(route):
                                    _build.lib_path(name)],
                                   capture_output=True, text=True).stdout
             print(name, "HGMMA", sass.count("HGMMA"), "UTMALDG",
-                  sass.count("UTMALDG"), flush=True)
+                  sass.count("UTMALDG"), "LDGSTS", sass.count("LDGSTS"),
+                  flush=True)
 
 
 def took_route(fn, n0, route):
@@ -242,6 +281,55 @@ def bwd_case(torch, A, F, case, g, kind, route):
     return ok, line
 
 
+def decode_case(torch, case, g):
+    """One K5 case against its plain version; a timed case also on a CUDA
+    graph, cycling through enough caches (at most 12, one a layer) that
+    the bytes read between two reads of one exceed the 50 MB L2 where 12
+    do."""
+    import chip_smoke as cs
+    from mxtpu_torch.ops import quant_attention as qa
+    from mxtpu_torch.quant import kv_quant
+    S, H, TOT, D, mode, dtype, how, do_time = case
+    q = torch.randn(S, H, D, device="cuda", generator=g).to(
+        getattr(torch, dtype))
+    one = 2 * S * H * TOT * (D + 4)
+    n = min(cs.K5_CACHES, max(2, -(-100_000_000 // one))) \
+        if do_time or how == "early" else 1
+    caches = cs.k5_caches(torch, kv_quant, g, S, H, TOT, D, mode, n)
+    C = qa._card_chunk(q.device, S, H, TOT, D)
+    pc = cs.k5_cursors(torch, g, S, TOT, how, C)
+    sc = 1 / math.sqrt(D)
+    n0 = qa.dequant_decode.launches
+    out = qa.dequant_decode(q, *caches[0], pc, sc)
+    ref = qa._decode_plain(q.float(), *caches[0], pc, sc)
+    torch.cuda.synchronize()
+    err = cs.k5_error(torch, out, ref)
+    tol = 1e-5 * max(ref.abs().max().item(), 1.0)
+    ok = err <= tol and qa.dequant_decode.launches - n0 == 1 \
+        and out.dtype == q.dtype
+    if how == "early":
+        err = max(err, cs.k5_followed(torch, qa, q, caches, pc, sc))
+        ok = ok and TOT > C and err <= tol
+    line = (f"K5 {mode} q {dtype} S{S} H{H} TOT{TOT} D{D} pc={pc.tolist()} "
+            f"C{C} blocks {S * H * -(-TOT // C)}: err {err:.3e} (tol "
+            f"{tol:.3e}) {'OK' if ok else 'FAIL'}")
+    if do_time:
+        turn = [0]
+
+        def call():
+            turn[0] += 1
+            return qa.dequant_decode(q, *caches[turn[0] % n], pc, sc)
+
+        ms = cs.graph_ms(torch, call, 10 * n)
+        floor = cs.launch_floor_ms(torch, 10 * n)
+        nbytes, rows = cs.k5_bytes(pc, H, TOT, D, q)
+        bound, _ = cs._bound(4.0 * rows * D, nbytes, "float32")
+        line += (f"; kernel {ms:.5f} ms (graph, {n} caches of "
+                 f"{one / 1e6:.1f} MB), launch floor {floor:.5f} ms, bound "
+                 f"{bound:.5f} ms, kernel / bound {ms / bound:.2f}")
+    return ok, line
+
+
 def split_kind(kind):
     """``(route, kind)``: ``simt-dq`` is the dq kind on the simt route."""
     return ("simt", kind[5:]) if kind.startswith("simt-") else ("sm90",
@@ -250,6 +338,8 @@ def split_kind(kind):
 
 def cases_of(kind):
     """The cases of one kind: K4 takes only self-attention (T == Tk)."""
+    if kind == "decode":
+        return DECODE
     route, base = split_kind(kind)
     if base == "fwd":
         return SIMT_FWD if route == "simt" else FWD
@@ -268,7 +358,9 @@ def run(kind, start):
     fails = 0
     for idx in range(start, len(cases)):
         g = torch.Generator(device="cuda").manual_seed(idx)
-        if base == "fwd":
+        if kind == "decode":
+            ok, line = decode_case(torch, cases[idx], g)
+        elif base == "fwd":
             ok, line = fwd_case(torch, A, F, cases[idx], g, route)
         else:
             ok, line = bwd_case(torch, A, F, cases[idx], g, base, route)

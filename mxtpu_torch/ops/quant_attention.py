@@ -6,12 +6,16 @@ Port of ``mxtpu/ops/quant_attention.py`` with the semantics of its Pallas
 path (``_decode_pallas``): dequantize in f32, mask ``t <= pc[slot]``, read
 only positions up to ``pc``. The kernel dequantizes K/V rows in registers,
 so no dequantized ``(S, H, TOT, D)`` tensor exists in device memory; the
-plain version, which does build one, runs only for CPU tensors.
+plain version, which does build one, runs only for CPU tensors. The
+kernel splits each (slot, head) over blocks of ``_chunk`` positions; the
+chunk-size rule, the copy width and the argument checks are here, in
+Python, where the CPU tests reach them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -23,9 +27,51 @@ __all__ = ["dequant_attention_decode", "dequant_decode"]
 _NEG_INF = -1e30
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.int8: 0, torch.float8_e4m3fn: 1}
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p]
+_DMAX = 512             # the Pallas path's limit on the head dim
+
+
+def _chunk(S: int, H: int, TOT: int, D: int, sms: int, cmax: int) -> int:
+    """Positions a block of K5 takes (C), from the shape and two facts of
+    the card: a multiple of 32 such that the grid of S * H * ceil(TOT / C)
+    blocks reaches about 4 blocks on each of its ``sms`` SMs where TOT
+    allows, as large as that leaves it (fewer partials to merge), and no
+    larger than ``cmax``, the largest chunk a block's shared memory holds
+    at this D (a multiple of 32, from the kernel library). Four blocks an
+    SM, not two: a block's loads, scores and P V run one after another,
+    and more blocks overlap one block's compute with another's loads."""
+    splits = -(-4 * sms // (S * H))
+    per_split = -(-TOT // splits)
+    return max(32, min(-(-per_split // 32) * 32, cmax))
+
+
+@functools.lru_cache(maxsize=None)
+def _card(index: int, D: int):
+    """(SMs, largest chunk at head dim D) of CUDA device ``index``."""
+    fn = _kernel("dequant_decode", "mxt_dequant_decode_max_chunk",
+                 [ctypes.c_int])
+    return torch.cuda.get_device_properties(index).multi_processor_count, \
+        fn(D)
+
+
+def _card_chunk(device, S: int, H: int, TOT: int, D: int) -> int:
+    """``_chunk`` on CUDA device ``device``: the C that K5 runs with."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    return _chunk(S, H, TOT, D, *_card(index, D))
+
+
+def _copy_width(D: int, *tensors) -> int:
+    """Bytes a copy of K5's staging: the widest of 16, 8 and 4 that divides
+    D and every cache's base address (rows then keep that alignment),
+    else 1."""
+    for w in (16, 8, 4):
+        if D % w == 0 and all(t.data_ptr() % w == 0 for t in tensors):
+            return w
+    return 1
 
 
 def _decode_plain(q, kd, ks, vd, vs, pc, scale: float):
@@ -42,21 +88,10 @@ def _decode_plain(q, kd, ks, vd, vs, pc, scale: float):
     return torch.einsum("bht,bhtd->bhd", att, v).to(q.dtype)
 
 
-def dequant_decode(q, kd, ks, vd, vs, pc, scale: float):
-    """Launch K5 on CUDA tensors: q (S, H, D) f32/bf16; kd, vd
-    (S, H, TOT, D) int8 or float8_e4m3fn; ks, vs (S, H, TOT) f32; pc (S,)
-    int32, clipped into ``[0, TOT-1]`` in the kernel. Returns (S, H, D) in
-    q's dtype; raises on anything else or on a refused launch.
-    ``dequant_decode.launches`` counts the launches.
-
-    K5 replaces the Pallas kernel ``mxtpu/ops/quant_attention.py:
-    _dequant_decode_kernel``. It is bound by bytes (2 * (D + 4) per
-    position up to ``pc``); it reads only those positions and dequantizes
-    in registers, one block per (slot, head) (``csrc/dequant_decode.cu``).
-    """
+def _check(q, kd, ks, vd, vs, pc):
+    """What K5 takes (dtypes, shapes, contiguity, 0 < D <= 512); raises on
+    anything else and returns (S, H, TOT, D)."""
     ts = (q, kd, ks, vd, vs, pc)
-    if not all(t.is_cuda and t.device == q.device for t in ts):
-        raise ValueError("dequant_decode takes CUDA tensors on one device")
     if q.dtype not in _Q_DTYPES or kd.dtype not in _KV_DTYPES \
             or vd.dtype != kd.dtype or ks.dtype != torch.float32 \
             or vs.dtype != torch.float32 or pc.dtype != torch.int32:
@@ -74,15 +109,43 @@ def dequant_decode(q, kd, ks, vd, vs, pc, scale: float):
                          f"{[tuple(t.shape) for t in ts]}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("dequant_decode takes contiguous tensors")
-    if not 0 < D <= 256:
-        raise ValueError(f"dequant_decode takes 0 < D <= 256, got {D}")
-    vec = D % 16 == 0 and kd.data_ptr() % 16 == 0 and vd.data_ptr() % 16 == 0
+    if not 0 < D <= _DMAX:
+        raise ValueError(f"dequant_decode takes 0 < D <= {_DMAX}, got {D}")
+    return S, H, TOT, D
+
+
+def dequant_decode(q, kd, ks, vd, vs, pc, scale: float):
+    """Launch K5 on CUDA tensors: q (S, H, D) f32/bf16; kd, vd
+    (S, H, TOT, D) int8 or float8_e4m3fn; ks, vs (S, H, TOT) f32; pc (S,)
+    int32, clipped into ``[0, TOT-1]`` in the kernel; 0 < D <= 512.
+    Returns (S, H, D) in q's dtype; raises on anything else or on a refused
+    launch. ``dequant_decode.launches`` counts the calls (one a layer a
+    step; a call is one kernel, or two when TOT > C).
+
+    K5 replaces the Pallas kernel ``mxtpu/ops/quant_attention.py:
+    _dequant_decode_kernel``. It is bound by bytes (2 * (D + 4) per
+    position up to ``pc``). Each (slot, head) is split over blocks of
+    ``_chunk`` positions staged by ``cp.async``; the chunks' partials are
+    merged in chunk order by a second kernel (``csrc/dequant_decode.cu``).
+    """
+    ts = (q, kd, ks, vd, vs, pc)
+    if not all(t.is_cuda and t.device == q.device for t in ts):
+        raise ValueError("dequant_decode takes CUDA tensors on one device")
+    S, H, TOT, D = _check(*ts)
+    C = _card_chunk(q.device, S, H, TOT, D)
     out = torch.empty_like(q)
+    ws = None
+    if TOT > C:
+        # each chunk's partial: o (D rounded up to 4 floats), m and l
+        ws = torch.empty(S * H * -(-TOT // C) * (-(-D // 4) * 4 + 2),
+                         dtype=torch.float32, device=q.device)
     fn = _kernel("dequant_decode", "mxt_dequant_decode", _ARGTYPES)
     err = fn(q.data_ptr(), kd.data_ptr(), ks.data_ptr(), vd.data_ptr(),
-             vs.data_ptr(), pc.data_ptr(), out.data_ptr(), S, H, TOT, D,
+             vs.data_ptr(), pc.data_ptr(), out.data_ptr(),
+             None if ws is None else ws.data_ptr(), S, H, TOT, D, C,
              float(scale), _Q_DTYPES[q.dtype], _KV_DTYPES[kd.dtype],
-             int(vec), torch.cuda.current_stream(q.device).cuda_stream)
+             _copy_width(D, kd, vd),
+             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"dequant_decode launch failed (cudaError {err})")
     dequant_decode.launches += 1

@@ -4,7 +4,8 @@ edited kernel or header never loads a stale library. Runs without nvcc:
 only the names are computed. Also the f32 rule of the CUDA-core (simt)
 route, read from its sources: no tensor-core instruction and no TF32;
 the parser of the compiler's report that ``chip_smoke.py`` phase 1 fails
-a spill by; and the routes of ``kernel_sweep.py``'s cases."""
+a spill by; and the routes of ``kernel_sweep.py``'s cases (K5's
+``decode`` cases: their spread of shapes)."""
 
 import os
 import re
@@ -16,7 +17,7 @@ import torch
 import chip_smoke
 import kernel_sweep
 from mxtpu_torch import _build
-from mxtpu_torch.ops import attention
+from mxtpu_torch.ops import attention, quant_attention
 
 SIMT_FILES = ("flash_fwd.cu", "flash_bwd.cu", "simt.cuh")
 
@@ -88,11 +89,28 @@ def test_ptxas_report_names_each_instantiation():
 
 
 @pytest.mark.parametrize("kind", ["fwd", "dq", "bwd", "fused", "simt-fwd",
-                                  "simt-dq", "simt-bwd", "simt-fused"])
+                                  "simt-dq", "simt-bwd", "simt-fused",
+                                  "decode"])
 def test_sweep_cases_take_their_kinds_route(kind):
-    route, base = kernel_sweep.split_kind(kind)
     cases = kernel_sweep.cases_of(kind)
     assert cases and any(c[-1] for c in cases)  # checked and timed shapes
+    if kind == "decode":
+        # K5 has one route; its cases span the slots, buckets, head dims,
+        # caches and q dtypes it takes, and every case it splits runs more
+        # than one block a (slot, head)
+        assert {c[0] for c in cases} == {1, 8, 32}
+        assert {c[2] for c in cases} == {32, 96, 256, 704, 1024, 2048}
+        assert {c[3] for c in cases} == {40, 64, 128, 256, 512}
+        assert {c[4] for c in cases} == {"int8", "fp8"}
+        assert {c[5] for c in cases} == {"float32", "bfloat16"}
+        for S, H, TOT, D, *_ in cases:
+            assert quant_attention._chunk(S, H, TOT, D, 132, 32) % 32 == 0
+            assert D <= quant_attention._DMAX
+        # cases whose cursors all sit in chunk 0 of a split cache, checked
+        # through a kernel that reads the output in the same CUDA graph
+        assert {c[0] for c in cases if c[6] == "early"} == {1, 8}
+        return
+    route, base = kernel_sweep.split_kind(kind)
     for c in cases:
         D, dtype = c[4], getattr(torch, c[-2])
         assert attention._fwd_route(dtype, D) == route, c

@@ -27,6 +27,11 @@ from mxtpu_torch.ops import quant_attention as tqa
 from mxtpu_torch.quant import kv_quant as tkv
 
 MODES = ["int8", "fp8"]
+SMS = 132   # an H100's SMs, for the chunk-size rule
+# chunk caps for the rule (the kernel library reports the card's, a
+# multiple of 32, from its shared-memory layout): one that never binds here,
+# one that binds at the decode shape, and the least
+CMAXES = [4096, 96, 32]
 
 
 def _to_torch(a):
@@ -164,3 +169,123 @@ def test_paging_helpers_match_reference(mode):
     assert tkv.cache_nbytes(ct) == jkv.cache_nbytes(cj)
     assert tkv.page_nbytes(L, H, D, 32, quant=mode) == \
         jkv.page_nbytes(L, H, D, 32, quant=mode)
+
+
+def _split_decode(q, kd, ks, vd, vs, pc, scale):
+    """K5's split arithmetic in plain PyTorch: each (slot, head) cut into
+    chunks of ``_chunk`` positions; every chunk that starts at or below the
+    clipped cursor gives a partial (m, l, o) (its scores scaled by the K
+    row scales after the dot, its weights p * vs), and the partials are
+    merged in chunk order; a lone chunk 0 is normalized at once."""
+    S, H, TOT, D = kd.shape
+    C = tqa._chunk(S, H, TOT, D, SMS, CMAXES[0])
+    out = torch.empty(S, H, D)
+    for s in range(S):
+        lim = min(max(int(pc[s]), 0), TOT - 1)
+        for h in range(H):
+            parts = []
+            for t0 in range(0, lim + 1, C):
+                t = slice(t0, min(t0 + C, lim + 1))
+                sc = (kd[s, h, t].float() @ (q[s, h] * scale)) * ks[s, h, t]
+                m = sc.max()
+                p = torch.exp(sc - m)
+                parts.append((m, p.sum(), (p * vs[s, h, t]) @ vd[s, h, t]
+                              .float()))
+            if len(parts) == 1:
+                m, l, o = parts[0]
+                out[s, h] = o / torch.clamp(l, min=1e-30)
+                continue
+            M = torch.stack([m for m, _, _ in parts]).max()
+            L, O = torch.zeros(()), torch.zeros(D)
+            for m, l, o in parts:
+                L = L + l * torch.exp(m - M)
+                O = O + o * torch.exp(m - M)
+            out[s, h] = O / torch.clamp(L, min=1e-30)
+    return out
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("S", [1, 3])
+@pytest.mark.parametrize("TOT", [32, 96, 704])
+def test_split_arithmetic_matches_pallas_interpret(TOT, S, mode):
+    """The chunked partials and their in-order merge give the Pallas
+    kernel's result at cursors 0, C - 1, C, TOT - 1 and past TOT. A bucket
+    the Pallas kernel's tiling refuses (704: not a multiple of 128) goes
+    to it zero-padded to the next multiple of 128, with the cursors
+    clipped into the real bucket first, as the kernels clip them."""
+    H, D = 2, 16
+    q, kd, ks, vd, vs, _ = _decode_case(TOT, mode, seed=TOT + S, S=S, H=H,
+                                        D=D)
+    C = tqa._chunk(S, H, TOT, D, SMS, CMAXES[0])
+    cursors = [0, C - 1, C, TOT - 1, TOT + 40]
+    scale = 1.0 / math.sqrt(D)
+    tkd, tks, tvd, tvs = (_to_torch(a) for a in (kd, ks, vd, vs))
+    pad = 0 if jqa._legal_bucket(TOT) else -TOT % 128
+    cache = [jnp.pad(a, [(0, 0)] * 2 + [(0, pad)] + [(0, 0)] * (a.ndim - 3))
+             for a in (kd, ks, vd, vs)]
+    for i in range(0, len(cursors), S):
+        pc = np.array((cursors[i:i + S] * S)[:S], np.int32)
+        ref = np.asarray(jqa._decode_pallas(
+            jnp.asarray(q), *cache,
+            jnp.asarray(np.minimum(pc, TOT - 1) if pad else pc),
+            scale, interpret=True))
+        out = _split_decode(torch.from_numpy(q), tkd, tks, tvd, tvs,
+                            torch.from_numpy(pc), scale)
+        bound = 1e-5 * max(float(np.abs(ref).max()), 1.0)
+        assert float(np.abs(out.numpy() - ref).max()) < bound, pc
+
+
+@pytest.mark.parametrize("S,H,TOT,D", [
+    (8, 12, 1024, 64), (1, 12, 704, 64), (1, 12, 256, 64),
+    (8, 16, 1024, 128), (1, 12, 2048, 512), (32, 12, 2048, 40),
+    (3, 2, 96, 40), (1, 1, 17, 1)])
+def test_chunk_rule(S, H, TOT, D):
+    """C is a multiple of 32 fixed by the shape and the card's facts, no
+    larger than the card's cap (what a block's shared memory holds), and
+    the grid fills the card where TOT allows: at least 132 blocks whenever
+    32-position chunks would give 264, and at least 264 at the serving
+    decode shape and the longest prefill page."""
+    for cmax in CMAXES:
+        C = tqa._chunk(S, H, TOT, D, SMS, cmax)
+        assert C % 32 == 0 and 32 <= C <= cmax
+        assert C == tqa._chunk(S, H, TOT, D, SMS, cmax)
+        blocks = S * H * -(-TOT // C)
+        if S * H * -(-TOT // 32) >= 2 * SMS:
+            assert blocks >= SMS
+        if (S, H, TOT, D) in [(8, 12, 1024, 64), (1, 12, 704, 64)]:
+            assert blocks >= 2 * SMS
+        if TOT > C:     # split: more than one block a (slot, head)
+            assert blocks > S * H
+    # a cap below the shape's own choice binds; a card with more SMs
+    # splits no less
+    assert tqa._chunk(8, 12, 1024, 64, SMS, 4096) == 192
+    assert tqa._chunk(8, 12, 1024, 64, SMS, 96) == 96
+    assert tqa._chunk(S, H, TOT, D, 2 * SMS, 4096) <= \
+        tqa._chunk(S, H, TOT, D, SMS, 4096)
+
+
+@pytest.mark.parametrize("D", [1, 40, 64, 512, 513])
+def test_shape_checks_take_d_up_to_512(D):
+    """The wrapper's checks take every head dim up to the Pallas path's
+    512 and refuse 513."""
+    S, H, TOT = 2, 3, 40
+    args = (torch.zeros(S, H, D), torch.zeros(S, H, TOT, D, dtype=torch.int8),
+            torch.ones(S, H, TOT), torch.zeros(S, H, TOT, D, dtype=torch.int8),
+            torch.ones(S, H, TOT), torch.zeros(S, dtype=torch.int32))
+    if D > 512:
+        with pytest.raises(ValueError, match="D <= 512"):
+            tqa._check(*args)
+    else:
+        assert tqa._check(*args) == (S, H, TOT, D)
+
+
+def test_copy_width_follows_alignment():
+    """16-byte copies where D and the caches allow, else the widest
+    aligned copy."""
+    base = torch.zeros(4096, dtype=torch.int8)
+    assert base.data_ptr() % 16 == 0
+    assert tqa._copy_width(64, base, base) == 16
+    assert tqa._copy_width(40, base, base) == 8
+    assert tqa._copy_width(36, base, base) == 4
+    assert tqa._copy_width(64, base[4:], base) == 4
+    assert tqa._copy_width(33, base, base) == 1

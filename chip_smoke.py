@@ -33,13 +33,23 @@ Phases, in order; any failure exits non-zero without a result line:
 4. forward: ``transformer_lm("base", vocab_size=50257)`` (GPT-2 124M
    dimensions) scores a (4, 1024) batch; K1 must launch;
 5. serving: ``ServingEngine(that model, slots=8, quant="int8_kv")`` answers
-   8 greedy requests (prompts of 64-700 tokens, 128 new tokens each);
-   K5 must launch on every layer of every step; then two of the requests
-   again under ``torch.profiler`` for the device's busy share and K5's
-   launches and mean time per launch;
+   8 greedy requests (prompts of 64-700 tokens, 128 new tokens each),
+   then 8 more of the same lengths; every prefill and decode chunk runs as
+   a replay of its captured CUDA graph, one capture per program key, none
+   in the second burst; K5 must launch on every layer of every step, and
+   its launch count must equal the replayed steps' and the captures'
+   warm-up steps'; tokens/s, TTFT, captures and their time, peak memory;
+   then two of the requests twice through one engine, the second time
+   under ``torch.profiler``, for the device's busy share while replaying
+   and K5's launches and mean time per launch;
 6. card against CPU: at base width with 2 layers, the same weights on the
    card and on the CPU give the same greedy tokens for 2 requests of 32
-   new tokens (int8 and fp8 KV), and forward logits that agree;
+   new tokens (int8 and fp8 KV), and forward logits that agree; then the
+   serving programs at that size (int8 KV): a greedy and a sampled
+   request through the prefill and decode programs (cursors in K5's
+   chunk 0 of a split page), once by graph replays and once through the
+   programs' bodies (a host sync there is an error): tokens equal, cache
+   and page bit-equal, every chunk a replay, K5's launches exact;
 7. K2, K3 and K4 (flash-attention backward) against the plain backward on
    the card at the training shape (B=8, H=16, T=1024, D=64, causal) in
    bf16 and f32, and at ragged shapes (T=1000, T != Tk, D=40, 128, 256),
@@ -81,7 +91,8 @@ Phases, in order; any failure exits non-zero without a result line:
 Launch counts are set to 0 just before phases 4, 5, 8, 9 (each fused
 run), 10, saxpy's drive in 11 and the 10 steps of 12, and read just after.
 The line before the last is the kernels' JSON record, with one K1, K2, K3
-and K4 record for each route and the path it runs on; the last line is
+and K4 record for each route and the path it runs on (K5's also holds its
+launches inside graph replays); the last line is
 ``{"ok": true, "device": {...}}``.
 Weights and data are random, from fixed seeds.
 """
@@ -726,60 +737,147 @@ def phase_forward(torch, lm, attention, counts):
     return model, launches
 
 
-def serving_prompts(torch):
+def serving_prompts(torch, seed=4):
     lens = [64, 100, 170, 250, 333, 480, 600, 700]
-    g = torch.Generator().manual_seed(4)
+    g = torch.Generator().manual_seed(seed)
     return [torch.randint(0, 50257, (n,), generator=g).tolist()
             for n in lens]
 
 
-def phase_serving(torch, model, serving, quant_attention, counts):
-    prompts = serving_prompts(torch)
-    counts(0)
+def program_traces(step_cache):
+    """Traces (builds and captures) of the serving programs so far."""
+    snap = step_cache.snapshot()
+    return {k: snap.get(k, {}).get("traces", 0)
+            for k in ("serving_prefill", "serving_decode")}
+
+
+def serve_wave(torch, serving, eng, prompts):
+    """The prompts through ``eng`` at once, 128 new tokens each: (requests,
+    wall seconds, TTFT ms sorted)."""
     t0 = time.monotonic()
-    with serving.ServingEngine(model, slots=8, quant="int8_kv") as eng:
-        reqs = [eng.submit(p, 128) for p in prompts]
-        outs = [r.result(timeout=900) for r in reqs]
-        stats = eng.stats()
+    reqs = [eng.submit(p, 128) for p in prompts]
+    outs = [r.result(timeout=900) for r in reqs]
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = quant_attention.dequant_decode.launches
     for r, o in zip(reqs, outs):
         check(r.state == serving.DONE and len(o) == 128,
               f"request {r.id}: state {r.state}, {len(o)} tokens")
-    check(launches > 0, "serving launched no dequant_decode kernel")
+    return reqs, wall, sorted((r.t_first_token - r.t_submit) * 1e3
+                              for r in reqs)
+
+
+def phase_serving(torch, model, serving, quant_attention, step_cache,
+                  counts):
+    """The burst through ``ServingEngine(slots=8, quant="int8_kv")``, then
+    a second burst of other prompts of the same lengths through the same
+    engine. Every prefill and decode chunk must run as a CUDA graph
+    replay, with one capture per program key in the first burst and none
+    in the second; K5's launches must be exactly what the replays and the
+    captures' one-step warm-ups ran: L x (prefill positions + decode steps
+    + programs captured)."""
+    prompts = serving_prompts(torch)
+    pbs = [-(-len(p) // 32) * 32 for p in prompts]
     L = len(model.blocks)
+    traces0 = program_traces(step_cache)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    counts(0)
+    with serving.ServingEngine(model, slots=8, quant="int8_kv") as eng:
+        reqs, wall, ttft = serve_wave(torch, serving, eng, prompts)
+        stats = eng.stats()
+        launches = quant_attention.dequant_decode.launches
+        traces = {k: v - traces0[k]
+                  for k, v in program_traces(step_cache).items()}
+        peak = torch.cuda.max_memory_allocated()
+        reserved = torch.cuda.memory_reserved()
+        _, wall2, ttft2 = serve_wave(torch, serving, eng,
+                                     serving_prompts(torch, 5))
+        stats2 = eng.stats()
+        launches2 = quant_attention.dequant_decode.launches - launches
+        traces2 = {k: v - traces0[k]
+                   for k, v in program_traces(step_cache).items()}
+        chunk, pchunk = eng.chunk, eng.prefill_chunk
+    check(launches > 0, "serving launched no dequant_decode kernel")
     check(launches % L == 0, f"{launches} dequant_decode launches is not a "
           f"multiple of the {L} layers: a step skipped the kernel")
-    ttft = sorted((r.t_first_token - r.t_submit) * 1e3 for r in reqs)
+    keys = {(pb, min(pchunk, pb - s)) for pb in pbs
+            for s in range(0, pb, pchunk)}
+    captured = stats.get("programs_captured", 0)
+    for st in (stats, stats2):
+        check(st.get("prefill_replays") == st["prefill_chunks"]
+              and st.get("decode_replays") == st["decode_steps"],
+              f"a chunk ran outside a graph replay: {st}")
+    check(traces["serving_prefill"] == len(keys)
+          and captured == sum(traces.values()),
+          f"captures {captured}, traces {traces}: not one per key "
+          f"({len(keys)} prefill keys)")
+    check(traces2 == traces and stats2["programs_captured"] == captured,
+          f"the second burst traced again: {traces2} after {traces}")
+    steps = sum(pbs) + stats["decode_steps"] * chunk
+    check(launches == L * (steps + captured),
+          f"{launches} dequant_decode launches, not {L} x ({steps} steps "
+          f"replayed + {captured} one-step warm-ups)")
+    steps2 = sum(pbs) + (stats2["decode_steps"] - stats["decode_steps"]) \
+        * chunk
+    check(launches2 == L * steps2,
+          f"second burst: {launches2} dequant_decode launches, not {L} x "
+          f"{steps2} steps replayed")
     print(f"serving base int8_kv slots=8: 8 requests x 128 tokens in "
           f"{wall:.2f} s = {8 * 128 / wall:.1f} tokens/s; TTFT ms median "
           f"{ttft[len(ttft) // 2]:.1f} max {ttft[-1]:.1f}; dequant_decode "
-          f"launches {launches} ({launches // L} steps x {L} layers); "
+          f"launches {launches} ({launches // L} steps x {L} layers: "
+          f"{steps} replayed, {captured} warm-up); "
           f"kv_dtype {stats['kv_dtype']}, "
           f"kv_bytes_resident {stats['kv_bytes_resident']}, prefills "
           f"{stats.get('prefills')}, prefill_chunks "
           f"{stats.get('prefill_chunks')}, decode_steps "
           f"{stats.get('decode_steps')}", flush=True)
-    return launches
+    print(f"serving programs: {captured} captured ({traces['serving_prefill']}"
+          f" prefill keys (PB, csize), {traces['serving_decode']} decode keys "
+          f"(slots, TOT, chunk)) in {stats.get('capture_ms_total', 0):.1f} ms"
+          f" ({stats.get('capture_record_ms_total', 0):.1f} ms of it running"
+          f" the bodies under capture, the rest warm-up and instantiation)"
+          f"; replays: prefill {stats.get('prefill_replays')}, decode "
+          f"{stats.get('decode_replays')}; peak memory allocated {peak} "
+          f"bytes ({peak - mem0} above the {mem0} held before), reserved "
+          f"{reserved}", flush=True)
+    print(f"serving second burst (other prompts, same lengths, same engine: "
+          f"no capture): {wall2:.2f} s = {8 * 128 / wall2:.1f} tokens/s; TTFT"
+          f" ms median {ttft2[len(ttft2) // 2]:.1f} max {ttft2[-1]:.1f}; "
+          f"replays: prefill "
+          f"{stats2['prefill_replays'] - stats['prefill_replays']}, decode "
+          f"{stats2['decode_replays'] - stats['decode_replays']}; "
+          f"dequant_decode launches {launches2} ({steps2} steps x {L} "
+          f"layers)", flush=True)
+    return launches, L * steps
 
 
 def phase_profile(torch, model, serving):
     """Where the serving time goes: two of the burst's requests (prompts of
-    170 and 250 tokens, 128 new) again under ``torch.profiler`` (device
-    activity only; the profiler's processing grows with the kernel count,
-    so the window is kept short), reporting the device's busy share of the
-    run's wall time, the kernels that take it, and K5's launches and mean
-    device time per launch (its kernels' names hold ``dequant_``)."""
+    170 and 250 tokens, 128 new) through one engine twice: the first wave
+    captures its programs, the second replays them under
+    ``torch.profiler`` (device activity only; the profiler's processing
+    grows with the kernel count, so the window is kept short; no prefix
+    cache, so the second wave prefills in full). Reports the
+    device's busy share of the second wave's wall time, the kernels that
+    take it, and K5's launches and mean device time per launch (its
+    kernels' names hold ``dequant_``)."""
     from torch.profiler import ProfilerActivity, profile
     prompts = serving_prompts(torch)[2:4]
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with serving.ServingEngine(model, slots=8, quant="int8_kv",
+                               prefix_cache_mb=0) as eng:
         t0 = time.monotonic()
-        with serving.ServingEngine(model, slots=8, quant="int8_kv") as eng:
+        for r in [eng.submit(p, 128) for p in prompts]:
+            r.result(timeout=900)
+        first_ms = (time.monotonic() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
             for r in [eng.submit(p, 128) for p in prompts]:
                 r.result(timeout=900)
-        torch.cuda.synchronize()
-        wall_us = (time.monotonic() - t0) * 1e6
+            torch.cuda.synchronize()
+            wall_us = (time.monotonic() - t0) * 1e6
+        stats = eng.stats()
     by_name, k5 = {}, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -789,6 +887,11 @@ def phase_profile(torch, model, serving):
                 n, tot = k5.get(e.name, (0, 0.0))
                 k5[e.name] = (n + 1, tot + us)
     busy = sum(by_name.values())
+    captured = stats.get("programs_captured")
+    print(f"profile serving: first wave (captures {captured} programs in "
+          f"{stats.get('capture_ms_total', 0):.1f} ms) {first_ms:.1f} ms; "
+          f"second wave (2 x 128, replays only, profiler on) "
+          f"{wall_us / 1e3:.1f} ms", flush=True)
     if not busy:
         print("profile: the profiler recorded no device time", flush=True)
         return
@@ -801,6 +904,111 @@ def phase_profile(torch, model, serving):
     for name, (n, us) in sorted(k5.items()):
         print(f"profile K5: {n} launches, mean {us / n:.3f} us, "
               f"{us / busy:.3f} of device time: {name[:90]}", flush=True)
+
+
+def drive_programs(torch, kv, model, spec, reqs, replay):
+    """A short serving trace straight through the chunk programs, as the
+    engine runs them: each request prefills through a PB = 64 page in two
+    32-position chunks (the first with every cursor in K5's chunk 0 of the
+    split page), is merged into its slot of an (8 slots, TOT = 128) cache,
+    and the batch then decodes three 8-step chunks with the six other
+    slots empty (cursors at 0). ``replay``: each call replays the
+    program's graph; else each runs its ``body`` with a host sync made an
+    error. Returns the tokens, the cache, the page and the programs."""
+    import numpy as np
+    dev = torch.device("cuda")
+    caches = kv.empty_cache(model, 8, 128, quant=spec, device=dev)
+    page = kv.empty_page(model, 64, quant=spec, device=dev)
+    pool = torch.cuda.graph_pool_handle()
+    params = model._gen_params()
+    pre = kv.build_prefill_chunk(model, params, page, 64, 32, spec, pool)
+    dec = kv.build_decode(model, params, caches, 8, 128, 8, spec, pool)
+
+    def call(prog, *args):
+        if replay:
+            return prog(*args)
+        prog.state.copy_(torch.from_numpy(prog.pack(*args)))
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            prog.body()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return prog.unpack(prog.out.cpu().numpy())
+
+    z = lambda dt=np.int64: np.zeros(8, dt)          # noqa: E731
+    tok, p, active, limit, topk, seed = z(), z(), z(bool), z(), z(), z()
+    temp = z(np.float32)
+    tokens = []
+    for slot, (prompt, tm, k, sd) in enumerate(reqs):
+        kv.reset_page(page)
+        padded = np.zeros(64, np.int64)
+        padded[:len(prompt)] = prompt
+        prev = 0
+        for start in (0, 32):
+            outs = call(pre, padded, len(prompt), start, prev, tm, k, sd)
+            prev = int(outs[-1])
+            tokens.append(outs.tolist())
+        kv.merge_page(caches, page, slot)
+        tok[slot], p[slot], limit[slot], active[slot] = prev, 64, 100, True
+        temp[slot], topk[slot], seed[slot] = tm, k, sd
+    for _ in range(3):
+        tok, p, toks, lives = call(dec, tok, p, active, limit, temp, topk,
+                                   seed)
+        tokens.append(np.where(lives, toks, -1).tolist())
+    torch.cuda.synchronize()
+    return tokens, caches, page, (pre, dec)
+
+
+def phase_programs(torch, lm, serving, quant_attention, counts):
+    """The serving programs on the card: base width, 2 layers, int8 KV, a
+    greedy and a sampled request (``drive_programs``) once through graph
+    replays and once through each program's body. Tokens must be equal
+    exactly, and the final cache's and page's bytes and scales bit-equal;
+    every chunk of the replayed run must be a replay, and K5's launches
+    there exactly L x (steps replayed + one warm-up step a program)."""
+    from mxtpu_torch.quant import kv_quant
+    from mxtpu_torch.quant.serve import parse_quant
+    kv = serving.kv
+    spec = parse_quant("int8_kv")
+    model = lm.transformer_lm("base", vocab_size=50257, num_layers=2, seed=7)
+    g = torch.Generator().manual_seed(8)
+    reqs = [(torch.randint(0, 50257, (n,), generator=g).tolist(), tm, k, sd)
+            for n, tm, k, sd in ((40, 0.0, 0, 0), (50, 0.8, 40, 11))]
+    L = len(model.blocks)
+    with torch.inference_mode():
+        counts(0)
+        t0 = time.monotonic()
+        got, caches, page, progs = drive_programs(torch, kv, model, spec,
+                                                  reqs, True)
+        replay_s = time.monotonic() - t0
+        launches = quant_attention.dequant_decode.launches
+        t0 = time.monotonic()
+        ref, caches_ref, page_ref, _ = drive_programs(torch, kv, model, spec,
+                                                      reqs, False)
+        eager_s = time.monotonic() - t0
+    calls = [len(reqs) * 2, 3]
+    check([prog.replays for prog in progs] == calls,
+          f"replays {[prog.replays for prog in progs]}, calls {calls}: a "
+          f"chunk ran outside a replay")
+    steps = len(reqs) * 64 + 3 * 8
+    check(launches == L * (steps + len(progs)),
+          f"replayed run: {launches} dequant_decode launches, not {L} x "
+          f"({steps} steps + {len(progs)} warm-up steps)")
+    check(got == ref, f"graph-replayed tokens differ from the bodies': "
+          f"{got} vs {ref}")
+    for name, a, b in (("cache", caches, caches_ref),
+                       ("page", page, page_ref)):
+        check(torch.equal(kv_quant.raw(a.data), kv_quant.raw(b.data))
+              and torch.equal(a.scale, b.scale),
+              f"the {name}'s bytes or scales differ between replay and body")
+    print(f"serving programs card parity (base width, {L} layers, int8 KV, "
+          f"prefill PB 64 in 2 chunks of 32 then 3 decode chunks of 8 at "
+          f"slots 8 TOT 128, one greedy and one sampled request): tokens "
+          f"equal, cache and page bytes and scales bit-equal, replay "
+          f"{replay_s:.2f} s (captures {sum(p.capture_ms for p in progs):.1f}"
+          f" ms) vs bodies {eager_s:.2f} s; every chunk a replay; K5 "
+          f"launches {launches} = {L} x ({steps} + {len(progs)}); the sampled "
+          f"request's last prefill tokens {got[3][-8:]}", flush=True)
 
 
 def phase_card_vs_cpu(torch, lm, serving):
@@ -1590,7 +1798,7 @@ def run():
     from mxtpu_torch.gluon.model_zoo import transformer as lm
     from mxtpu_torch.ops import attention, quant_attention
     from mxtpu_torch.quant import kv_quant
-    from mxtpu_torch import optimizer, parallel, serving
+    from mxtpu_torch import optimizer, parallel, serving, step_cache
     from mxtpu_torch.gluon import loss as loss_mod
     import mxtpu_torch as mx
 
@@ -1627,12 +1835,15 @@ def run():
     k5 = timed_phase("K5 checks", phase_k5, torch, quant_attention, kv_quant)
     model, k1_launches = timed_phase("forward", phase_forward, torch, lm,
                                      attention, counts)
-    k5_launches = timed_phase("serving", phase_serving, torch, model,
-                              serving, quant_attention, counts)
+    k5_launches, k5_replayed = timed_phase(
+        "serving", phase_serving, torch, model, serving, quant_attention,
+        step_cache, counts)
     timed_phase("profile", phase_profile, torch, model, serving)
     del model
     torch.cuda.empty_cache()
     timed_phase("card vs CPU", phase_card_vs_cpu, torch, lm, serving)
+    timed_phase("serving programs", phase_programs, torch, lm, serving,
+                quant_attention, counts)
     bwd = timed_phase("K2/K3/K4 checks", phase_bwd, torch, attention)
     train_launches = timed_phase("train", phase_train, torch, lm, attention,
                                  optimizer, loss_mod, parallel, counts)
@@ -1686,7 +1897,7 @@ def run():
         dict(name="dequant_decode", route="cuda",
              source="mxtpu_torch/csrc/dequant_decode.cu",
              replaces="mxtpu/ops/quant_attention.py:99", path="serving",
-             launches=k5_launches, **k5),
+             launches=k5_launches, launches_in_replays=k5_replayed, **k5),
         dict(name="rtc saxpy", route="nvrtc", source="mxtpu_torch/rtc.py",
              kernel_source="chip_smoke.py:SAXPY_SRC",
              replaces="mxtpu/rtc.py:47", path="K6 checks, saxpy at 2^26",

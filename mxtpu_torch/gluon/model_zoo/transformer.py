@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -31,20 +30,36 @@ from ...context import resolve_device
 from ..contrib.nn import MultiHeadAttention
 from ..nn.basic_layers import Dense, Embedding, LayerNorm
 
-__all__ = ["TransformerBlock", "TransformerLM", "transformer_lm"]
+__all__ = ["TransformerBlock", "TransformerLM", "transformer_lm",
+           "sample_bits"]
 
 _NEG_INF = -1e30
 
 
-def _sample_seed(seed: int, pos: int) -> int:
-    """A 64-bit generator seed for (request seed, absolute position)
-    (splitmix64 finaliser), so a sampled stream is a pure function of the
-    request and never of its slot."""
-    z = ((int(seed) << 32) ^ int(pos)) + 0x9E3779B97F4A7C15
-    z &= (1 << 64) - 1
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & ((1 << 64) - 1)
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & ((1 << 64) - 1)
-    return z ^ (z >> 31)
+def _u64(x: int) -> int:
+    """The int64 that holds the bits of the unsigned 64-bit ``x``."""
+    return x - (1 << 64) if x >= 1 << 63 else x
+
+
+_GOLDEN, _MIX1, _MIX2 = (_u64(0x9E3779B97F4A7C15), _u64(0xBF58476D1CE4E5B9),
+                         _u64(0x94D049BB133111EB))
+
+
+def _shr(z, k: int):
+    """Logical right shift by ``k`` of int64 tensors read as uint64."""
+    return (z >> k) & ((1 << (64 - k)) - 1)
+
+
+def sample_bits(seed, pos):
+    """64 random bits for each (request seed, absolute position): the
+    splitmix64 finaliser of ``(seed mod 2^32) << 32 ^ pos`` on int64
+    tensors, whose wrapping arithmetic holds the uint64 bits. It runs where
+    the tensors lie, so a sampled stream is a pure function of the request
+    and never of its slot, and reading it needs no host."""
+    z = (((seed & 0xFFFFFFFF) << 32) ^ pos) + _GOLDEN
+    z = (z ^ _shr(z, 30)) * _MIX1
+    z = (z ^ _shr(z, 27)) * _MIX2
+    return z ^ _shr(z, 31)
 
 
 class TransformerBlock(nn.Module):
@@ -204,33 +219,38 @@ class TransformerLM(nn.Module):
         return step
 
     def serving_sample(self):
-        """Per-slot next-token selection for the serving loops: returns
-        ``sample(logits (S, V), temp, topk, seed, pos) -> (S,)`` tokens on
-        the logits' device, where ``temp``/``topk``/``seed``/``pos`` are
-        (S,) host arrays.
+        """Per-slot next-token selection for the serving programs: returns
+        ``sample(logits (S, V), temp, topk, seed, pos) -> (S,)`` tokens,
+        where ``temp`` (f32), ``topk``, ``seed`` and ``pos`` (int64) are
+        (S,) tensors on the logits' device. Every slot runs the same ops
+        and nothing is read back, so one captured program serves any mix
+        of greedy and sampled slots.
 
-        ``temp[s] == 0`` is plain argmax (the first maximum, as JAX's);
-        ``temp[s] > 0`` samples the temperature-scaled, top-k-masked logits
-        with a ``torch.Generator`` keyed on ``(seed[s], pos[s])``, so a
-        request's stream is deterministic whatever slot or chunk it rode.
-        The stream cannot equal the reference's threefry stream.
-        ``topk[s] <= 0`` means no truncation; ties at the k-th logit are
-        all kept."""
+        ``temp[s] == 0`` is plain argmax (the first maximum, as JAX's).
+        ``temp[s] > 0`` draws from the softmax of the temperature-scaled
+        logits that reach the top k (``topk[s] <= 0``: all; ties at the
+        k-th logit are all kept) by inverse CDF over the logits sorted
+        (stably) in descending order, with one uniform from
+        :func:`sample_bits` ``(seed[s], pos[s])``: a request's stream
+        depends only on its logits, seed and absolute position. It cannot
+        equal the reference's threefry stream."""
         V = self._vocab
 
         def sample(logits, temp, topk, seed, pos):
-            out = torch.argmax(logits, dim=-1)
-            for s in np.flatnonzero(np.asarray(temp) > 0):
-                lg = logits[s].float()
-                k = int(topk[s])
-                kk = V if k <= 0 else min(max(k, 1), V)
-                thresh = torch.sort(lg).values[V - kk]
-                masked = lg.masked_fill(lg < thresh, float("-inf"))
-                probs = torch.softmax(masked / max(float(temp[s]), 1e-6), -1)
-                g = torch.Generator(device=logits.device)
-                g.manual_seed(_sample_seed(int(seed[s]), int(pos[s])))
-                out[s] = torch.multinomial(probs, 1, generator=g)[0]
-            return out
+            greedy = torch.argmax(logits, dim=-1)
+            vals, order = torch.sort(logits.float(), dim=-1, descending=True,
+                                     stable=True)
+            k = torch.where(topk <= 0, V, topk).clamp(1, V)
+            kept = (vals >= vals.gather(1, (k - 1)[:, None])).sum(
+                -1, keepdim=True)                # a prefix of the sorted row
+            col = torch.arange(V, device=logits.device)
+            x = torch.where(col < kept, vals / temp.clamp_min(1e-6)[:, None],
+                            float("-inf"))
+            cdf = torch.cumsum(torch.softmax(x, dim=-1), dim=-1)
+            u = _shr(sample_bits(seed, pos), 40).float() * 2.0 ** -24
+            pick = (cdf <= u[:, None] * cdf[:, -1:]).sum(-1, keepdim=True)
+            sampled = order.gather(1, torch.minimum(pick, kept - 1))[:, 0]
+            return torch.where(temp > 0, sampled, greedy)
 
         return sample
 

@@ -25,8 +25,9 @@ from typing import Optional, Tuple
 import torch
 
 __all__ = ["QuantKV", "KV_MODES", "quantize_rows", "dequantize_rows", "raw",
-           "empty", "empty_page", "promote", "merge_page", "slot_page",
-           "install_rows", "block_slice", "cache_nbytes", "page_nbytes"]
+           "empty", "empty_page", "reset", "promote", "merge_page",
+           "slot_page", "install_rows", "block_slice", "cache_nbytes",
+           "page_nbytes"]
 
 # mode -> (storage dtype, max representable magnitude the scale maps onto)
 KV_MODES = {"int8": (torch.int8, 127.0),
@@ -113,6 +114,18 @@ def empty_page(L: int, H: int, D: int, PB: int, dtype=torch.float32,
                quant: Optional[str] = None, device=None):
     """A fresh single-request prefill page ``(L, 2, 1, H, PB, D)``."""
     return empty((L, 2, 1, H, PB, D), dtype, quant, device)
+
+
+def reset(page):
+    """Return a cache or page, in place, to the fresh state of
+    :func:`empty`: zero data, and unit scales for a :class:`QuantKV` (the
+    serving engine reuses one prefill page per prompt bucket)."""
+    if not isinstance(page, QuantKV):
+        page.zero_()
+        return page
+    raw(page.data).zero_()
+    page.scale.fill_(1.0)
+    return page
 
 
 def _grow(t: torch.Tensor, TOT_new: int, axis: int) -> torch.Tensor:

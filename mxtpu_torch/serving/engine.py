@@ -19,6 +19,17 @@ slot batch:
    token, position, active flag, limit and sampling state. Finished,
    cancelled and expired requests retire at chunk boundaries.
 
+Each prefill chunk and decode chunk runs as a
+:class:`~mxtpu_torch.serving.kv.ChunkProgram`, held in the
+``ProgramCache``s ``serving_prefill`` (keyed ``(PB, csize)``) and
+``serving_decode`` (keyed ``(slots, TOT, chunk)``) as the reference holds
+its compiled programs: on the card each is captured once as a CUDA graph
+(all of an engine's graphs share one memory pool) and replayed for every
+later chunk, with one host-to-device copy of the chunk's state and one
+readback; on the CPU its body runs eagerly. The prefill programs of one
+prompt bucket share one page, which admission resets; the decode program
+holds the engine's cache, so a promotion (new cache tensors) evicts it.
+
 Under ``quant="int8_kv"`` (or ``"fp8_kv"``) the cache is quantized and
 every prefill and decode step reads attention through the dequant-decode
 kernel on every layer. Greedy output is the default; it does not depend on
@@ -37,6 +48,7 @@ import torch
 
 from ..context import resolve_device
 from ..quant.serve import parse_quant, quantize_lm
+from ..step_cache import ProgramCache
 from . import kv
 from .api import (CANCELLED, DONE, EXPIRED, RUNNING, QueueFullError,
                   ServingConfig, ServingRequest)
@@ -95,6 +107,10 @@ class ServingEngine:
         self._kv_dtype_str = self._quant.kv or \
             str(self._kv_dtype).replace("torch.", "")
         self._submit_q: "queue.Queue" = queue.Queue(maxsize=self.queue_depth)
+        self._decode_fns = ProgramCache("serving_decode")
+        self._prefill_fns = ProgramCache("serving_prefill")
+        self._pages: dict = {}      # PB -> the prefill programs' page
+        self._pool = None           # the programs' graph memory pool
         self._start_lock = threading.Lock()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -131,7 +147,11 @@ class ServingEngine:
         """Counters of this engine: ``kv_dtype``, ``kv_bytes_resident``,
         ``prefills``, ``prefill_chunks``, ``decode_steps`` (decode chunks
         run), ``decode_tokens``, ``tokens_out``, ``completed``, the prefix
-        cache's hits and inserts, and the last TTFT split."""
+        cache's hits and inserts, the last TTFT split, and on the card
+        ``programs_captured``, ``capture_ms_total`` (of which
+        ``capture_record_ms_total`` ran the bodies under capture) and the
+        chunks run as graph replays (``prefill_replays``,
+        ``decode_replays``)."""
         with self._stats_lock:
             return dict(self._stats)
 
@@ -141,6 +161,8 @@ class ServingEngine:
             if self._thread is not None:
                 return self
             self._params = quantize_lm(self._model, self._quant)
+            if self.device.type == "cuda" and self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
             if self._prefix is None and self.prefix_cache_mb > 0:
                 self._prefix = kv.PrefixCache(
                     kv.block_nbytes(self._model, self._kv_dtype, self._quant),
@@ -250,18 +272,23 @@ class ServingEngine:
 
     def _begin_prefill(self, req: ServingRequest, slot: int,
                        now: float) -> None:
-        """Admission, phase one: copy the bucket-padded prompt to the card,
-        seed the page with any cached prefix rows, and park the prefill
-        cursor at the first position that still needs computing."""
+        """Admission, phase one: pad the prompt to its bucket, reset the
+        bucket's page and seed it with any cached prefix rows, and park the
+        prefill cursor at the first position that still needs
+        computing."""
         t0 = len(req.prompt)
         PB = kv.bucket32(t0, self._model._max_len)
-        padded = np.zeros((1, PB), np.int64)
-        padded[0, :t0] = req.prompt
+        padded = np.zeros(PB, np.int64)
+        padded[:t0] = req.prompt
         req._set_state(RUNNING)
         self._record("admitted")
         self._record("queue_wait_ms_last", (now - req.t_submit) * 1e3)
-        page = kv.empty_page(self._model, PB, self._kv_dtype, self._quant,
-                             self.device)
+        page = self._pages.get(PB)
+        if page is None:
+            page = self._pages[PB] = kv.empty_page(
+                self._model, PB, self._kv_dtype, self._quant, self.device)
+        else:
+            kv.reset_page(page)
         m = 0
         # only forced prompt positions are reusable: the last prompt
         # position seeds the feedback chain and is recomputed
@@ -278,12 +305,11 @@ class ServingEngine:
         temp, topk, seed = _req_sampling(req)
         # resume from the last whole block: a partial-block hit re-feeds its
         # tail as an identical rewrite (K/V at p depends on tokens 0..p)
-        self._pf = {"req": req,
-                    "prompt": torch.from_numpy(padded).to(self.device),
-                    "page": page, "t": m - m % kv.PrefixCache.BLOCK,
-                    "prev": 0, "t0": t0, "PB": PB, "left": req.max_new,
-                    "slot": slot, "t_start": now, "temp": temp,
-                    "topk": topk, "seed": seed}
+        self._pf = {"req": req, "prompt": padded, "page": page,
+                    "t": m - m % kv.PrefixCache.BLOCK, "prev": 0, "t0": t0,
+                    "PB": PB, "left": req.max_new, "slot": slot,
+                    "t_start": now, "temp": temp, "topk": topk,
+                    "seed": seed}
 
     def _prefill_chunk(self) -> None:
         """Admission, phase two (repeated): advance the prefill by one
@@ -300,16 +326,15 @@ class ServingEngine:
             return
         start = pf["t"]
         csize = min(self.prefill_chunk, pf["PB"] - start)
-        fn = kv.build_prefill_chunk(self._model, pf["PB"], csize,
-                                    quant=self._quant)
-        prev = torch.tensor([pf["prev"]], dtype=torch.long,
-                            device=self.device)
-        page, outs = fn(self._params, pf["page"], pf["prompt"], pf["t0"],
-                        start, prev, np.array([pf["temp"]]),
-                        np.array([pf["topk"]]), np.array([pf["seed"]]))
-        outs_np = outs.cpu().numpy()
+        prog = self._prefill_fns.get_or_build(
+            (pf["PB"], csize), lambda: kv.build_prefill_chunk(
+                self._model, self._params, pf["page"], pf["PB"], csize,
+                quant=self._quant, pool=self._pool))
+        outs_np = self._run_program(
+            prog, "prefill_replays", pf["prompt"], pf["t0"], start,
+            pf["prev"], pf["temp"], pf["topk"], pf["seed"])
         self._record("prefill_chunks")
-        pf["page"] = page
+        page = pf["page"]
         pf["t"] = start + csize
         pf["prev"] = int(outs_np[-1])
         # outs[j] is the token FOR position start+j+1; generated tokens are
@@ -374,6 +399,8 @@ class ServingEngine:
                                           self._kv_dtype, self._quant,
                                           self.device)
         elif need > self._TOT:
+            # the program over the old tensors can never run again
+            self._decode_fns.evict((self.slots, self._TOT, self.chunk))
             self._caches = kv.promote(self._caches, need)
             self._record("kv_promotions")
         else:
@@ -383,15 +410,13 @@ class ServingEngine:
 
     def _decode_chunk(self) -> None:
         t_dispatch = time.monotonic()
-        fn = kv.build_decode(self._model, self.slots, self._TOT, self.chunk,
-                             quant=self._quant)
-        self._caches, p, toks, lives = fn(
-            self._params, self._caches, self._tok, self._p, self._active,
+        key = (self.slots, self._TOT, self.chunk)
+        prog = self._decode_fns.get_or_build(key, lambda: kv.build_decode(
+            self._model, self._params, self._caches, *key, quant=self._quant,
+            pool=self._pool))
+        self._tok, self._p, toks_np, lives = self._run_program(
+            prog, "decode_replays", self._tok, self._p, self._active,
             self._limit, self._temp, self._topk, self._seed)
-        toks_np = toks.cpu().numpy()
-        self._p = p
-        for j in range(len(lives)):
-            self._tok = np.where(lives[j], toks_np[j], self._tok)
         now = time.monotonic()
         self._record("decode_steps")
         emitted = 0
@@ -412,6 +437,18 @@ class ServingEngine:
             self._record("tokens_out", emitted)
             self._record("decode_tokens", emitted)
             self._record("decode_ms_total", (now - t_dispatch) * 1e3)
+
+    def _run_program(self, prog: kv.ChunkProgram, replays: str, *args):
+        """Run one chunk program; count its capture and its replay."""
+        fresh = prog.graph is None
+        out = prog(*args)
+        if prog.graph is not None:
+            self._record(replays)
+            if fresh:
+                self._record("programs_captured")
+                self._record("capture_ms_total", prog.capture_ms)
+                self._record("capture_record_ms_total", prog.record_ms)
+        return out
 
     def _retire(self, slot: int, state: str, now: float,
                 error: Optional[BaseException] = None) -> None:

@@ -1,4 +1,4 @@
-"""Bucketed KV-cache admission — the paged-memory half of the serving engine.
+"""Bucketed KV-cache admission and the serving chunk programs.
 
 Port of ``mxtpu/serving/kv.py``. The decode loop runs over one
 ``(L, 2, slots, H, TOT, D)`` cache (a float tensor, or a
@@ -22,25 +22,33 @@ Step semantics (shared with ``generate``): feeding position ``p`` consumes
 the token at ``p``, writes its K/V at ``p`` and emits the token for
 ``p + 1``; a slot is live while ``p < limit`` with ``limit = total - 1``.
 
-Where the reference compiles one ``lax.scan`` per bucket, the port loops
-the step in Python. Positions live on the host (they never depend on
-sampled tokens), so the loops copy nothing to the card per step and wait
-for it only when the caller reads the tokens.
+Where the reference compiles each chunk's ``lax.scan`` into one program,
+the port builds a :class:`ChunkProgram`: a body of a fixed number of steps
+whose per-chunk values (positions, tokens, flags, sampling state) live in
+one device buffer and whose page or cache is fixed at build. On the card
+the body is captured once as a CUDA graph and every chunk replays it; on
+the CPU the body runs eagerly.
 """
 
 from __future__ import annotations
 
+import time
 from collections import OrderedDict
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..ops import quant_attention
 from ..quant import kv_quant as qkv
 
-__all__ = ["bucket32", "cache_dims", "empty_cache", "empty_page", "promote",
-           "merge_page", "install_rows", "cache_nbytes", "block_nbytes",
+__all__ = ["bucket32", "cache_dims", "empty_cache", "empty_page",
+           "reset_page", "promote", "merge_page", "install_rows",
+           "cache_nbytes", "block_nbytes", "ChunkProgram",
            "build_prefill_chunk", "build_decode", "PrefixCache"]
+
+# kernel wrappers whose ``launches`` count what a replay runs
+_COUNTED = (quant_attention.dequant_decode,)
 
 
 def _kv_mode(quant) -> Optional[str]:
@@ -85,6 +93,11 @@ def empty_page(model, PB: int, dtype=torch.float32, quant=None,
     return qkv.empty_page(L, H, D, PB, dtype, _kv_mode(quant), device)
 
 
+def reset_page(page):
+    """Return a page, in place, to the fresh state of :func:`empty_page`."""
+    return qkv.reset(page)
+
+
 def promote(caches, TOT_new: int):
     """Zero-pad the cache into a bigger TOT bucket (content-preserving)."""
     return qkv.promote(caches, TOT_new)
@@ -112,76 +125,187 @@ def block_nbytes(model, dtype=torch.float32, quant=None) -> int:
                            _kv_mode(quant))
 
 
-def build_prefill_chunk(model, PB: int, csize: int, quant=None):
-    """One B=1 prefill chunk over (prompt bucket ``PB``, ``csize``
-    positions): loops the step over positions ``start .. start+csize-1``,
-    forcing prompt tokens while ``t < t0`` and feeding back the sampled
-    token beyond. The cross-chunk carry is ``(page, prev token)``, so
-    chunks run back to back reproduce one unbroken loop token for token.
+# ---------------------------------------------------------------------------
+# chunk programs
+# ---------------------------------------------------------------------------
 
-    Returns ``prefill(params, page, prompt (1, PB) device tensor, t0,
-    start, prev (1,) device tensor, temp, topk, seed (1,) host arrays) ->
-    (page, outs (csize,) device tensor)`` where ``outs[j]`` is the token for
-    position ``start + j + 1``."""
+
+class ChunkProgram:
+    """One serving chunk as a program, the counterpart of the reference's
+    jitted ``lax.scan``.
+
+    ``body(steps)`` runs the first ``steps`` steps of the chunk eagerly
+    (all of them by default): it reads the chunk's values from the static
+    ``state`` buffer (float64, which holds every token, position and seed
+    exactly), updates the page or cache it was built over in place, and
+    writes its results into the static ``out`` buffer. ``pack`` turns a
+    call's arguments into the host array that ``state`` takes, ``unpack``
+    turns ``out`` read back to the host into the call's results.
+
+    A call (:meth:`__call__`) on CUDA buffers copies the packed state in
+    with one host-to-device copy, replays the chunk's CUDA graph and reads
+    ``out`` back once. The first call captures the graph after a one-step
+    warm-up of ``body`` on a side stream (it builds K5 and fills its
+    per-device cache and cuBLAS's handles; rewriting a step's K/V row from
+    the same state writes the same bytes, so the replay that follows gives
+    what it would have given alone). Capture uses the thread-local error
+    mode and the graph memory ``pool`` given at build; a host sync in
+    the body makes it raise. A replay adds to each counted kernel's
+    ``launches`` the launches that its capture recorded (and that the
+    capture itself does not count). On CPU buffers a call is
+    :meth:`eager`, which on the card is the programs' plain version."""
+
+    def __init__(self, body: Callable, state: torch.Tensor,
+                 out: torch.Tensor, pack: Callable, unpack: Callable,
+                 pool=None):
+        self.body = body
+        self.state = state
+        self.out = out
+        self.pack = pack
+        self.unpack = unpack
+        self.pool = pool
+        self.graph = None
+        self.replays = 0
+        self.capture_ms = 0.0    # warm-up, recording and instantiation
+        self.record_ms = 0.0     # of which the body's run under capture
+        self._launches = ()      # per counted kernel, launches per replay
+        self._host = None        # pinned staging buffer of ``state``
+
+    def eager(self, *args):
+        """The chunk through ``body``, without a graph."""
+        self.state.copy_(torch.from_numpy(self.pack(*args)))
+        self.body()
+        return self.unpack(self.out.to("cpu", copy=True).numpy())
+
+    def __call__(self, *args):
+        if not self.state.is_cuda:
+            return self.eager(*args)
+        if self._host is None:
+            self._host = torch.empty(self.state.shape, dtype=self.state.dtype,
+                                     pin_memory=True)
+        self._host.copy_(torch.from_numpy(self.pack(*args)))
+        self.state.copy_(self._host, non_blocking=True)
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        self.replays += 1
+        for fn, n in zip(_COUNTED, self._launches):
+            fn.launches += n
+        return self.unpack(self.out.cpu().numpy())
+
+    def _capture(self) -> None:
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self.body(1)
+        torch.cuda.current_stream().wait_stream(side)
+        before = [fn.launches for fn in _COUNTED]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool,
+                              capture_error_mode="thread_local"):
+            t1 = time.perf_counter()
+            self.body()
+            self.record_ms = (time.perf_counter() - t1) * 1e3
+        self._launches = tuple(fn.launches - b
+                               for fn, b in zip(_COUNTED, before))
+        for fn, b in zip(_COUNTED, before):
+            fn.launches = b
+        self.graph = graph
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+
+
+def build_prefill_chunk(model, params, page, PB: int, csize: int,
+                        quant=None, pool=None) -> ChunkProgram:
+    """The B=1 prefill chunk program for (prompt bucket ``PB``, ``csize``
+    positions) over ``page``: steps positions ``start .. start+csize-1``,
+    forcing the prompt's token while ``t < t0`` and feeding back the
+    sampled token beyond. The cross-chunk carry is ``(page, prev token)``,
+    so chunks run back to back reproduce one unbroken scan token for
+    token; ``start`` and ``t0`` are values of the state, so one program
+    serves every chunk of its size in the bucket.
+
+    Call: ``prog(prompt (PB,) ints, t0, start, prev, temp, topk, seed) ->
+    outs (csize,)``, where ``outs[j]`` is the token for position ``start +
+    j + 1``; ``page`` is updated in place."""
     step = _step_fn(model, 1, PB, quant)
     sample = model.serving_sample()
+    dev = params["embed"].device
+    state = torch.zeros(6 + PB, dtype=torch.float64, device=dev)
+    out = torch.zeros(csize, dtype=torch.long, device=dev)
 
-    def run(params, page, prompt, t0, start, prev, temp, topk, seed):
+    def body(steps: int = csize):
+        ints = state.long()
+        start, t0, tok, topk, seed = ints[:5].split(1)
+        temp = state[5:6].float()
+        prompt = ints[6:]
         outs = []
-        for t in range(start, start + csize):
-            tok = prompt[:, min(t, PB - 1)] if t < t0 else prev
-            pos = torch.full((1,), t, dtype=torch.long, device=prompt.device)
-            page, logits = step(params, page, tok, pos)
-            prev = sample(logits, temp, topk, seed, np.array([t]))
-            outs.append(prev)
-        return page, torch.cat(outs)
+        for j in range(steps):
+            t = start + j
+            forced = prompt.index_select(0, t.clamp(max=PB - 1))
+            tok = torch.where(t < t0, forced, tok)
+            _, logits = step(params, page, tok, t)
+            tok = sample(logits, temp, topk, seed, t)
+            outs.append(tok)
+        out[:steps].copy_(torch.cat(outs))
 
-    return run
+    def pack(prompt, t0, start, prev, temp, topk, seed):
+        return np.concatenate([[start, t0, prev, topk, seed & 0xFFFFFFFF,
+                                temp], np.asarray(prompt)]).astype(np.float64)
+
+    return ChunkProgram(body, state, out, pack, lambda o: o, pool)
 
 
-def build_decode(model, S: int, TOT: int, chunk: int, quant=None):
-    """Up to ``chunk`` continuous-batching decode steps over all ``S``
-    slots with per-slot token, position, active flag, live limit and
-    sampling state. Per step a slot is live while ``active & (p < limit)``;
-    dead slots freeze (their rewrites land only in their own row). The loop
-    ends early once no slot is live.
+def build_decode(model, params, caches, S: int, TOT: int, chunk: int,
+                 quant=None, pool=None) -> ChunkProgram:
+    """The continuous-batching decode program for (slots ``S``, KV bucket
+    ``TOT``) over ``caches``: ``chunk`` steps over all slots, with each
+    slot's token, position, active flag, live limit and sampling state in
+    the program's state, so requests joining and retiring, and any mix of
+    greedy and sampled slots, reuse it. Per step a slot is live while
+    ``active & (p < limit)``; dead slots freeze (token and position held,
+    their rewrites land only in their own row), and every step runs, as in
+    the reference's scan. A ``temp == 0`` slot decodes greedy argmax
+    whatever its neighbours sample.
 
-    Returns ``decode(params, caches, tok, p, active, limit, temp, topk,
-    seed) -> (caches, p, toks (n, S) device tensor, lives (n, S) host
-    bools)``; every argument but ``params``/``caches`` is an (S,) host
-    array, and the host consumes ``toks[j, s]`` only where ``lives[j, s]``.
-    A ``temp == 0`` slot decodes greedy argmax whatever its neighbours
-    sample."""
+    Call: ``prog(tok, p, active, limit, temp, topk, seed)``, each an (S,)
+    host array, ``-> (tok, p, toks (chunk, S), lives (chunk, S) bool)``;
+    the host consumes ``toks[j, s]`` only where ``lives[j, s]``."""
     step = _step_fn(model, S, TOT, quant)
     sample = model.serving_sample()
+    dev = params["embed"].device
+    state = torch.zeros((7, S), dtype=torch.float64, device=dev)
+    out = torch.zeros((2 * chunk + 2, S), dtype=torch.long, device=dev)
 
-    def run(params, caches, tok, p, active, limit, temp, topk, seed):
-        dev = params["embed"].device
-        p = np.array(p, dtype=np.int64)
-        state = torch.from_numpy(np.stack([np.asarray(tok, np.int64), p,
-                                           np.asarray(active, np.int64),
-                                           np.asarray(limit, np.int64)]))
-        tok_d, p_d, active_d, limit_d = state.to(dev).unbind(0)
-        active_d = active_d.bool()
+    def body(steps: int = chunk):
+        ints = state.long()
+        tok, p, active, limit, topk, seed = ints[:6].unbind(0)
+        temp = state[6].float()
+        active = active > 0
         toks, lives = [], []
-        for _ in range(chunk):
+        for _ in range(steps):
             live = active & (p < limit)
-            if not live.any():
-                break
-            caches, logits = step(params, caches, tok_d, p_d)
+            _, logits = step(params, caches, tok, p)
             nxt = sample(logits, temp, topk, seed, p)
-            live_d = active_d & (p_d < limit_d)
-            tok_d = torch.where(live_d, nxt, tok_d)
-            p_d = torch.where(live_d, p_d + 1, p_d)
-            p = np.where(live, p + 1, p)
+            tok = torch.where(live, nxt, tok)
+            p = torch.where(live, p + 1, p)
             toks.append(nxt)
-            lives.append(live)
-        if not toks:
-            return caches, p, torch.zeros((0, S), dtype=torch.long), \
-                np.zeros((0, S), bool)
-        return caches, p, torch.stack(toks), np.stack(lives)
+            lives.append(live.long())
+        out[:steps].copy_(torch.stack(toks))
+        out[chunk:chunk + steps].copy_(torch.stack(lives))
+        out[2 * chunk].copy_(tok)
+        out[2 * chunk + 1].copy_(p)
 
-    return run
+    def pack(tok, p, active, limit, temp, topk, seed):
+        return np.stack([tok, p, active, limit, topk,
+                         np.asarray(seed) & 0xFFFFFFFF, temp]).astype(
+                             np.float64)
+
+    def unpack(o):
+        return o[2 * chunk], o[2 * chunk + 1], o[:chunk], \
+            o[chunk:2 * chunk].astype(bool)
+
+    return ChunkProgram(body, state, out, pack, unpack, pool)
 
 
 # ---------------------------------------------------------------------------

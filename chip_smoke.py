@@ -60,18 +60,37 @@ Phases, in order; any failure exits non-zero without a result line:
    K4 on a small grid and without the causal mask;
 8. training: ``transformer_lm("flagship", vocab_size=16384)`` in bf16
    (d1024, L8, H16) takes 1 + 24 Adam steps on one fixed (32, 1024) batch
-   through ``DataParallelTrainer(micro_batches=4)``; the loss must fall by
-   0.3 (the learning gate of the JAX package's benchmark) and K1, K2 and
-   K3 must launch once per layer, micro-batch and step, all three on the
-   sm90 route; then one step under ``torch.profiler``;
+   through ``DataParallelTrainer(micro_batches=4)``, whose step is one
+   program: the first step runs its body on a side stream, the second
+   captures it as a CUDA graph, every later step replays it (24 replays);
+   the loss must fall by 0.3 (the learning gate of the JAX package's
+   benchmark), ``data_parallel_step`` must show 1 trace and 24 hits, and
+   K1, K2 and K3 must launch once per layer, micro-batch and step, replays
+   counted, all three on the sm90 route; capture ms, ms/step over the
+   replays, tokens/s, the bf16 FLOP share, peak memory and
+   ``optimizer_state_bytes()``; then one replayed step under
+   ``torch.profiler``;
+8b. the training program against its body: from the same weights, 1 + 3
+   steps through ``step_async`` (body, capture and replay, replays) and 1
+   + 3 through ``eager_step`` (the body each step): losses, weights and
+   optimizer states ``torch.equal``, for the bf16 flagship under Adam
+   (sm90), base width, 2 layers, f32 with dropout 0.1 and ``remat=True``
+   (simt; masks differ between steps) and the bf16 flagship under SGD
+   with momentum, a ``FactorScheduler`` halving lr every step and
+   ``clip_gradient``; then the multi-tensor update
+   (``step_cache.build_update_all``) ``torch.equal`` to the per-tensor one
+   (``build_update_all_plain``) on one step's gradients, in bf16 and f32,
+   under Adam and SGD with momentum;
 9. the fused backward: 3 steps of the same run with the split pair, then 3
    under ``MXTPU_FLASH_BWD=fused``, K4 on the sm90 route; then the same
    for phase 10's f32 model (base width, 2 layers), K4 on the simt route;
    in both the losses and the trained weights equal the split run's bit
-   for bit;
+   for bit (each run captures its program, so the knob is read at
+   capture);
 10. training card against CPU: base width, 2 layers, f32, B=4, T=256; the
-    first batch's gradients, the losses of 3 Adam steps and the weights
-    after them agree; K1, K2 and K3 take the simt route;
+    first batch's gradients, the losses of 3 Adam steps (captured on the
+    card, the body on the CPU) and the weights after them agree; K1, K2
+    and K3 take the simt route;
 11. K6 checks (``rtc``: CUDA C compiled by NVRTC, launched through the
     driver API): saxpy and a gridded tile kernel against ``a*x + y`` and
     ``2*x`` on ``tests/test_rtc.py``'s numbers, a templated ``axpy<T>``
@@ -1090,9 +1109,12 @@ def attention_launches(attention):
                 K4_sm90=attention.flash_bwd_fused.sm90_launches)
 
 
-def phase_train(torch, lm, attention, optimizer, loss_mod, parallel, counts):
+def phase_train(torch, lm, attention, optimizer, loss_mod, parallel,
+                step_cache, counts):
     """The flagship in bf16 memorises one batch (the JAX package's training
-    benchmark); returns the launch counts."""
+    benchmark) through the captured step: the first step runs the body
+    (the warm-up), the second captures the program, every later step
+    replays it; returns the launch counts."""
     model = _flagship(lm)
     L, K = len(model.blocks), TRAIN["micro_batches"]
     B, T, steps = TRAIN["B"], TRAIN["T"], TRAIN["steps"]
@@ -1102,18 +1124,25 @@ def phase_train(torch, lm, attention, optimizer, loss_mod, parallel, counts):
                                        micro_batches=K)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    step_cache.reset_stats("data_parallel_step")
     counts(0)
     t0 = time.monotonic()
     losses = [dpt.step_async(x, y)]
     loss_start = float(losses[0])
     first_s = time.monotonic() - t0
     t0 = time.monotonic()
-    for _ in range(steps):
+    losses.append(dpt.step_async(x, y))     # captures, then replays
+    float(losses[-1])
+    second_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    for _ in range(steps - 1):
         losses.append(dpt.step_async(x, y))
     loss_end = float(losses[-1])             # one readback syncs the chain
     dt = time.monotonic() - t0
     launches = attention_launches(attention)
     peak = torch.cuda.max_memory_allocated()
+    stats = dpt.stats()
+    cache = step_cache.snapshot()["data_parallel_step"]
     losses = [float(v) for v in losses]
     want = L * K * (steps + 1)
     check(all(math.isfinite(v) for v in losses), f"losses {losses}")
@@ -1122,25 +1151,36 @@ def phase_train(torch, lm, attention, optimizer, loss_mod, parallel, counts):
           == launches["K3_sm90"] == want and launches["K4"] == 0,
           f"launches {launches}: want K1 = K2 = K3 = K1_sm90 = K2_sm90 = "
           f"K3_sm90 = {want} (layers {L} x micro-batches {K} x steps "
-          f"{steps + 1}), K4 = 0")
+          f"{steps + 1}, replays counted), K4 = 0")
+    check(cache["traces"] == 1 and cache["hits"] == steps
+          and stats["captured"] == 1 and stats["replays"] == steps,
+          f"data_parallel_step {cache}, trainer {stats}: want 1 trace, "
+          f"{steps} hits, 1 capture and {steps} replays")
     check(loss_end < loss_start - 0.3,
           f"learning gate: loss {loss_start:.4f} -> {loss_end:.4f} (must "
           f"fall by 0.3)")
-    step_ms = dt / steps * 1e3
-    tok_s = steps * B * T / dt
+    step_ms = dt / (steps - 1) * 1e3
+    all_ms = (second_s + dt) / steps * 1e3
+    tok_s = B * T / (step_ms / 1e3)
     V, U, H = TRAIN["vocab"], model._units, model.blocks[0].attn._heads
     p_dense = sum(p.numel() for n, p in model.named_parameters()
                   if "embed" not in n) + V * U      # + the tied head
     pairs = T * (T + 1) // 2
     attn_flops = 3 * 4 * B * H * pairs * (U // H) * L   # fwd + 2x bwd
     flops = 6 * p_dense * B * T + attn_flops
-    print(f"train flagship bf16 d{U} L{L} H{H} B{B} T{T} x{K} Adam(3e-4): "
-          f"loss {loss_start:.4f} -> {loss_end:.4f} over 1 + {steps} steps "
-          f"(gate: fall by 0.3; uniform floor {math.log(V):.2f}); first "
-          f"step {first_s:.2f} s; {step_ms:.2f} ms/step, {tok_s:.1f} "
-          f"tokens/s; max_memory_allocated {peak} bytes; launches "
-          f"{launches} (= {L} x {K} x {steps + 1}); model flops/step "
-          f"{flops:.4e} (6*P*tokens, P={p_dense}, + attention "
+    print(f"train flagship bf16 d{U} L{L} H{H} B{B} T{T} x{K} Adam(3e-4), "
+          f"captured: loss {loss_start:.4f} -> {loss_end:.4f} over 1 + "
+          f"{steps} steps (gate: fall by 0.3; uniform floor "
+          f"{math.log(V):.2f}); first step (the body, on a side stream) "
+          f"{first_s:.2f} s; second step (capture {stats['capture_ms']:.1f} "
+          f"ms, of it recording {stats['record_ms']:.1f} ms, then a replay) "
+          f"{second_s * 1e3:.1f} ms; {steps - 1} replays {step_ms:.2f} "
+          f"ms/step, {tok_s:.1f} tokens/s ({all_ms:.2f} ms/step over the "
+          f"{steps} steps after the first, capture included); "
+          f"max_memory_allocated {peak} bytes; optimizer_state_bytes "
+          f"{dpt.optimizer_state_bytes()}; data_parallel_step {cache}; "
+          f"launches {launches} (= {L} x {K} x {steps + 1}); model "
+          f"flops/step {flops:.4e} (6*P*tokens, P={p_dense}, + attention "
           f"{attn_flops:.4e}) = {flops / (step_ms / 1e3) / 1e12:.1f} "
           f"TFLOP/s = {flops / (step_ms / 1e3) / PEAK_FLOPS['bfloat16']:.4f} "
           f"of the 989 TFLOP/s bf16 peak", flush=True)
@@ -1150,8 +1190,9 @@ def phase_train(torch, lm, attention, optimizer, loss_mod, parallel, counts):
 
 
 def profile_step(torch, dpt, x, y):
-    """One training step under ``torch.profiler`` (device activity): its
-    device-busy share of the wall and its top device operations."""
+    """One training step (a replay) under ``torch.profiler`` (device
+    activity): its device-busy share of the wall and its top device
+    operations."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1178,6 +1219,163 @@ def profile_step(torch, dpt, x, y):
         if rank < 10 or "flash_" in name:
             print(f"  {us / busy:.3f} of device time, {us / 1e3:.1f} ms: "
                   f"{name[:110]}", flush=True)
+
+
+def _trained(torch, dpt, model, batches, eager, hook_masks=False):
+    """``dpt`` over ``batches`` by ``step_async`` (the first step runs the
+    body, the second captures, the rest replay) or ``eager_step`` (the body
+    every step); returns losses, weights, optimizer states and, with
+    ``hook_masks``, each step's dropout masks (recorded by hooks, which
+    run on every eager step)."""
+    masks, step_masks = [], []
+    if hook_masks:
+        for d in model.modules():
+            if type(d).__name__ == "Dropout":
+                d.register_forward_hook(
+                    lambda mod, inp, out: step_masks.append(out == 0))
+    losses = []
+    for x, y in batches:
+        step_masks.clear()
+        losses.append(dpt.eager_step(x, y) if eager else dpt.step_async(x, y))
+        masks.append(list(step_masks))
+    return ([float(v) for v in losses],
+            [p.detach().clone() for p in model.parameters()],
+            [s.clone() for st in dpt._states for s in st], masks)
+
+
+def update_parity(torch, step_cache, optimizer, params, grads, label):
+    """The multi-tensor update (``step_cache.build_update_all``, step values
+    in a device tensor) against the per-tensor one
+    (``build_update_all_plain``, Python floats) on the card: two updates
+    with one step's gradients, under Adam and under SGD with momentum and
+    clip, with mixed lr and wd multipliers; weights and states must be
+    ``torch.equal``."""
+    lr_mults = [(1.0, 0.5, 0.3)[i % 3] for i in range(len(params))]
+    wd_mults = [(1.0, 2.0, 0.7)[i % 3] for i in range(len(params))]
+    for name, make in (
+            ("Adam", lambda: optimizer.Adam(learning_rate=3e-4, wd=1e-2,
+                                            clip_gradient=1e-3)),
+            ("SGD momentum", lambda: optimizer.SGD(
+                learning_rate=0.05, momentum=0.9, wd=1e-2,
+                clip_gradient=1e-4))):
+        opt = make()
+        w = [p.detach().clone() for p in params]
+        st = [opt.create_state(i, p) for i, p in enumerate(w)]
+        upd = step_cache.build_update_all(opt, w, st, lr_mults, wd_mults)
+        plain = step_cache.build_update_all_plain(opt, lr_mults, wd_mults)
+        ref_w = [p.detach().clone() for p in params]
+        ref_st = [opt.create_state(i, p) for i, p in enumerate(ref_w)]
+        for t, lr in ((1, 3e-4), (2, 1.5e-4)):
+            ref_w, ref_st = plain(ref_w, grads, ref_st, lr, opt.wd, 1.0,
+                                  opt.clip_gradient, t)
+            for a, g in zip(upd.grads, grads):
+                a.copy_(g)
+            upd(torch.tensor(upd.values(lr, opt.wd, 1.0, opt.clip_gradient,
+                                        t), dtype=torch.float64,
+                             device=w[0].device))
+        bad = [i for i, (a, b) in enumerate(zip(w, ref_w))
+               if not torch.equal(a, b)]
+        bad_st = [i for i, (a, b) in enumerate(zip(st, ref_st))
+                  if not all(torch.equal(u, v) for u, v in zip(a, b))]
+        check(not bad and not bad_st,
+              f"multi-tensor update ({label}, {name}) vs per-tensor: weights "
+              f"{bad[:5]} and states {bad_st[:5]} of {len(w)} differ (max "
+              f"weight diff "
+              f"{_max_diff(torch, w, ref_w) if bad else 0.0:.3e})")
+        print(f"  multi-tensor update = per-tensor update bit for bit "
+              f"({label}, {name}, {len(w)} tensors in {len(upd.groups)} "
+              f"groups, 2 updates)", flush=True)
+
+
+def phase_train_program(torch, lm, attention, optimizer, lr_scheduler,
+                        loss_mod, parallel, step_cache):
+    """The training program against its body: from the same weights, 1 + 3
+    steps through ``step_async`` (body, capture and replay, replays) and 1
+    + 3 through ``eager_step`` (the body each time); losses, weights and
+    optimizer states must be ``torch.equal``. Legs: the bf16 flagship under
+    Adam (sm90 route); base width, 2 layers, f32 with dropout 0.1 and
+    ``remat=True`` (simt route: finite losses, masks that differ between
+    steps); the bf16 flagship under SGD with momentum, a
+    ``FactorScheduler`` that halves lr every step, and ``clip_gradient``.
+    Then the multi-tensor update against the per-tensor one on one step's
+    gradients, in bf16 and f32."""
+    import numpy as np
+    K = TRAIN["micro_batches"]
+    rs = np.random.RandomState(5)
+    f32_batches = [tuple(torch.from_numpy(a).cuda() for a in (
+        rs.randint(0, 16384, (4, 256)).astype(np.int32),
+        rs.randint(0, 16384, (4, 256)).astype(np.float32)))
+        for _ in range(4)]
+    legs = {
+        "bf16 flagship, Adam (sm90)": (
+            lambda: _flagship(lm),
+            lambda m: parallel.DataParallelTrainer(
+                m, SeqLoss(loss_mod), optimizer.Adam(learning_rate=3e-4),
+                micro_batches=K),
+            [_train_batch(torch)] * 4, False),
+        "f32 base width 2 layers, dropout 0.1, remat (simt)": (
+            lambda: lm.transformer_lm("base", vocab_size=16384, num_layers=2,
+                                      dropout=0.1, seed=11),
+            lambda m: parallel.DataParallelTrainer(
+                m, SeqLoss(loss_mod), optimizer.Adam(learning_rate=1e-3),
+                micro_batches=2, remat=True),
+            f32_batches, True),
+        "bf16 flagship, SGD momentum, FactorScheduler, clip (sm90)": (
+            lambda: _flagship(lm),
+            lambda m: parallel.DataParallelTrainer(
+                m, SeqLoss(loss_mod), optimizer.SGD(
+                    learning_rate=0.5, momentum=0.9, clip_gradient=1e-4,
+                    lr_scheduler=lr_scheduler.FactorScheduler(
+                        step=1, factor=0.5)), micro_batches=K),
+            [_train_batch(torch)] * 4, False),
+    }
+    grads = {}
+    for name, (make_model, make_trainer, batches, dropout) in legs.items():
+        runs = {}
+        for eager in (False, True):
+            model = make_model()
+            dpt = make_trainer(model)
+            runs[eager] = _trained(torch, dpt, model, batches, eager,
+                                   hook_masks=dropout and eager)
+            if not eager:
+                stats = dpt.stats()
+                lrs = dpt.optimizer.learning_rate
+                if name.startswith(("bf16 flagship, Adam", "f32")):
+                    grads[name] = ([p.detach().clone()
+                                    for p in dpt._params],
+                                   [g.clone() for g in dpt._update.grads])
+            del model, dpt
+            torch.cuda.empty_cache()
+        (rl, rw, rst, _), (el, ew, est, masks) = runs[False], runs[True]
+        check(stats["captured"] == 1 and stats["replays"] == 3,
+              f"{name}: trainer {stats}, want 1 capture and 3 replays")
+        check(all(math.isfinite(v) for v in rl), f"{name}: losses {rl}")
+        same_w = all(torch.equal(a, b) for a, b in zip(rw, ew))
+        same_st = all(torch.equal(a, b) for a, b in zip(rst, est))
+        check(rl == el and same_w and same_st,
+              f"{name}: replayed losses {rl} vs body {el}; weights "
+              f"{'equal' if same_w else 'differ'} (max diff "
+              f"{_max_diff(torch, rw, ew):.3e}), optimizer states "
+              f"{'equal' if same_st else 'differ'}: want all bit-equal")
+        extra = ""
+        if dropout:
+            n = len(masks[0])
+            check(n > 0 and all(len(m) == n for m in masks) and all(
+                not torch.equal(a, b) for s, u in zip(masks, masks[1:])
+                for a, b in zip(s, u)),
+                f"{name}: dropout masks must differ between steps "
+                f"({[len(m) for m in masks]} calls a step)")
+            kept = float(torch.stack([(~m).float().mean()
+                                      for s in masks for m in s]).mean())
+            extra = (f"; {n} dropout calls a step (forward and remat's "
+                     f"recompute), masks differ between steps, kept "
+                     f"share {kept:.4f}")
+        print(f"train program vs body, {name}: 1 + 3 steps (capture "
+              f"{stats['capture_ms']:.1f} ms), losses {rl} equal the "
+              f"body's, weights and optimizer states bit-equal; lr after "
+              f"the steps {lrs:g}{extra}", flush=True)
+    for name, (params, g) in grads.items():
+        update_parity(torch, step_cache, optimizer, params, g, name)
 
 
 def _max_diff(torch, a, b):
@@ -1798,7 +1996,8 @@ def run():
     from mxtpu_torch.gluon.model_zoo import transformer as lm
     from mxtpu_torch.ops import attention, quant_attention
     from mxtpu_torch.quant import kv_quant
-    from mxtpu_torch import optimizer, parallel, serving, step_cache
+    from mxtpu_torch import (lr_scheduler, optimizer, parallel, serving,
+                             step_cache)
     from mxtpu_torch.gluon import loss as loss_mod
     import mxtpu_torch as mx
 
@@ -1846,7 +2045,12 @@ def run():
                 quant_attention, counts)
     bwd = timed_phase("K2/K3/K4 checks", phase_bwd, torch, attention)
     train_launches = timed_phase("train", phase_train, torch, lm, attention,
-                                 optimizer, loss_mod, parallel, counts)
+                                 optimizer, loss_mod, parallel, step_cache,
+                                 counts)
+    torch.cuda.empty_cache()
+    timed_phase("train program vs body", phase_train_program, torch, lm,
+                attention, optimizer, lr_scheduler, loss_mod, parallel,
+                step_cache)
     torch.cuda.empty_cache()
     k4_launches = timed_phase("fused", phase_fused, torch, lm, attention,
                               optimizer, loss_mod, parallel, counts)

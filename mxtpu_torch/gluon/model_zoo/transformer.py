@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...context import resolve_device
+from ...rng import sample_bits, uniform
 from ..contrib.nn import MultiHeadAttention
 from ..nn.basic_layers import Dense, Embedding, LayerNorm
 
@@ -34,32 +35,6 @@ __all__ = ["TransformerBlock", "TransformerLM", "transformer_lm",
            "sample_bits"]
 
 _NEG_INF = -1e30
-
-
-def _u64(x: int) -> int:
-    """The int64 that holds the bits of the unsigned 64-bit ``x``."""
-    return x - (1 << 64) if x >= 1 << 63 else x
-
-
-_GOLDEN, _MIX1, _MIX2 = (_u64(0x9E3779B97F4A7C15), _u64(0xBF58476D1CE4E5B9),
-                         _u64(0x94D049BB133111EB))
-
-
-def _shr(z, k: int):
-    """Logical right shift by ``k`` of int64 tensors read as uint64."""
-    return (z >> k) & ((1 << (64 - k)) - 1)
-
-
-def sample_bits(seed, pos):
-    """64 random bits for each (request seed, absolute position): the
-    splitmix64 finaliser of ``(seed mod 2^32) << 32 ^ pos`` on int64
-    tensors, whose wrapping arithmetic holds the uint64 bits. It runs where
-    the tensors lie, so a sampled stream is a pure function of the request
-    and never of its slot, and reading it needs no host."""
-    z = (((seed & 0xFFFFFFFF) << 32) ^ pos) + _GOLDEN
-    z = (z ^ _shr(z, 30)) * _MIX1
-    z = (z ^ _shr(z, 27)) * _MIX2
-    return z ^ _shr(z, 31)
 
 
 class TransformerBlock(nn.Module):
@@ -247,7 +222,7 @@ class TransformerLM(nn.Module):
             x = torch.where(col < kept, vals / temp.clamp_min(1e-6)[:, None],
                             float("-inf"))
             cdf = torch.cumsum(torch.softmax(x, dim=-1), dim=-1)
-            u = _shr(sample_bits(seed, pos), 40).float() * 2.0 ** -24
+            u = uniform(seed, pos)
             pick = (cdf <= u[:, None] * cdf[:, -1:]).sum(-1, keepdim=True)
             sampled = order.gather(1, torch.minimum(pick, kept - 1))[:, 0]
             return torch.where(temp > 0, sampled, greedy)

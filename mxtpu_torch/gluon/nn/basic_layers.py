@@ -7,9 +7,11 @@ uses. Layouts and parameter names follow the reference: ``Dense.weight`` is
 the last axis with eps 1e-5 and the biased variance. Parameters are created
 on ``device`` and filled by the model's seeded initialiser.
 
-Dropout draws its mask from the explicit ``torch.Generator`` in its
-``generator`` attribute; ``DataParallelTrainer`` sets one per micro-batch,
-seeded from the step count.
+Dropout draws its mask from a device seed in its ``seed`` attribute (the
+counter-based :func:`mxtpu_torch.rng.uniform`; ``DataParallelTrainer`` sets
+one per layer and micro-batch from the step it reads on the device, so a
+captured step draws new masks on every replay) or, used directly, from the
+explicit ``torch.Generator`` in its ``generator`` attribute.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ...rng import uniform
 
 __all__ = ["Dense", "Dropout", "Embedding", "LayerNorm"]
 
@@ -72,8 +76,12 @@ class Dropout(nn.Module):
     """Inverted dropout (``mxtpu/ops/nn.py:_dropout``): in training, each
     element is kept with probability ``1 - p`` and scaled by ``1 / (1 -
     p)``, else zeroed; the identity in eval mode or at ``p == 0``. In
-    training the mask comes from ``self.generator``, a ``torch.Generator``
-    on the input's device, which the caller sets."""
+    training the mask comes from ``self.seed`` when it is set: a 0-d int64
+    tensor on the input's device, whose element ``i`` (row-major) is kept
+    where ``uniform(seed, i) < 1 - p``, so the mask is a function of the
+    seed and the element alone and reading it needs no host. Otherwise it
+    comes from ``self.generator``, a ``torch.Generator`` on the input's
+    device. The caller sets one of the two."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -81,14 +89,20 @@ class Dropout(nn.Module):
             raise ValueError(f"dropout rate {rate} is not in [0, 1)")
         self._rate = float(rate)
         self.generator = None
+        self.seed = None
 
     def forward(self, x):
         if not self.training or self._rate == 0.0:
             return x
-        if self.generator is None:
-            raise ValueError("Dropout in training needs a torch.Generator in "
-                             "its .generator (DataParallelTrainer sets one "
-                             "each step)")
         keep = 1.0 - self._rate
-        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        if self.seed is not None:
+            pos = torch.arange(x.numel(), device=x.device).view(x.shape)
+            u = uniform(self.seed, pos)
+        elif self.generator is not None:
+            u = torch.rand(x.shape, generator=self.generator,
+                           device=x.device)
+        else:
+            raise ValueError("Dropout in training needs a device seed in its "
+                             ".seed or a torch.Generator in its .generator "
+                             "(DataParallelTrainer sets a seed each step)")
         return torch.where(u < keep, x / keep, torch.zeros_like(x))

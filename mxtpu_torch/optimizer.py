@@ -6,20 +6,27 @@ with the JAX package's own math (``mxtpu/optimizer.py``), not
 dtype (bf16 weights keep bf16 slots, as the reference's do) and
 ``_kernel(w, g, lr, wd, t, *state)`` is the pure update, returning
 ``(new_weight, *new_state)``. MXNet's Adam puts epsilon outside the square
-root and folds the bias correction into the learning rate. The trainer
+root and folds the bias correction into the learning rate.
+
+``_foreach_kernel`` is the same math on lists of tensors of one dtype, in
+place, with multi-tensor ops (``torch._foreach_*``), bit for bit
+``_kernel``'s: every op rounds where ``_kernel``'s does. Its per-step
+values are 0-d tensors, so one captured program serves every step;
+``_step_values(lr, t)`` computes on the host, in float64, the values that
+``_kernel`` derives from ``lr`` and ``t`` (Adam's ``coef``). The trainer
 applies them through :func:`mxtpu_torch.step_cache.build_update_all`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from .lr_scheduler import LRScheduler
 
-__all__ = ["Optimizer", "SGD", "Adam", "create", "register"]
+__all__ = ["Optimizer", "SGD", "Adam", "create", "register", "scaled"]
 
 _REGISTRY: Dict[str, type] = {}
 
@@ -30,6 +37,23 @@ def register(name: str):
         _REGISTRY[name.lower()] = cls
         return cls
     return deco
+
+
+def scaled(xs: List[torch.Tensor], s: torch.Tensor) -> List[torch.Tensor]:
+    """``x * s`` for each ``x`` of a list of one dtype, with ``s`` a 0-d
+    tensor in that dtype's compute dtype (f32 for bf16 and f32): the
+    product is taken in ``s``'s dtype and rounded once to the list's, as
+    ``x * float(s)`` rounds on either device. Given to a bf16 op as it is,
+    a 0-d CUDA tensor is rounded to bf16 first, which changes the bits.
+
+    A hyperparameter (a Python float, part of the program's key) enters the
+    out-of-place multi-tensor ops as it is: they take it at the compute
+    dtype, as the per-tensor ops do. (On the CPU the in-place ones round it
+    to bf16 first.)"""
+    if xs[0].dtype == s.dtype:
+        return torch._foreach_mul(xs, s)
+    return [y.to(xs[0].dtype) for y in
+            torch._foreach_mul([x.to(s.dtype) for x in xs], s)]
 
 
 def create(name, **kwargs) -> "Optimizer":
@@ -48,8 +72,12 @@ class Optimizer:
                  rescale_grad: float = 1.0,
                  clip_gradient: Optional[float] = None,
                  lr_scheduler: Optional[LRScheduler] = None,
+                 multi_precision: bool = False,
                  param_dict: Optional[dict] = None,
                  begin_num_update: int = 0, **kwargs):
+        if multi_precision:
+            raise NotImplementedError(
+                "multi_precision (f32 master copies) is ROADMAP queue 3")
         self.lr = learning_rate
         self.wd = wd
         self.rescale_grad = rescale_grad
@@ -57,6 +85,7 @@ class Optimizer:
         self.lr_scheduler = lr_scheduler
         if lr_scheduler is not None:
             self.lr_scheduler.base_lr = learning_rate
+        self.multi_precision = multi_precision   # in the program key
         self.num_update = begin_num_update
         self.lr_mult: Dict[Any, float] = {}
         self.wd_mult: Dict[Any, float] = {}
@@ -101,6 +130,20 @@ class Optimizer:
         """Pure update math: returns (new_weight, *new_state). Override."""
         raise NotImplementedError
 
+    def _step_values(self, lr: float, t: int) -> Tuple[float, ...]:
+        """The values beyond lr and wd that ``_foreach_kernel`` takes, from
+        this step's ``lr`` (multiplier applied) and ``t``, computed as
+        ``_kernel`` computes them."""
+        return ()
+
+    def _foreach_kernel(self, ws, gs, states, lr, wd, values):
+        """``_kernel`` over lists of one dtype, in place: ``ws`` (weights)
+        and ``states`` (one list per state slot) are updated, ``gs``
+        (preprocessed gradients, scratch) may be; ``lr``, ``wd`` and
+        ``values`` (:meth:`_step_values`) are 0-d tensors in the lists'
+        compute dtype. Override."""
+        raise NotImplementedError
+
     def _preprocess_grad(self, grad, rescale, clip):
         g = grad * rescale
         if clip is not None:
@@ -130,6 +173,17 @@ class SGD(Optimizer):
         mom = self.momentum * mom - lr * g
         return w + mom, mom
 
+    def _foreach_kernel(self, ws, gs, states, lr, wd, values):
+        torch._foreach_add_(gs, scaled(ws, wd))
+        if self.momentum == 0.0:
+            torch._foreach_sub_(ws, scaled(gs, lr))
+            return
+        (moms,) = states
+        moms_next = torch._foreach_mul(moms, self.momentum)
+        torch._foreach_sub_(moms_next, scaled(gs, lr))
+        torch._foreach_copy_(moms, moms_next)
+        torch._foreach_add_(ws, moms)
+
 
 @register("adam")
 class Adam(Optimizer):
@@ -145,9 +199,29 @@ class Adam(Optimizer):
     def create_state(self, index, weight):
         return torch.zeros_like(weight), torch.zeros_like(weight)
 
+    def _step_values(self, lr, t):
+        return (lr * math.sqrt(1 - self.beta2 ** t) / (1 - self.beta1 ** t),)
+
     def _kernel(self, w, g, lr, wd, t, m, v):
         g = g + wd * w
         m = self.beta1 * m + (1 - self.beta1) * g
         v = self.beta2 * v + (1 - self.beta2) * g * g
-        coef = lr * math.sqrt(1 - self.beta2 ** t) / (1 - self.beta1 ** t)
+        (coef,) = self._step_values(lr, t)
         return w - coef * m / (v.sqrt() + self.epsilon), m, v
+
+    def _foreach_kernel(self, ws, gs, states, lr, wd, values):
+        (coef,) = values
+        ms, vs = states
+        torch._foreach_add_(gs, scaled(ws, wd))
+        m = torch._foreach_mul(ms, self.beta1)
+        torch._foreach_add_(m, torch._foreach_mul(gs, 1 - self.beta1))
+        v = torch._foreach_mul(vs, self.beta2)
+        gg = torch._foreach_mul(gs, 1 - self.beta2)
+        torch._foreach_mul_(gg, gs)
+        torch._foreach_add_(v, gg)
+        torch._foreach_copy_(ms, m)
+        torch._foreach_copy_(vs, v)
+        den = torch._foreach_add(torch._foreach_sqrt(vs), self.epsilon)
+        step = scaled(ms, coef)
+        torch._foreach_div_(step, den)
+        torch._foreach_sub_(ws, step)

@@ -4,12 +4,29 @@
 One step: the batch splits into ``micro_batches`` (batch element j goes to
 micro-batch j mod k), each runs forward and backward (attention through
 the flash kernels K1 and K2/K3 or K4), the gradients accumulate in f32 and
-are divided by k, and the optimizer updates every parameter through
-:func:`mxtpu_torch.step_cache.build_update_all`. The loss is the mean of
-the micro-batch losses. Step values follow the reference: ``lr`` is
-``optimizer.learning_rate`` before the step, ``t`` counts steps from 1,
-the gradients are mean-loss gradients so ``rescale`` stays 1, and
-``optimizer.num_update = t`` after each step.
+are divided by k, and the optimizer updates every parameter in place
+through :func:`mxtpu_torch.step_cache.build_update_all` (multi-tensor
+ops). The loss is the mean of the micro-batch losses. Step values follow
+the reference: ``lr`` is ``optimizer.learning_rate`` before the step, ``t``
+counts steps from 1, the gradients are mean-loss gradients so ``rescale``
+stays 1, and ``optimizer.num_update = t`` after each step.
+
+As the reference compiles its step into one program (``jax.jit`` of the
+whole step), the port makes each step one program, held in
+``step_cache.ProgramCache("data_parallel_step")`` and keyed on the batch's
+shapes and dtypes, ``micro_batches``, ``remat``, the parameters' dtypes and
+``optimizer_fingerprint``: one trace per key, a hit per later step. The
+program's body reads its batch from static buffers and the step's values
+(``t``, and each parameter group's lr, wd, rescale, clip and optimizer
+values) from one float64 device buffer, so nothing of a step is baked in
+but the key. On the card the first step of a key runs the body on a side
+stream (a real step, which builds the kernels and cuBLAS's workspaces),
+the second captures it as a CUDA graph (``step_cache.GraphProgram``) and
+every step from then on replays it; the step's values enter through a ring
+of pinned buffers (``step_cache.HostStaging``), so queued steps need no
+host sync. On CPU tensors every step runs the body. ``MXTPU_FLASH_BWD`` and
+``MXTPU_FLASH_LSE`` are read when the body runs, so a captured program
+keeps what they said at its capture, as the reference's trace does.
 
 The multi-device half of the reference (a mesh of more than one device,
 ``param_shardings``, ZeRO and gradient compression) is ROADMAP queue 8 and
@@ -27,15 +44,34 @@ from torch.utils.checkpoint import checkpoint
 
 from ..context import check_device, resolve_device
 from ..gluon.nn.basic_layers import Dropout
-from ..step_cache import build_update_all
+from ..ops import attention
+from ..rng import sample_bits
+from ..step_cache import (GraphProgram, HostStaging, ProgramCache,
+                          build_update_all, on_side_stream,
+                          optimizer_fingerprint)
 
 __all__ = ["DataParallelTrainer"]
+
+# kernel wrappers whose launch counts a replay adds back
+_COUNTED = (attention.flash_fwd, attention.flash_bwd_dq,
+            attention.flash_bwd_dkv, attention.flash_bwd_fused)
 
 
 def _queue8(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is the multi-device half of DataParallelTrainer, ROADMAP "
         f"queue 8; this trainer runs on one card")
+
+
+class _StepProgram(GraphProgram):
+    """One key's step: its body, its static batch buffers ``x`` and ``y``,
+    the static ``loss`` the body writes, and whether its first (warm-up)
+    step has run."""
+
+    def __init__(self, body, x, y, loss):
+        super().__init__(body, _COUNTED)
+        self.x, self.y, self.loss = x, y, loss
+        self.warm = False
 
 
 class DataParallelTrainer:
@@ -49,10 +85,12 @@ class DataParallelTrainer:
     ``device`` (None = the card) is where the block's parameters must lie;
     ``mesh`` may be given only with one device. ``remat=True`` recomputes
     each micro-batch's forward in its backward (``torch.utils.checkpoint``,
-    non-reentrant). The block's ``Dropout`` layers draw from a generator
-    seeded from the step count and the micro-batch, so a step's masks are
-    a function of the step, and a recomputed forward draws the same
-    masks."""
+    non-reentrant, without saving the generators' state: no draw uses
+    them). The block's ``Dropout`` layers draw from device seeds that the
+    step derives from its ``t`` (read on the device), the micro-batch and
+    the layer, so a step's masks are a function of those and the element,
+    a recomputed forward draws the same masks, and every replay of a
+    captured step draws new ones."""
 
     def __init__(self, block, loss_fn, optimizer, mesh=None,
                  param_shardings=None, remat: bool = False,
@@ -81,8 +119,16 @@ class DataParallelTrainer:
         self._states = [optimizer.create_state(i, p)
                         for i, p in enumerate(self._params)]
         self._update = build_update_all(
-            optimizer, [getattr(p, "lr_mult", 1.0) for p in self._params],
+            optimizer, self._params, self._states,
+            [getattr(p, "lr_mult", 1.0) for p in self._params],
             [getattr(p, "wd_mult", 1.0) for p in self._params])
+        # t, then each parameter group's values
+        self._values = torch.zeros(
+            1 + len(self._update.groups) * self._update.n_values,
+            dtype=torch.float64, device=self.device)
+        self._staging = HostStaging(self._values) \
+            if self.device.type == "cuda" else None
+        self._programs = ProgramCache("data_parallel_step", capacity=4)
         self._t = 0
 
     def _as_tensor(self, a) -> torch.Tensor:
@@ -90,64 +136,137 @@ class DataParallelTrainer:
             return a.to(self.device)
         return torch.as_tensor(np.asarray(a), device=self.device)
 
-    def _loss_on(self, xb, yb, seed: int):
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        for d in self._dropouts:
-            d.generator = gen
-        try:
-            loss = self.loss_fn(self.block(xb), yb)
-        finally:
-            for d in self._dropouts:
-                d.generator = None
-        return loss.float().mean()
+    def _build(self, x, y) -> _StepProgram:
+        """The step's program over static copies of ``x`` and ``y``. Its
+        body holds what it runs and not the trainer, so a trainer and its
+        graphs are freed when the last reference goes, never by the cycle
+        collector in the middle of another capture."""
+        k, upd, values = self.micro_batches, self._update, self._values
+        block, loss_fn, params = self.block, self.loss_fn, self._params
+        dropouts, remat, dev = self._dropouts, self.remat, self.device
+        xb, yb = torch.empty_like(x), torch.empty_like(y)
+        loss = torch.zeros((), dtype=torch.float32, device=dev)
+        # micro-batch m takes batch rows m, m + k, m + 2k, ...
+        xs = xb.reshape((-1, k) + tuple(x.shape[1:])).transpose(0, 1)
+        ys = yb.reshape((-1, k) + tuple(y.shape[1:])).transpose(0, 1)
 
-    def step_async(self, x, y) -> torch.Tensor:
-        """One training step; returns the loss as a 0-d f32 tensor on the
-        card, without a host sync."""
+        def loss_on(xm, ym, seed):
+            for j, d in enumerate(dropouts):
+                d.seed = sample_bits(seed, j)
+            try:
+                out = loss_fn(block(xm), ym)
+            finally:
+                for d in dropouts:
+                    d.seed = None
+            return out.float().mean()
+
+        def body():
+            t = values[0].long()
+            for b in upd.buffers:
+                b.zero_()
+            total = torch.zeros((), dtype=torch.float32, device=dev)
+            was_training = block.training
+            block.train()
+            try:
+                for m in range(k):
+                    seed = t * k + m
+                    if remat:
+                        lv = checkpoint(loss_on, xs[m], ys[m], seed,
+                                        use_reentrant=False,
+                                        preserve_rng_state=False)
+                    else:
+                        lv = loss_on(xs[m], ys[m], seed)
+                    g = torch.autograd.grad(lv, params, allow_unused=True,
+                                            materialize_grads=True)
+                    # f32 accumulation, as the reference
+                    torch._foreach_add_(upd.grads, list(g))
+                    total += lv.detach()
+            finally:
+                block.train(was_training)
+            for b in upd.buffers:
+                b.div_(k)
+            loss.copy_(total / k)
+            upd(values[1:])
+
+        return _StepProgram(body, xb, yb, loss)
+
+    def _program(self, x, y) -> _StepProgram:
+        key = (tuple(x.shape), x.dtype, tuple(y.shape), y.dtype,
+               self.micro_batches, self.remat,
+               tuple(p.dtype for p in self._params),
+               optimizer_fingerprint(self.optimizer))
+        return self._programs.get_or_build(key, lambda: self._build(x, y))
+
+    def _begin(self, x, y):
+        """Check the batch, take the step's program, stage its batch and
+        values; returns the program and ``t``."""
         x, y = self._as_tensor(x), self._as_tensor(y)
         k = self.micro_batches
         if x.shape[0] % k:
             raise ValueError(
                 f"batch size {x.shape[0]} is not divisible by "
                 f"micro_batches={k}; pad or drop the tail batch")
-        self._t += 1
-        t = self._t
+        prog = self._program(x, y)
+        t = self._t + 1
         opt = self.optimizer
-        lr = opt.learning_rate
         clip = opt.clip_gradient if opt.clip_gradient is not None else 0.0
-        # micro-batch m takes batch rows m, m + k, m + 2k, ...
-        xs = x.reshape((-1, k) + tuple(x.shape[1:])).transpose(0, 1)
-        ys = y.reshape((-1, k) + tuple(y.shape[1:])).transpose(0, 1)
-        was_training = self.block.training
-        self.block.train()
-        grads = [torch.zeros_like(p, dtype=torch.float32)
-                 for p in self._params]
-        loss = torch.zeros((), device=self.device)
-        try:
-            for m in range(k):
-                seed = t * k + m
-                if self.remat:
-                    lv = checkpoint(self._loss_on, xs[m], ys[m], seed,
-                                    use_reentrant=False)
-                else:
-                    lv = self._loss_on(xs[m], ys[m], seed)
-                g = torch.autograd.grad(lv, self._params, allow_unused=True,
-                                        materialize_grads=True)
-                for a, gi in zip(grads, g):
-                    a.add_(gi)          # f32 accumulation, as the reference
-                loss += lv.detach()
-        finally:
-            self.block.train(was_training)
-        grads = [a / k for a in grads]
-        loss = loss / k
-        with torch.no_grad():
-            new_params, self._states = self._update(
-                [p.detach() for p in self._params], grads, self._states, lr,
-                opt.wd, 1.0, clip, t)
-            for p, w in zip(self._params, new_params):
-                p.copy_(w)
-        opt.num_update = t
-        return loss
+        vals = np.asarray([t] + self._update.values(
+            opt.learning_rate, opt.wd, 1.0, clip, t), dtype=np.float64)
+        if self._staging is not None:
+            self._staging(vals)
+        else:
+            self._values.copy_(torch.from_numpy(vals))
+        prog.x.copy_(x)
+        prog.y.copy_(y)
+        return prog, t
+
+    def _end(self, prog, t) -> torch.Tensor:
+        self._t = t
+        self.optimizer.num_update = t
+        return prog.loss.clone()    # the program's loss is rewritten
+
+    def step_async(self, x, y) -> torch.Tensor:
+        """One training step; returns the loss as a 0-d f32 tensor on the
+        trainer's device (a copy of its own), without a host sync. On the
+        card: the key's first step runs the body on a side stream, its
+        second captures the program, and every step from then on replays
+        it; a capture that fails raises."""
+        prog, t = self._begin(x, y)
+        if not prog.x.is_cuda:
+            prog.body()
+        elif not prog.warm:
+            on_side_stream(prog.body)
+            prog.warm = True
+        else:
+            if prog.graph is None:
+                prog.capture()
+            prog.replay()
+        return self._end(prog, t)
+
+    def eager_step(self, x, y) -> torch.Tensor:
+        """One step through the program's body on the current stream,
+        without a graph: on the card, the programs' plain version (only
+        ``chip_smoke.py``'s parity phase runs it there). On CPU tensors
+        it is :meth:`step_async`."""
+        prog, t = self._begin(x, y)
+        prog.body()
+        return self._end(prog, t)
 
     def step(self, x, y) -> float:
         return float(self.step_async(x, y))
+
+    def stats(self) -> dict:
+        """The trainer's programs: how many are held and captured, their
+        capture and recording ms, and their replays."""
+        progs = self._programs.values()
+        return dict(programs=len(progs),
+                    captured=sum(p.graph is not None for p in progs),
+                    capture_ms=sum(p.capture_ms for p in progs),
+                    record_ms=sum(p.record_ms for p in progs),
+                    replays=sum(p.replays for p in progs))
+
+    def optimizer_state_bytes(self) -> int:
+        """Optimizer-slot bytes resident on the card (the reference's
+        per-device count; one device holds every slot)."""
+        return sum(s.numel() * s.element_size()
+                   for st in self._states for s in st)

@@ -6,6 +6,12 @@ and splits it for every stochastic op; here each device has its own
 created on first use from the thread's seed. ``seed(n)`` reseeds them all,
 so a seeded run reproduces itself; its draws are not the JAX package's
 (another generator), only their distributions agree.
+
+:func:`sample_bits` and :func:`uniform` are counter-based instead: random
+bits as a pure function of a seed and a counter, computed where the tensors
+lie, with no generator state. The serving sampler and the training step's
+dropout draw from them, so a captured program draws anew on every replay
+from seeds that it reads from the device.
 """
 
 from __future__ import annotations
@@ -15,7 +21,8 @@ from typing import Dict
 
 import torch
 
-__all__ = ["seed", "generator", "get_state_blob", "set_state_blob"]
+__all__ = ["seed", "generator", "get_state_blob", "set_state_blob",
+           "sample_bits", "uniform"]
 
 _state = threading.local()
 
@@ -68,3 +75,35 @@ def set_state_blob(blob: dict):
         g.set_state(torch.as_tensor(state, dtype=torch.uint8))
         gens[key] = g
     st.generators = gens
+
+
+def _u64(x: int) -> int:
+    """The int64 that holds the bits of the unsigned 64-bit ``x``."""
+    return x - (1 << 64) if x >= 1 << 63 else x
+
+
+_GOLDEN, _MIX1, _MIX2 = (_u64(0x9E3779B97F4A7C15), _u64(0xBF58476D1CE4E5B9),
+                         _u64(0x94D049BB133111EB))
+
+
+def _shr(z, k: int):
+    """Logical right shift by ``k`` of int64 tensors read as uint64."""
+    return (z >> k) & ((1 << (64 - k)) - 1)
+
+
+def sample_bits(seed, pos):
+    """64 random bits for each (seed, counter ``pos``): the splitmix64
+    finaliser of ``(seed mod 2^32) << 32 ^ pos`` on int64 tensors, whose
+    wrapping arithmetic holds the uint64 bits. It runs where the tensors
+    lie, so reading it needs no host: a sampled stream is a pure function
+    of the request's seed and position, and never of its slot."""
+    z = (((seed & 0xFFFFFFFF) << 32) ^ pos) + _GOLDEN
+    z = (z ^ _shr(z, 30)) * _MIX1
+    z = (z ^ _shr(z, 27)) * _MIX2
+    return z ^ _shr(z, 31)
+
+
+def uniform(seed, pos):
+    """f32 uniforms in [0, 1) on a 2^-24 grid: the top 24 of
+    :func:`sample_bits`."""
+    return _shr(sample_bits(seed, pos), 40).float() * 2.0 ** -24

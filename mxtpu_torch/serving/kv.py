@@ -32,7 +32,6 @@ the CPU the body runs eagerly.
 
 from __future__ import annotations
 
-import time
 from collections import OrderedDict
 from typing import Callable, List, Optional, Tuple
 
@@ -41,6 +40,7 @@ import torch
 
 from ..ops import quant_attention
 from ..quant import kv_quant as qkv
+from ..step_cache import GraphProgram, HostStaging
 
 __all__ = ["bucket32", "cache_dims", "empty_cache", "empty_page",
            "reset_page", "promote", "merge_page", "install_rows",
@@ -130,7 +130,7 @@ def block_nbytes(model, dtype=torch.float32, quant=None) -> int:
 # ---------------------------------------------------------------------------
 
 
-class ChunkProgram:
+class ChunkProgram(GraphProgram):
     """One serving chunk as a program, the counterpart of the reference's
     jitted ``lax.scan``.
 
@@ -143,33 +143,26 @@ class ChunkProgram:
     turns ``out`` read back to the host into the call's results.
 
     A call (:meth:`__call__`) on CUDA buffers copies the packed state in
-    with one host-to-device copy, replays the chunk's CUDA graph and reads
-    ``out`` back once. The first call captures the graph after a one-step
-    warm-up of ``body`` on a side stream (it builds K5 and fills its
-    per-device cache and cuBLAS's handles; rewriting a step's K/V row from
-    the same state writes the same bytes, so the replay that follows gives
-    what it would have given alone). Capture uses the thread-local error
-    mode and the graph memory ``pool`` given at build; a host sync in
-    the body makes it raise. A replay adds to each counted kernel's
-    ``launches`` the launches that its capture recorded (and that the
-    capture itself does not count). On CPU buffers a call is
-    :meth:`eager`, which on the card is the programs' plain version."""
+    with one host-to-device copy (``step_cache.HostStaging``), replays the
+    chunk's CUDA graph and reads ``out`` back once. The first call
+    captures the graph (``step_cache.GraphProgram``, into the graph memory
+    ``pool`` given at build) after a one-step warm-up of ``body`` on a side
+    stream (it builds K5 and fills its per-device cache and cuBLAS's
+    handles; rewriting a step's K/V row from the same state writes the same
+    bytes, so the replay that follows gives what it would have given
+    alone). A replay adds to K5's ``launches`` the launches that its
+    capture recorded. On CPU buffers a call is :meth:`eager`, which on the
+    card is the programs' plain version."""
 
     def __init__(self, body: Callable, state: torch.Tensor,
                  out: torch.Tensor, pack: Callable, unpack: Callable,
                  pool=None):
-        self.body = body
+        super().__init__(body, _COUNTED, pool)
         self.state = state
         self.out = out
         self.pack = pack
         self.unpack = unpack
-        self.pool = pool
-        self.graph = None
-        self.replays = 0
-        self.capture_ms = 0.0    # warm-up, recording and instantiation
-        self.record_ms = 0.0     # of which the body's run under capture
-        self._launches = ()      # per counted kernel, launches per replay
-        self._host = None        # pinned staging buffer of ``state``
+        self._staging = None     # pinned staging of ``state``
 
     def eager(self, *args):
         """The chunk through ``body``, without a graph."""
@@ -180,39 +173,13 @@ class ChunkProgram:
     def __call__(self, *args):
         if not self.state.is_cuda:
             return self.eager(*args)
-        if self._host is None:
-            self._host = torch.empty(self.state.shape, dtype=self.state.dtype,
-                                     pin_memory=True)
-        self._host.copy_(torch.from_numpy(self.pack(*args)))
-        self.state.copy_(self._host, non_blocking=True)
+        if self._staging is None:
+            self._staging = HostStaging(self.state)
+        self._staging(self.pack(*args))
         if self.graph is None:
-            self._capture()
-        self.graph.replay()
-        self.replays += 1
-        for fn, n in zip(_COUNTED, self._launches):
-            fn.launches += n
+            self.capture(lambda: self.body(1))
+        self.replay()
         return self.unpack(self.out.cpu().numpy())
-
-    def _capture(self) -> None:
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            self.body(1)
-        torch.cuda.current_stream().wait_stream(side)
-        before = [fn.launches for fn in _COUNTED]
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool,
-                              capture_error_mode="thread_local"):
-            t1 = time.perf_counter()
-            self.body()
-            self.record_ms = (time.perf_counter() - t1) * 1e3
-        self._launches = tuple(fn.launches - b
-                               for fn, b in zip(_COUNTED, before))
-        for fn, b in zip(_COUNTED, before):
-            fn.launches = b
-        self.graph = graph
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
 
 
 def build_prefill_chunk(model, params, page, PB: int, csize: int,

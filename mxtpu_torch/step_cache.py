@@ -1,26 +1,35 @@
-"""Program caches and the whole-model update of a training step.
+"""Program caches, the capture of a program as a CUDA graph, and the
+whole-model update of a training step.
 
 Port of ``mxtpu/step_cache.py``: the compile-cache registry
 (:class:`CacheStats`, :func:`cache_stats`, :func:`snapshot`,
-:func:`reset_stats`), the bounded :class:`ProgramCache` the serving engine
-keeps its chunk programs in, and :func:`build_update_all`. In the port a
-"trace" is the build of a program plus, on the card, its capture as a CUDA
-graph (``mxtpu_torch.serving.kv.ChunkProgram``); a hit replays it. The
-training step's own program (the reference's ``StepExecutor``) is not
-ported yet.
+:func:`reset_stats`), the bounded :class:`ProgramCache` that the serving
+engine and ``DataParallelTrainer`` keep their programs in,
+:func:`optimizer_fingerprint` (part of every training program's key) and
+:func:`build_update_all`. In the port a "trace" is the build of a program
+plus, on the card, its capture as a CUDA graph (:class:`GraphProgram`: the
+one capture path of serving's chunks and of the training step, as the
+reference compiles every whole step through one path); a hit replays it.
 """
 
 from __future__ import annotations
 
+import gc
 import os
 import threading
+import time
 from collections import OrderedDict
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from .optimizer import scaled
+
 __all__ = ["CacheStats", "cache_stats", "snapshot", "reset_stats",
-           "ProgramCache", "build_update_all"]
+           "ProgramCache", "GraphProgram", "on_side_stream", "HostStaging",
+           "optimizer_fingerprint", "MultiTensorUpdate", "build_update_all",
+           "build_update_all_plain"]
 
 
 # ---------------------------------------------------------------------------
@@ -119,6 +128,10 @@ class ProgramCache:
     def __contains__(self, key) -> bool:
         return key in self._fns
 
+    def values(self) -> list:
+        """The programs held, least recently used first."""
+        return list(self._fns.values())
+
     def get(self, key):
         """Cache lookup; counts a hit and refreshes LRU order on success."""
         fn = self._fns.get(key)
@@ -152,8 +165,134 @@ class ProgramCache:
 
 
 # ---------------------------------------------------------------------------
+# a program captured as a CUDA graph
+# ---------------------------------------------------------------------------
+
+# the counters a kernel wrapper may carry; a capture records both
+_COUNTERS = ("launches", "sm90_launches")
+
+
+def on_side_stream(fn: Callable) -> None:
+    """Run ``fn()`` on a fresh side stream that waits for the current
+    stream, and make the current stream wait for it: how work that must
+    precede a capture (kernel builds, cuBLAS's handles, the autograd
+    engine's streams) is run, as ``torch.cuda.graphs`` asks."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+
+
+class GraphProgram:
+    """``body`` captured once as a CUDA graph and replayed: the port's
+    counterpart of a compiled program of the reference.
+
+    :meth:`capture` records ``body()`` in the thread-local error mode into
+    the graph memory ``pool`` (None: a pool of its own), after running
+    ``warm_up`` on a side stream when one is given; a host sync in the body
+    makes it raise, and nothing falls back. The cycle collector is off
+    while it records: a collection there could free another program's
+    graph, whose release is an error during a capture and spoils it.
+
+    A capture runs nothing, so the launches that ``counted`` kernel
+    wrappers count while it records are taken off their counters
+    (``launches`` and, where a wrapper has it, ``sm90_launches``) and
+    :meth:`replay` adds them back, once a replay. ``capture_ms`` covers
+    warm-up, recording and instantiation; ``record_ms`` the body's run
+    under capture."""
+
+    def __init__(self, body: Callable, counted: Sequence = (), pool=None):
+        self.body = body
+        self.pool = pool
+        self.graph = None
+        self.replays = 0
+        self.capture_ms = 0.0
+        self.record_ms = 0.0
+        self._counters = [(fn, a) for fn in counted for a in _COUNTERS
+                          if hasattr(fn, a)]
+        self._launches: List[int] = []     # per counter, a replay's
+
+    def capture(self, warm_up: Optional[Callable] = None) -> None:
+        t0 = time.perf_counter()
+        if warm_up is not None:
+            on_side_stream(warm_up)
+        before = [getattr(fn, a) for fn, a in self._counters]
+        graph = torch.cuda.CUDAGraph()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool,
+                                  capture_error_mode="thread_local"):
+                t1 = time.perf_counter()
+                self.body()
+                self.record_ms = (time.perf_counter() - t1) * 1e3
+        finally:
+            if collecting:
+                gc.enable()
+        self._launches = [getattr(fn, a) - b
+                          for (fn, a), b in zip(self._counters, before)]
+        for (fn, a), b in zip(self._counters, before):
+            setattr(fn, a, b)
+        self.graph = graph
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+
+    def replay(self) -> None:
+        self.graph.replay()
+        self.replays += 1
+        for (fn, a), n in zip(self._counters, self._launches):
+            setattr(fn, a, getattr(fn, a) + n)
+
+
+class HostStaging:
+    """Host values into a static device buffer ``dst`` without waiting for
+    the device: each call fills the next pinned slot of a ring of
+    ``SLOTS`` and copies it in with ``non_blocking=True``. A slot is filled
+    again only once the copy last made from it has run (a CUDA event
+    recorded behind that copy), so the values of a queued program that has
+    not started yet are never overwritten; the host runs at most ``SLOTS``
+    calls ahead of the device."""
+
+    SLOTS = 8
+
+    def __init__(self, dst: torch.Tensor):
+        self.dst = dst
+        self._host = [torch.empty(dst.shape, dtype=dst.dtype,
+                                  pin_memory=True) for _ in range(self.SLOTS)]
+        self._events: List[Optional[torch.cuda.Event]] = [None] * self.SLOTS
+        self._next = 0
+
+    def __call__(self, values: np.ndarray) -> None:
+        i = self._next
+        self._next = (i + 1) % len(self._host)
+        if self._events[i] is None:
+            self._events[i] = torch.cuda.Event()
+        else:
+            self._events[i].synchronize()
+        self._host[i].copy_(torch.from_numpy(values))
+        self.dst.copy_(self._host[i], non_blocking=True)
+        self._events[i].record()
+
+
+# ---------------------------------------------------------------------------
 # the whole-model optimizer update
 # ---------------------------------------------------------------------------
+
+
+def optimizer_fingerprint(opt) -> tuple:
+    """Static hyperparameter identity of an optimizer instance, as the
+    reference's (``mxtpu/step_cache.py:optimizer_fingerprint``).
+
+    Part of every training program's key: scalar hyperparameters
+    (momentum, betas, eps, ...) are baked into the program by the
+    optimizer's kernels, so changing one must build a new program. The
+    per-step values (lr, wd, rescale_grad, the update count) reach the
+    program through its step values and are left out."""
+    dynamic = {"lr", "wd", "rescale_grad", "num_update"}
+    items = tuple(sorted(
+        (k, v) for k, v in vars(opt).items()
+        if isinstance(v, (int, float, bool, str)) and k not in dynamic))
+    return (type(opt).__name__, opt.clip_gradient is not None, items)
 
 
 def _as(x: float, dtype) -> float:
@@ -162,11 +301,105 @@ def _as(x: float, dtype) -> float:
     return float(torch.tensor(x, dtype=dtype))
 
 
-def build_update_all(opt, lr_mults: Sequence[float],
-                     wd_mults: Sequence[float]):
-    """One function applying ``opt`` to every parameter: each gradient is
-    cast to its parameter's dtype, then ``opt._preprocess_grad`` (rescale,
-    then clip) and ``opt._kernel`` run with the lr and wd multipliers.
+def _opmath(dtype) -> torch.dtype:
+    """The dtype that elementwise ops on ``dtype`` compute in: f32 for bf16,
+    f16 and f32; f64 for f64."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+class MultiTensorUpdate:
+    """The whole-model optimizer update, in place, on multi-tensor ops
+    (``torch._foreach_*``): the multi-tensor form of
+    :func:`build_update_all_plain`, bit for bit.
+
+    Parameters are grouped by (dtype, lr_mult, wd_mult), so every list of a
+    multi-tensor op holds one dtype. Each group owns one flat f32 gradient
+    buffer (``buffers``); ``grads[i]`` is parameter ``i``'s view into it,
+    where the caller accumulates. A call reads the step's values from a
+    device tensor, casts each group's buffer to the group's dtype, applies
+    ``opt._preprocess_grad``'s rescale and clip, then
+    ``opt._foreach_kernel`` updates the parameters and ``states`` (tuples
+    of tensors, per parameter) in place. Nothing is rebound and nothing is
+    read back, so the update can be captured into a CUDA graph.
+
+    The step values are computed on the host per step by :meth:`values`,
+    in float64 as the plain version computes them (lr, wd, rescale and
+    clip rounded to the group's dtype, the multipliers applied, then the
+    optimizer's own values such as Adam's ``coef``), and enter the ops as
+    0-d tensors in the group's compute dtype."""
+
+    _FIXED = 4          # lr, wd, rescale, clip: a group's first values
+
+    def __init__(self, opt, params: Sequence[torch.Tensor],
+                 states: Sequence[Tuple], lr_mults: Sequence[float],
+                 wd_mults: Sequence[float]):
+        self.opt = opt
+        self.params = list(params)
+        self.states = list(states)
+        self._clipped = opt.clip_gradient is not None
+        by_key: "OrderedDict[tuple, List[int]]" = OrderedDict()
+        for i, p in enumerate(self.params):
+            by_key.setdefault((p.dtype, float(lr_mults[i]),
+                               float(wd_mults[i])), []).append(i)
+        self.groups = list(by_key.items())
+        self.buffers: List[torch.Tensor] = []
+        self.grads: List[torch.Tensor] = [None] * len(self.params)
+        for _, idx in self.groups:
+            sizes = [self.params[i].numel() for i in idx]
+            buf = torch.zeros(sum(sizes), dtype=torch.float32,
+                              device=self.params[idx[0]].device)
+            for i, v in zip(idx, buf.split(sizes)):
+                self.grads[i] = v.view(self.params[i].shape)
+            self.buffers.append(buf)
+        self.n_values = self._FIXED + len(opt._step_values(1.0, 1))
+
+    def values(self, lr: float, wd: float, rescale: float, clip: float,
+               t: int) -> List[float]:
+        """The step's values, ``n_values`` for each group in order."""
+        out: List[float] = []
+        for (dt, lr_mult, wd_mult), _ in self.groups:
+            lr_g = _as(lr, dt) * lr_mult
+            out += [lr_g, _as(wd, dt) * wd_mult, _as(rescale, dt),
+                    _as(clip, dt) if self._clipped else 0.0]
+            out += self.opt._step_values(lr_g, t)
+        return out
+
+    def __call__(self, values: torch.Tensor) -> None:
+        """Update in place from the accumulated ``grads`` and ``values``, a
+        1-D tensor of :meth:`values` on the parameters' device."""
+        nv = self.n_values
+        with torch.no_grad():
+            for gi, ((dt, _, _), idx) in enumerate(self.groups):
+                v = values[gi * nv:(gi + 1) * nv].to(_opmath(dt))
+                lr, wd, rescale, clip = v[:self._FIXED].unbind()
+                g = scaled([self.buffers[gi].to(dt)], rescale)[0]
+                if self._clipped:
+                    c = clip.to(dt)
+                    g.clamp_(-c, c)
+                gs = [x.view(self.params[i].shape) for i, x in zip(
+                    idx, g.split([self.params[i].numel() for i in idx]))]
+                states = [list(s) for s in zip(*(self.states[i]
+                                                 for i in idx))]
+                self.opt._foreach_kernel([self.params[i] for i in idx], gs,
+                                         states, lr, wd,
+                                         tuple(v[self._FIXED:].unbind()))
+
+
+def build_update_all(opt, params: Sequence[torch.Tensor],
+                     states: Sequence[Tuple], lr_mults: Sequence[float],
+                     wd_mults: Sequence[float]) -> MultiTensorUpdate:
+    """The in-place multi-tensor update of ``params`` and ``states`` (see
+    :class:`MultiTensorUpdate`), the reference's ``build_update_all``
+    moved onto ``torch._foreach_*`` ops."""
+    return MultiTensorUpdate(opt, params, states, lr_mults, wd_mults)
+
+
+def build_update_all_plain(opt, lr_mults: Sequence[float],
+                           wd_mults: Sequence[float]):
+    """The plain version of :func:`build_update_all`, one parameter at a
+    time through ``opt._preprocess_grad`` and ``opt._kernel`` with the lr
+    and wd multipliers: each gradient is cast to its parameter's dtype, and
+    the step scalars are Python floats rounded to it.
 
     Returns ``update_all(params, grads, states, lr, wd, rescale, clip, t)``
     → ``(new_params, new_states)``, pure. ``clip`` is ignored unless the

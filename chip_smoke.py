@@ -29,7 +29,8 @@ Phases, in order; any failure exits non-zero without a result line:
    TOT=256 and 704, the last position), the "wide" preset's head (H=16,
    D=128), q in bf16, cursors past the bucket and D=40; the timed cases
    on a CUDA graph (the device alone), eagerly, and against the launch
-   floor and the byte bound;
+   floor and the byte bound; then a cache and the same cache zero-padded
+   into a larger bucket give the same bits under one ``span``;
 4. forward: ``transformer_lm("base", vocab_size=50257)`` (GPT-2 124M
    dimensions) scores a (4, 1024) batch; K1 must launch;
 5. serving: ``ServingEngine(that model, slots=8, quant="int8_kv")`` answers
@@ -42,6 +43,28 @@ Phases, in order; any failure exits non-zero without a result line:
    then two of the requests twice through one engine, the second time
    under ``torch.profiler``, for the device's busy share while replaying
    and K5's launches and mean time per launch;
+5b. int8 weight products (``quant.serve._int8_matmul``: row quantization,
+   cuBLASLt int8 x int8 -> int32 through ``torch._int_mm``, rescale) at
+   M in {1, 8, 40} x (768 -> 768, 768 -> 3072, 3072 -> 768, 768 ->
+   50257): bit-equal to the exact sums, timed on a CUDA graph against
+   ``F.linear`` in f32; whether ``F.linear`` over 40 flattened rows gives
+   each 8-row block's bits (printed: the verify step's float products
+   run at the decode step's shape because it does not);
+5c. speculative serving on phase 5's model: ``ServingEngine(slots=8,
+   quant="int8_kv,int8_w", spec=SpecConfig(k=4), prefix_cache_mb=64)``
+   serves phase 5's lengths (the 333- and 480-token prompts share 256
+   tokens, the 170-token request samples at temperature 0.8, top-k 40),
+   then a second burst of other prompts; the same two bursts without
+   ``spec``; then the first burst under ``quant="int8_kv"`` (f32 weights)
+   with and without ``spec``. Every request's tokens equal the spec-less
+   engine's in both legs; every prefill chunk, decode chunk and verify
+   dispatch a replay, one capture per key, none in the second burst; K5's
+   launches exactly L x (prefill positions + decode chunks x 8 + 5 x
+   verify dispatches + the captures' warm-up steps, 5 for a verify
+   program); a prefix-cache hit; tokens/s, TTFT, captures, accept
+   lengths, drafted/accepted/rejected, n-gram hits, the drafter's host
+   time and peak memory of each leg; then two requests through the
+   speculative engine under ``torch.profiler``;
 6. card against CPU: at base width with 2 layers, the same weights on the
    card and on the CPU give the same greedy tokens for 2 requests of 32
    new tokens (int8 and fp8 KV), and forward logits that agree; then the
@@ -50,6 +73,13 @@ Phases, in order; any failure exits non-zero without a result line:
    chunk 0 of a split page), once by graph replays and once through the
    programs' bodies (a host sync there is an error): tokens equal, cache
    and page bit-equal, every chunk a replay, K5's launches exact;
+6b. the verify step card against CPU: one verify dispatch of a base-width,
+   2-layer ``int8_kv,int8_w`` model (S 8, TOT 832, k 4, one slot clipped
+   at TOT - 1) by a replay of its captured program and on the CPU: tok,
+   p, outs and lives equal, logits within ``VERIFY_LOGITS_TOL``; each of
+   the 10 K5 calls
+   inside the replay against the plain version (clones captured beside
+   them), and K5 timed at those calls' shapes;
 7. K2, K3 and K4 (flash-attention backward) against the plain backward on
    the card at the training shape (B=8, H=16, T=1024, D=64, causal) in
    bf16 and f32, and at ragged shapes (T=1000, T != Tk, D=40, 128, 256),
@@ -107,11 +137,13 @@ Phases, in order; any failure exits non-zero without a result line:
     then the pair timed against its plain version, its bound and
     ``F.cross_entropy``.
 
-Launch counts are set to 0 just before phases 4, 5, 8, 9 (each fused
-run), 10, saxpy's drive in 11 and the 10 steps of 12, and read just after.
-The line before the last is the kernels' JSON record, with one K1, K2, K3
-and K4 record for each route and the path it runs on (K5's also holds its
-launches inside graph replays); the last line is
+Launch counts are set to 0 just before phases 4, 5, 5c (its first
+burst), 8, 9 (each fused run), 10, saxpy's drive in 11 and the 10 steps
+of 12, and read just after. The line before the last is the kernels' JSON
+record, with one K1, K2, K3 and K4 record for each route and the path it
+runs on, and two K5 records (plain serving, phase 5; speculative verify,
+phase 5c with the times of phase 6b), each with its launches inside graph
+replays; the last line is
 ``{"ok": true, "device": {...}}``.
 Weights and data are random, from fixed seeds.
 """
@@ -536,7 +568,44 @@ def phase_k5(torch, quant_attention, kv_quant):
         if label == "prefill int8":
             prefill = dict(TOT=TOT, ms=ms, eager_ms=eager_ms,
                            bound_ms=bound_ms)
+    k5_span_check(torch, quant_attention, kv_quant, g)
     return dict(main, prefill=prefill)
+
+
+def k5_span_check(torch, quant_attention, kv_quant, g):
+    """K5 over a (S8 H12 TOT832 D64) int8 cache and over the same cache
+    zero-padded into TOT 1024, ragged cursors below 832: with ``span=1024``
+    (the serving steps pass the model's ``max_len``) the two give the same
+    bits, as they must for an engine's tokens not to depend on when it
+    promoted its cache; without it C follows TOT and the bits may
+    differ."""
+    S, H, D = 8, 12, 64
+    q = torch.randn(S, H, D, device="cuda", generator=g)
+    small = k5_caches(torch, kv_quant, g, S, H, 832, D, "int8", 1)[0]
+    big = []
+    for t in small:
+        pad = torch.zeros(t.shape[:2] + (1024,) + t.shape[3:], dtype=t.dtype,
+                          device="cuda") if t.dim() == 4 else \
+            torch.ones(t.shape[:2] + (1024,), device="cuda")
+        pad[:, :, :832] = t
+        big.append(pad)
+    pc = k5_cursors(torch, g, S, 832, "ragged", 32)
+    pc[-1] = 831
+    scale = 1.0 / math.sqrt(D)
+    a = quant_attention.dequant_decode(q, *small, pc, scale, 1024)
+    b = quant_attention.dequant_decode(q, *big, pc, scale, 1024)
+    c = quant_attention.dequant_decode(q, *small, pc, scale)
+    d = quant_attention.dequant_decode(q, *big, pc, scale)
+    torch.cuda.synchronize()
+    check(torch.equal(a, b), "K5 with span 1024: TOT 832 and the same cache "
+          "padded to 1024 give other bits")
+    print(f"K5 span: TOT 832 and the same cache zero-padded to 1024, "
+          f"pc={pc.tolist()}: bit-equal with span=1024 (C "
+          f"{quant_attention._card_chunk('cuda', S, H, 1024, D)}); without "
+          f"span (C {quant_attention._card_chunk('cuda', S, H, 832, D)} vs "
+          f"{quant_attention._card_chunk('cuda', S, H, 1024, D)}): "
+          f"{'bit-equal' if torch.equal(c, d) else 'differ'}, max diff "
+          f"{(c - d).abs().max().item():.3e}", flush=True)
 
 
 def phase_bwd(torch, attention):
@@ -767,7 +836,7 @@ def program_traces(step_cache):
     """Traces (builds and captures) of the serving programs so far."""
     snap = step_cache.snapshot()
     return {k: snap.get(k, {}).get("traces", 0)
-            for k in ("serving_prefill", "serving_decode")}
+            for k in ("serving_prefill", "serving_decode", "serving_verify")}
 
 
 def serve_wave(torch, serving, eng, prompts):
@@ -923,6 +992,473 @@ def phase_profile(torch, model, serving):
     for name, (n, us) in sorted(k5.items()):
         print(f"profile K5: {n} launches, mean {us / n:.3f} us, "
               f"{us / busy:.3f} of device time: {name[:90]}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# speculative decode and int8 weights (phases 5b-5d)
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4
+SPEC_SAMPLED = 2        # the burst's one sampled request (170 tokens)
+# the verify step's int8_w logits, card against CPU: (largest difference,
+# least share of (slot, position) rows within 1e-4). A row whose int8
+# activation codes agree on both sides matches to f32 reassociation (~1e-6
+# here); where an LN, GELU or attention output sits at a code's rounding
+# boundary, the ulp of difference between the two sides moves that code
+# one step, and the row's logits by up to ~5e-2 at base width, so some
+# rows, but fewer than half, move. The phase prints the same effect on the
+# CPU alone: its logits again with the position table scaled by 1 + 1e-6
+VERIFY_LOGITS_TOL = (0.1, 0.5)
+
+
+def spec_prompts(torch, seed):
+    """``serving_prompts`` with the 333- and 480-token prompts sharing
+    their first 256 tokens (8 prefix-cache blocks)."""
+    prompts = serving_prompts(torch, seed)
+    prompts[5][:256] = prompts[4][:256]
+    return prompts
+
+
+def spec_wave(torch, serving, eng, prompts):
+    """``serve_wave`` with request ``SPEC_SAMPLED`` sampling (temperature
+    0.8, top-k 40, seed 1234): (tokens, wall s, TTFT ms sorted)."""
+    sp = serving.SamplingParams(temperature=0.8, top_k=40, seed=1234)
+    t0 = time.monotonic()
+    reqs = [eng.submit(p, 128, sampling=sp if i == SPEC_SAMPLED else None)
+            for i, p in enumerate(prompts)]
+    outs = [r.result(timeout=900) for r in reqs]
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    for r, o in zip(reqs, outs):
+        check(r.state == serving.DONE and len(o) == 128,
+              f"request {r.id}: state {r.state}, {len(o)} tokens")
+    return outs, wall, sorted((r.t_first_token - r.t_submit) * 1e3
+                              for r in reqs)
+
+
+def spec_leg(torch, model, serving, quant_attention, step_cache, quant, k,
+             bursts, zero_counts=None, profile_prompts=None):
+    """The bursts through one ``ServingEngine(slots=8, quant=quant,
+    spec=k, prefix_cache_mb=64)``; per burst the tokens, wall, TTFT, the
+    engine's stats and K5's launches and the program traces it added.
+    ``zero_counts`` is called just before the first burst. Returns (per
+    burst, peak bytes allocated in the first burst above what was held
+    before, verify keys built, the profile of ``profile_prompts`` run
+    after the bursts, or None)."""
+    spec = serving.SpecConfig(k=k) if k else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    out, peak, prof = [], None, None
+    with serving.ServingEngine(model, slots=8, quant=quant, spec=spec,
+                               prefix_cache_mb=64) as eng:
+        for i, prompts in enumerate(bursts):
+            if i == 0 and zero_counts is not None:
+                zero_counts(0)
+            st0 = eng.stats()
+            tr0 = program_traces(step_cache)
+            l0 = quant_attention.dequant_decode.launches
+            toks, wall, ttft = spec_wave(torch, serving, eng, prompts)
+            st = eng.stats()
+            if peak is None:
+                peak = torch.cuda.max_memory_allocated() - mem0
+            delta = {key: st[key] - st0.get(key, 0) for key in st
+                     if isinstance(st[key], (int, float))
+                     and not isinstance(st[key], bool)}
+            h0 = st0.get("accept_len_hist", {})
+            delta["accept_len_hist"] = {
+                e: n - h0.get(e, 0)
+                for e, n in sorted(st.get("accept_len_hist", {}).items())
+                if n > h0.get(e, 0)}
+            out.append(dict(
+                toks=toks, wall=wall, ttft=ttft, stats=st, delta=delta,
+                launches=quant_attention.dequant_decode.launches - l0,
+                traces={key: v - tr0[key] for key, v in
+                        program_traces(step_cache).items()}))
+        chunk = eng.chunk
+        keys = len(eng._verify_fns) + eng._verify_fns.evictions
+        if profile_prompts is not None:
+            prof = profile_wave(torch, eng, profile_prompts)
+    return out, peak, keys, chunk, prof
+
+
+def profile_wave(torch, eng, prompts):
+    """``prompts`` (128 new each) through ``eng``, whose programs are all
+    captured, under ``torch.profiler`` (device activity): (wall ms, device
+    busy ms, {kernel name: (launches, device us)}, stats delta)."""
+    from torch.profiler import ProfilerActivity, profile
+    st0 = eng.stats()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for r in [eng.submit(p, 128) for p in prompts]:
+            r.result(timeout=900)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    st = eng.stats()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    busy_ms = sum(us for _, us in by_name.values()) / 1e3
+    delta = {key: st[key] - st0.get(key, 0) for key in st
+             if isinstance(st[key], (int, float))
+             and not isinstance(st[key], bool)}
+    return wall_ms, busy_ms, by_name, delta
+
+
+def spec_burst_line(label, b):
+    st, d = b["stats"], b["delta"]
+    ttft = b["ttft"]
+    return (f"{label}: 8 requests x 128 tokens in {b['wall']:.2f} s = "
+            f"{8 * 128 / b['wall']:.1f} tokens/s; TTFT ms median "
+            f"{ttft[len(ttft) // 2]:.1f} max {ttft[-1]:.1f}; captures "
+            f"{d.get('programs_captured', 0)} in "
+            f"{d.get('capture_ms_total', 0):.1f} ms (traces {b['traces']});"
+            f" decode turns {d.get('decode_steps', 0)} (verify "
+            f"{d.get('spec_dispatches', 0)}); dequant_decode launches "
+            f"{b['launches']}; kv_dtype {st['kv_dtype']}")
+
+
+def check_spec_burst(label, b, L, chunk, K1, verify_keys=None):
+    """Every chunk and dispatch of the burst a replay, one trace per
+    program key (none when ``verify_keys`` is None: a burst after the
+    first), and K5's launches exactly L x (prefill positions + decode
+    chunks x chunk + K1 x verify dispatches + the captures' warm-ups)."""
+    d, tr = b["delta"], b["traces"]
+    check(d.get("prefill_replays", 0) == d.get("prefill_chunks", 0)
+          and d.get("decode_replays", 0) + d.get("verify_replays", 0)
+          == d.get("decode_steps", 0)
+          and d.get("verify_replays", 0) == d.get("spec_dispatches", 0),
+          f"{label}: a chunk or dispatch ran outside a replay: {d}")
+    captured = d.get("programs_captured", 0)
+    check(captured == sum(tr.values()), f"{label}: {captured} captures "
+          f"for traces {tr}")
+    if verify_keys is None:
+        check(captured == 0, f"{label}: traced again: {tr}")
+    elif K1 > 1:
+        check(tr["serving_verify"] == verify_keys >= 1,
+              f"{label}: {tr['serving_verify']} verify traces for "
+              f"{verify_keys} keys")
+    spec = d.get("spec_dispatches", 0)
+    warm = tr["serving_prefill"] + tr["serving_decode"] \
+        + K1 * tr["serving_verify"]
+    steps = d.get("prefill_positions", 0) \
+        + (d.get("decode_steps", 0) - spec) * chunk + K1 * spec
+    check(b["launches"] == L * (steps + warm),
+          f"{label}: {b['launches']} dequant_decode launches, not {L} x "
+          f"({steps} positions replayed + {warm} in warm-ups)")
+    return steps, warm
+
+
+def spec_stats_line(label, b):
+    d = b["delta"]
+    drafted = d.get("tokens_drafted", 0)
+    n = d.get("accept_len_count", 0)
+    return (f"{label}: verify dispatches {d.get('spec_dispatches', 0)} "
+            f"(replays {d.get('verify_replays', 0)}), decode chunks "
+            f"{d.get('decode_steps', 0) - d.get('spec_dispatches', 0)}; "
+            f"tokens drafted {drafted}, accepted "
+            f"{d.get('tokens_accepted', 0)}, rejected "
+            f"{d.get('tokens_rejected', 0)}; accept length mean "
+            f"{d.get('accept_len_total', 0) / max(n, 1):.3f} over {n} slot "
+            f"dispatches, histogram {{length: slots}} "
+            f"{d['accept_len_hist']}; n-gram hits "
+            f"{d.get('ngram_hits', 0)} misses {d.get('ngram_misses', 0)}; "
+            f"prefix-cache hits {d.get('prefix_hits', 0)} "
+            f"({d.get('prefix_hit_tokens', 0)} tokens); drafter host "
+            f"{d.get('draft_ms_total', 0):.1f} ms = "
+            f"{d.get('draft_ms_total', 0) / (b['wall'] * 1e3):.4f} of wall")
+
+
+def phase_spec(torch, model, serving, quant_attention, step_cache, counts,
+               smi):
+    """Speculative serving at base width: ``int8_kv,int8_w`` with
+    ``spec=SpecConfig(k=4)`` (two bursts of the phase-5 lengths, two
+    prompts sharing 256 tokens, one sampled request), the same without
+    ``spec``, then ``int8_kv`` (f32 weights) with and without ``spec`` on
+    the first burst. Tokens equal leg for leg; every verify dispatch a
+    replay; K5's launches exact; a prefix-cache hit. Returns the
+    speculative leg's K5 launches (first burst) and those inside
+    replays."""
+    L, K1 = len(model.blocks), SPEC_K + 1
+    bursts = [spec_prompts(torch, 4), spec_prompts(torch, 5)]
+    legs = {}
+    for name, quant, k, zero in (
+            ("spec int8_kv,int8_w", "int8_kv,int8_w", SPEC_K, counts),
+            ("reference int8_kv,int8_w", "int8_kv,int8_w", 0, None),
+            ("spec int8_kv", "int8_kv", SPEC_K, None),
+            ("reference int8_kv", "int8_kv", 0, None)):
+        legs[name] = spec_leg(
+            torch, model, serving, quant_attention, step_cache, quant, k,
+            bursts if "int8_w" in quant else bursts[:1], zero,
+            profile_prompts=serving_prompts(torch, 6)[2:4]
+            if name == "spec int8_kv,int8_w" else None)
+        torch.cuda.empty_cache()
+    spec_b, peak_a, keys, chunk, prof = legs["spec int8_kv,int8_w"]
+    differ = []
+    for a, b in (("spec int8_kv,int8_w", "reference int8_kv,int8_w"),
+                 ("spec int8_kv", "reference int8_kv")):
+        for i, (x, y) in enumerate(zip(legs[a][0], legs[b][0])):
+            for r, (s_, t_) in enumerate(zip(x["toks"], y["toks"])):
+                if s_ != t_:
+                    j = next(n for n, (u, v) in enumerate(zip(s_, t_))
+                             if u != v)
+                    differ.append(
+                        f"{a} burst {i + 1} request {r}"
+                        f"{' (sampled)' if r == SPEC_SAMPLED else ''}: "
+                        f"tokens differ from {b}'s at new token {j}")
+    check(not differ, "; ".join(differ))
+    steps, warm = check_spec_burst("spec burst 1", spec_b[0], L, chunk, K1,
+                                   keys)
+    check_spec_burst("spec burst 2", spec_b[1], L, chunk, K1)
+    for name in ("reference int8_kv,int8_w", "spec int8_kv",
+                 "reference int8_kv"):
+        b = legs[name][0][0]
+        check_spec_burst(name, b, L, chunk,
+                         K1 if name.startswith("spec") else 1,
+                         legs[name][2])
+    for name in ("spec int8_kv,int8_w", "spec int8_kv"):
+        d = legs[name][0][0]["delta"]
+        check(d.get("spec_dispatches", 0) > 0,
+              f"{name}: no verify dispatch ran")
+        check(d.get("tokens_accepted", 0) + d.get("tokens_rejected", 0)
+              == d.get("tokens_drafted", 0), f"{name}: drafted != "
+              f"accepted + rejected: {d}")
+    check(spec_b[0]["delta"].get("prefix_hits", 0) >= 1,
+          "the speculative leg's first burst hit no prefix-cache block")
+    print(f"speculative serving (base, slots=8, k={SPEC_K}, prefix_cache_mb"
+          f"=64, 2 prompts sharing 256 tokens, request {SPEC_SAMPLED} "
+          f"sampled at temperature 0.8, top-k 40) on {smi}:", flush=True)
+    for name, (bs, peak, _, _, _) in legs.items():
+        for i, b in enumerate(bs):
+            print("  " + spec_burst_line(f"{name} burst {i + 1}", b),
+                  flush=True)
+        print(f"  {name}: peak memory allocated in burst 1 {peak} bytes "
+              f"above what was held before", flush=True)
+    for name in ("spec int8_kv,int8_w", "spec int8_kv"):
+        for i, b in enumerate(legs[name][0]):
+            print("  " + spec_stats_line(f"{name} burst {i + 1}", b),
+                  flush=True)
+    print(f"  tokens: every request of every burst equal to the spec-less "
+          f"engine's (greedy and sampled), in both legs; K5 launches "
+          f"(spec burst 1) {spec_b[0]['launches']} = {L} x ({steps} "
+          f"positions + {warm} warm-up); verify keys {keys}, one trace "
+          f"each, none in burst 2; every verify dispatch a replay",
+          flush=True)
+    if prof is not None:
+        wall_ms, busy_ms, by_name, d = prof
+        print(f"profile speculative int8_kv,int8_w (prompts of 170 and 250 "
+              f"tokens x 128, replays only, profiler on): wall "
+              f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms = "
+              f"{busy_ms / wall_ms:.3f}; verify dispatches "
+              f"{d.get('spec_dispatches', 0)}, decode chunks "
+              f"{d.get('decode_steps', 0) - d.get('spec_dispatches', 0)}, "
+              f"prefill chunks {d.get('prefill_chunks', 0)}; drafter "
+              f"{d.get('draft_ms_total', 0):.1f} ms", flush=True)
+        busy_us = busy_ms * 1e3
+        for kname, (n, us) in sorted(by_name.items(),
+                                     key=lambda kv: -kv[1][1])[:10]:
+            print(f"  {us / busy_us:.3f} of device time, {n} launches, "
+                  f"{us / 1e3:.1f} ms: {kname[:100]}", flush=True)
+        k5 = [(n, us) for kname, (n, us) in by_name.items()
+              if "dequant_" in kname]
+        if k5:
+            n = sum(x for x, _ in k5)
+            us = sum(x for _, x in k5)
+            print(f"  K5 (chunk and merge kernels): {n} launches, "
+                  f"{us / busy_us:.3f} of device time, {us / n:.3f} us a "
+                  f"launch", flush=True)
+    b = spec_b[0]
+    return b["launches"], L * steps
+
+
+def phase_int8_products(torch, serve, smi):
+    """``serve._int8_matmul`` at the step's shapes, M in {1, 8, 40} x
+    (768 -> 768, 768 -> 3072, 3072 -> 768, 768 -> 50257 padded to
+    50264): bit-equal to the exact product (int32 sums checked in
+    float64), timed on a CUDA graph against ``F.linear`` in f32 at the
+    same shapes; and whether ``F.linear`` over 40 flattened rows gives
+    each 8-row block's bits (the verify step's float products)."""
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(12)
+    from mxtpu_torch.quant import kv_quant
+    lines = []
+    for K, N in ((768, 768), (768, 3072), (3072, 768), (768, 50257)):
+        w = torch.randn(N, K, device="cuda", generator=g) * 0.02
+        b = torch.zeros(N, device="cuda")
+        wq, ws = serve._pad_rows(*serve._quantize_weight(w))
+        for M in (1, 8, 40):
+            h = torch.randn(M, K, device="cuda", generator=g)
+            got = serve._int8_matmul(h, wq, ws)
+            hq, hs = kv_quant.quantize_rows(h, "int8")
+            exact = (hq.double() @ wq.double().t()).float()
+            check(torch.equal(got, exact * hs[:, None] * ws[None, :]),
+                  f"_int8_matmul M{M} {K}->{N}: not the exact int32 sum")
+            ms = graph_ms(torch, lambda: serve._int8_matmul(h, wq, ws), 20)
+            f_ms = graph_ms(torch, lambda: F.linear(h, w, b), 20)
+            lines.append(f"  M={M} {K}->{N}: _int8_matmul {ms:.4f} ms, "
+                         f"F.linear f32 {f_ms:.4f} ms ({f_ms / ms:.2f}x)")
+        h = torch.randn(40, K, device="cuda", generator=g)
+        flat = F.linear(h, w, b)
+        same = [torch.equal(flat[j:j + 8], F.linear(h[j:j + 8].contiguous(),
+                                                     w, b))
+                for j in range(0, 40, 8)]
+        lines.append(f"  F.linear f32 over 40 rows vs 8-row blocks, "
+                     f"{K}->{N}: blocks bit-equal {same}")
+    print(f"int8 products (``_int8_matmul``: row quantization, cuBLASLt "
+          f"int8 x int8 -> int32 via torch._int_mm, rescale; exact) on "
+          f"{smi}, device time on a CUDA graph:", flush=True)
+    for line in lines:
+        print(line, flush=True)
+
+
+def phase_verify_card_vs_cpu(torch, lm, serving, quant_attention, smi):
+    """One verify dispatch of a base-width, 2-layer ``int8_kv,int8_w``
+    model (S 8, TOT 832, k 4; one slot clipped at TOT - 1) on the card (a
+    replay of the captured program) and on the CPU, over one cache that
+    829 decode steps of random tokens filled on the card: outs, lives,
+    tok, p equal; the verify step's logits on the card against the CPU
+    within ``VERIFY_LOGITS_TOL``; every K5 call inside the replay against
+    the plain version at 1e-5 x max(|ref|, 1), and K5 timed at those
+    calls' shapes. Returns K5's record at the verify shape."""
+    import numpy as np
+    from mxtpu_torch.quant import kv_quant, serve
+    kv = serving.kv
+    S, TOT, k = 8, 832, SPEC_K
+    K1 = k + 1
+    cpu = lm.transformer_lm("base", vocab_size=50257, num_layers=2,
+                            device="cpu", seed=13)
+    gpu = lm.transformer_lm("base", vocab_size=50257, num_layers=2, seed=14)
+    gpu.load_state_dict(cpu.state_dict())
+    L, H, D = kv.cache_dims(cpu)
+    spec = serve.parse_quant("int8_kv,int8_w")
+    rs = np.random.RandomState(16)
+    p = rs.randint(0, TOT - 40, S)
+    p[0], p[1] = 0, TOT - 3                  # slot 1 clipped from j = 2
+    state = dict(tok=rs.randint(0, 50257, S), p=p,
+                 active=np.ones(S, bool), limit=p + 5,
+                 temp=np.zeros(S, np.float32), topk=np.zeros(S, np.int64),
+                 seed=np.zeros(S, np.int64),
+                 draft=rs.randint(0, 50257, (S, k)),
+                 dlen=np.full(S, k))
+    state["limit"][1] = TOT - 1
+    with torch.inference_mode():
+        filled = kv.empty_cache(gpu, S, TOT, quant=spec, device="cuda")
+        step = serve.build_step(gpu, S, TOT, spec)
+        pg_ = serve.quantize_lm(gpu, spec)
+        hist = torch.from_numpy(rs.randint(0, 50257, (TOT - 3, S))).cuda()
+        for t in range(TOT - 3):
+            step(pg_, filled, hist[t], torch.full((S,), t, device="cuda"))
+        data, scale = filled.data.cpu(), filled.scale.cpu()
+        del filled
+
+    def caches(dev):
+        return kv_quant.QuantKV(data.clone().to(dev), scale.clone().to(dev),
+                                "int8")
+
+    with torch.inference_mode():
+        pc_ = serve.quantize_lm(cpu, spec)
+        # drafts: the CPU model's own first two tokens a slot, then others
+        vstep_c = serve.build_verify_step(cpu, S, TOT, K1, spec)
+        feeds = torch.from_numpy(np.concatenate(
+            [state["tok"][:, None], state["draft"]], 1))
+        for j in range(2):
+            _, lg = vstep_c(pc_, caches("cpu"), feeds, torch.from_numpy(p))
+            feeds[:, j + 1] = lg[:, j].argmax(-1)
+        state["draft"] = feeds[:, 1:].numpy().copy()
+        _, lc = vstep_c(pc_, caches("cpu"), feeds, torch.from_numpy(p))
+        nudged = dict(pc_, pos=pc_["pos"] * (1 + 1e-6))
+        _, ln_ = vstep_c(nudged, caches("cpu"), feeds, torch.from_numpy(p))
+        nrows = (ln_ - lc).abs().amax(-1)
+        vstep_g = serve.build_verify_step(gpu, S, TOT, K1, spec)
+        _, lgpu = vstep_g(pg_, caches("cuda"), feeds.cuda(),
+                          torch.from_numpy(p).cuda())
+        rows = (lgpu.cpu() - lc).abs().amax(-1)          # (S, K1)
+        lerr, close = rows.max().item(), (rows <= 1e-4).float().mean().item()
+        check(lerr <= VERIFY_LOGITS_TOL[0] and close >= VERIFY_LOGITS_TOL[1],
+              f"verify logits card vs CPU: max diff {lerr}, share of rows "
+              f"within 1e-4 {close} (tol {VERIFY_LOGITS_TOL})")
+        ref = kv.build_verify(cpu, pc_, caches("cpu"), S, TOT, k,
+                              quant=spec)(*state.values())
+        # the card: the captured program, its K5 calls recorded by clones
+        # captured into the graph beside them
+        seen = []
+        real = quant_attention.dequant_attention_decode
+
+        def recorded(q, kd, ks, vd, vs, pc, **kw):
+            out = real(q, kd, ks, vd, vs, pc, **kw)
+            seen.append((q.clone(), pc.clone(), out.clone()))
+            return out
+
+        gc = caches("cuda")
+        prog = kv.build_verify(gpu, pg_, gc, S, TOT, k, quant=spec,
+                               pool=torch.cuda.graph_pool_handle())
+        quant_attention.dequant_attention_decode = recorded
+        try:
+            got = prog(*state.values())
+        finally:
+            quant_attention.dequant_attention_decode = real
+        torch.cuda.synchronize()
+    check(prog.replays == 1 and len(seen) == 2 * L * K1,
+          f"verify program: {prog.replays} replays, {len(seen)} K5 calls "
+          f"recorded (warm-up and capture: {2 * L * K1})")
+    for name, a, b in zip(("tok", "p", "outs", "lives"), got, ref):
+        if not np.array_equal(a, b):
+            top = lc.topk(2, dim=-1).values
+            margin = (top[..., 0] - top[..., 1]).numpy()
+            raise SmokeFailure(
+                f"verify card vs CPU: {name} differ: {a.tolist()} vs "
+                f"{b.tolist()}; CPU top-2 logit margins (slot, position) "
+                f"{np.round(margin, 4).tolist()}, logits diff by row "
+                f"{np.round(rows.numpy(), 4).tolist()}")
+    scale_ = 1.0 / math.sqrt(D)
+    err = 0.0
+    for n, (q, pc, out) in enumerate(seen[L * K1:]):
+        i = n // K1
+        refo = quant_attention._decode_plain(
+            q, gc.data[i, 0], gc.scale[i, 0], gc.data[i, 1],
+            gc.scale[i, 1], pc, scale_)
+        e = k5_error(torch, out, refo)
+        tol = 1e-5 * max(refo.abs().max().item(), 1.0)
+        check(math.isfinite(e) and e <= tol, f"K5 inside the verify "
+              f"replay, layer {i} position {n % K1}: err {e} (tol {tol})")
+        err = max(err, e)
+    # K5 at the verify calls' shapes: layer 0's K1 calls, cycled
+    calls = seen[L * K1:L * K1 + K1]
+    cache0 = (gc.data[0, 0], gc.scale[0, 0], gc.data[0, 1], gc.scale[0, 1])
+    turn = [0]
+
+    def cycled(fn):
+        def call():
+            turn[0] += 1
+            q, pc, _ = calls[turn[0] % K1]
+            return fn(q, *cache0, pc, scale_)
+        return call
+
+    ms = graph_ms(torch, cycled(quant_attention.dequant_decode), 10 * K1)
+    plain_ms = graph_ms(torch, cycled(quant_attention._decode_plain), K1,
+                        reps=1)
+    nbytes = rows = 0
+    for q, pc, _ in calls:
+        nb, r = k5_bytes(pc, H, TOT, D, q)
+        nbytes, rows = nbytes + nb, rows + r
+    bound_ms, bound_by = _bound(4.0 * rows * D, nbytes, "float32")
+    n_ok = int(got[3].sum())
+    print(f"verify card vs CPU (base width, {L} layers, int8_kv,int8_w, S "
+          f"{S} TOT {TOT} k {k}, one slot clipped at TOT - 1) on {smi}: "
+          f"tok, p, outs, lives equal ({n_ok} tokens emitted); logits max "
+          f"diff {lerr:.3e}, {close:.3f} of the (slot, position) rows within"
+          f" 1e-4 (tol {VERIFY_LOGITS_TOL}; on the CPU alone, the position "
+          f"table scaled by 1 + 1e-6 moves the logits by up to "
+          f"{nrows.max().item():.3e}, {(nrows <= 1e-4).float().mean():.3f} "
+          f"of the rows within 1e-4); K5 inside the replay, {L * K1} "
+          f"calls: max_abs_err {err:.3e} (tol 1e-5 x max(|ref|, 1)); K5 at "
+          f"these calls' shapes {ms:.5f} ms a call (graph), plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms / K1:.5f} ms ({bound_by})",
+          flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms / K1, bound_by=bound_by, library_ms=None)
 
 
 def drive_programs(torch, kv, model, spec, reqs, replay):
@@ -2038,9 +2574,17 @@ def run():
         "serving", phase_serving, torch, model, serving, quant_attention,
         step_cache, counts)
     timed_phase("profile", phase_profile, torch, model, serving)
+    from mxtpu_torch.quant import serve as quant_serve
+    timed_phase("int8 products", phase_int8_products, torch, quant_serve,
+                smi[0])
+    spec_launches, spec_replayed = timed_phase(
+        "speculative serving", phase_spec, torch, model, serving,
+        quant_attention, step_cache, counts, smi[0])
     del model
     torch.cuda.empty_cache()
     timed_phase("card vs CPU", phase_card_vs_cpu, torch, lm, serving)
+    k5_verify = timed_phase("verify card vs CPU", phase_verify_card_vs_cpu,
+                            torch, lm, serving, quant_attention, smi[0])
     timed_phase("serving programs", phase_programs, torch, lm, serving,
                 quant_attention, counts)
     bwd = timed_phase("K2/K3/K4 checks", phase_bwd, torch, attention)
@@ -2102,6 +2646,12 @@ def run():
              source="mxtpu_torch/csrc/dequant_decode.cu",
              replaces="mxtpu/ops/quant_attention.py:99", path="serving",
              launches=k5_launches, launches_in_replays=k5_replayed, **k5),
+        dict(name="dequant_decode", route="cuda",
+             source="mxtpu_torch/csrc/dequant_decode.cu",
+             replaces="mxtpu/ops/quant_attention.py:99",
+             path="serving, speculative verify (int8_kv,int8_w)",
+             launches=spec_launches, launches_in_replays=spec_replayed,
+             **k5_verify),
         dict(name="rtc saxpy", route="nvrtc", source="mxtpu_torch/rtc.py",
              kernel_source="chip_smoke.py:SAXPY_SRC",
              replaces="mxtpu/rtc.py:47", path="K6 checks, saxpy at 2^26",

@@ -11,11 +11,13 @@ on the card, and its backward through K2/K3 (or K4); the tied head's
 gradient reaches ``embedding.weight`` from both of its uses. Models are
 built in eval mode, as the reference's blocks run outside a training scope:
 ``dropout`` acts only in train mode, which ``DataParallelTrainer`` turns on
-for its step. ``cast(dtype)`` casts every parameter. ``serving_step`` is the engine's one-position decode step over
-a float KV cache (plain einsums, as in the reference), and ``generate``
-loops it. Weights are random, drawn from ``seed`` on the CPU, so a model
-built on the card and one built on the CPU from the same seed hold the
-same values.
+for its step. ``cast(dtype)`` casts every parameter. ``serving_step`` is
+the engine's one-position decode step over a float KV cache (plain
+einsums, as in the reference), ``serving_verify_step`` its speculative
+verifier over k + 1 positions, and ``generate`` loops the decode step.
+Weights are random, drawn from ``seed`` on the CPU, so a model built on
+the card and one built on the CPU from the same seed hold the same
+values.
 """
 
 from __future__ import annotations
@@ -190,6 +192,77 @@ class TransformerLM(nn.Module):
             if "head_w" in params:
                 return caches, F.linear(h, params["head_w"], params["head_b"])
             return caches, h @ params["embed"].t()              # (S, vocab)
+
+        return step
+
+    def serving_verify_step(self, S: int, TOT: int, K1: int):
+        """The speculative-decode verifier: one forward scoring ``K1`` =
+        k + 1 consecutive positions per slot over the float KV cache.
+
+        Returns ``step(params, caches, toks, p) -> (caches, logits)``:
+        ``toks`` (S, K1) holds the slot's current token (what plain decode
+        feeds at ``p``) then the drafted tokens, fed at ``p + j``;
+        ``logits`` (S, K1, vocab) row j predicts position ``p + j + 1``.
+
+        Row j equals, bit for bit, what :meth:`serving_step` at ``(S,
+        TOT)`` gives after the steps before it: every product runs at the
+        decode step's own ``(S, in)`` shape, once per position (a GEMM may
+        round a row differently at another row count, so the rows are not
+        flattened into one product); all ``K1`` K/V rows are written in
+        order j = 0..k before any query reads (positions clipped to
+        ``TOT - 1`` collide there and the last write wins), and query j
+        reads through the decode step's einsum with the mask ``t <= p +
+        j``. A rejected draft leaves rows above the accept point that the
+        next dispatch rewrites before anything reads them."""
+        H = self.blocks[0].attn._heads
+        U = self._units
+        D = U // H
+        scale = 1.0 / math.sqrt(D)
+
+        def ln(x, g, b):
+            return F.layer_norm(x, (U,), g, b, 1e-5)
+
+        def lin(x, w, b):
+            """(S, K1, in) -> (S, K1, out): K1 products at shape (S, in)."""
+            return torch.stack([F.linear(x[:, j].contiguous(), w, b)
+                                for j in range(K1)], dim=1)
+
+        def step(params, caches, toks, p):
+            dev = toks.device
+            rows = torch.arange(S, device=dev)
+            pcs = (p.long()[:, None] + torch.arange(K1, device=dev)[None, :]) \
+                .clamp(0, TOT - 1)                              # (S, K1)
+            x = params["embed"][toks] + params["pos"][pcs]      # (S, K1, U)
+            ar = torch.arange(TOT, device=dev)
+            for i, lp in enumerate(params["layers"]):
+                h = ln(x, lp["ln1_g"], lp["ln1_b"])
+                q = lin(h, lp["qw"], lp["qb"]).reshape(S, K1, H, D)
+                k = lin(h, lp["kw"], lp["kb"]).reshape(S, K1, H, D)
+                v = lin(h, lp["vw"], lp["vb"]).reshape(S, K1, H, D)
+                for j in range(K1):
+                    caches[i, 0, rows, :, pcs[:, j]] = k[:, j].to(caches.dtype)
+                    caches[i, 1, rows, :, pcs[:, j]] = v[:, j].to(caches.dtype)
+                K = caches[i, 0].to(q.dtype)                    # (S, H, TOT, D)
+                Vc = caches[i, 1].to(q.dtype)
+                ctxs = []
+                for j in range(K1):
+                    keep = ar[None, :] <= pcs[:, j, None]
+                    s = torch.einsum("bhd,bhtd->bht", q[:, j].contiguous(),
+                                     K) * scale
+                    att = torch.softmax(
+                        s.masked_fill(~keep[:, None, :], _NEG_INF), dim=-1)
+                    ctxs.append(torch.einsum("bht,bhtd->bhd", att, Vc))
+                ctx = torch.stack(ctxs, dim=1).reshape(S, K1, U)
+                x = x + lin(ctx, lp["ow"], lp["ob"])
+                g = ln(x, lp["ln2_g"], lp["ln2_b"])
+                g = F.gelu(lin(g, lp["f1w"], lp["f1b"]))
+                x = x + lin(g, lp["f2w"], lp["f2b"])
+            h = ln(x, params["ln_f_g"], params["ln_f_b"])
+            if "head_w" in params:
+                return caches, lin(h, params["head_w"], params["head_b"])
+            return caches, torch.stack([h[:, j].contiguous()
+                                        @ params["embed"].t()
+                                        for j in range(K1)], dim=1)
 
         return step
 

@@ -76,8 +76,12 @@ def quantize_rows(x: torch.Tensor, mode: str = "int8"):
     to even, as ``jnp.round`` does."""
     dtype, qmax = _mode_of(mode)
     absmax = x.abs().amax(dim=-1)
-    scale = torch.where(absmax > 0, absmax / qmax,
-                        torch.ones_like(absmax)).float()
+    # divide by a tensor: on CUDA a Python-number divisor becomes a
+    # multiplication by its reciprocal, which rounds some scales one ulp
+    # off the true quotient the reference and the CPU compute (and with
+    # them the codes of int8 weights)
+    scale = torch.where(absmax > 0, absmax / torch.full_like(absmax, qmax),
+                        1.0).float()
     inv = x / scale[..., None]
     if mode == "int8":
         return torch.round(inv).clamp(-qmax, qmax).to(dtype), scale

@@ -67,7 +67,9 @@ class ServingConfig:
     an explicit constructor argument wins over the field, and ``None``
     fields take the engine's default. ``kv_dtype`` is the float cache's
     storage dtype name (e.g. ``'bfloat16'``); ``quant`` a token string
-    (``'int8_kv'``, ``'fp8_kv'``) or a ``QuantSpec``."""
+    (``'int8_kv'``, ``'fp8_kv'``, ``'int8_w'``, comma-joined) or a
+    ``QuantSpec``; ``spec`` a ``SpecConfig`` or an integer draft depth
+    (speculative decode, off when None)."""
     slots: Optional[int] = None
     queue_depth: Optional[int] = None
     chunk: Optional[int] = None
@@ -75,6 +77,7 @@ class ServingConfig:
     prefix_cache_mb: Optional[float] = None
     kv_dtype: Optional[str] = None
     quant: object = None
+    spec: object = None
 
 
 class ServingRequest:

@@ -32,8 +32,18 @@ holds the engine's cache, so a promotion (new cache tensors) evicts it.
 
 Under ``quant="int8_kv"`` (or ``"fp8_kv"``) the cache is quantized and
 every prefill and decode step reads attention through the dequant-decode
-kernel on every layer. Greedy output is the default; it does not depend on
-slot assignment or chunk boundaries.
+kernel on every layer; under ``"int8_w"`` every weight product runs on
+int8 codes with exact int32 sums. Greedy output is the default; it does
+not depend on slot assignment or chunk boundaries.
+
+With ``spec=`` (:class:`~mxtpu_torch.serving.spec.SpecConfig`, or an
+integer draft depth) a decode turn dispatches the verify program
+(``serving_verify``, keyed ``(slots, TOT, k)``) whenever a slot holds
+drafts: it scores ``k + 1`` positions of every slot at once and accepts
+the drafts the model agrees with, so greedy output stays equal to plain
+decode; after each turn the drafter (an :class:`NgramDrafter` over the
+request's stream and the prefix cache's n-gram index, by default)
+proposes each greedy slot's next drafts.
 """
 
 from __future__ import annotations
@@ -52,6 +62,7 @@ from ..step_cache import ProgramCache
 from . import kv
 from .api import (CANCELLED, DONE, EXPIRED, RUNNING, QueueFullError,
                   ServingConfig, ServingRequest)
+from .spec import NgramDrafter, parse_spec, spec_from_env
 
 __all__ = ["ServingEngine"]
 
@@ -59,7 +70,8 @@ _DEFAULTS = dict(slots=4, queue_depth=16, chunk=8, prefill_chunk=64,
                  prefix_cache_mb=64.0)
 # stats that hold the latest value rather than a count
 _ASSIGNED = ("slots", "kv_dtype", "kv_bytes_resident", "prefix_cache_bytes",
-             "ttft_ms_last", "queue_wait_ms_last", "prefill_ms_last")
+             "ttft_ms_last", "queue_wait_ms_last", "prefill_ms_last",
+             "accept_len_last")
 
 
 def _req_sampling(req: ServingRequest):
@@ -78,7 +90,7 @@ class ServingEngine:
                  chunk: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
                  prefix_cache_mb: Optional[float] = None,
-                 kv_dtype=None, quant=None,
+                 kv_dtype=None, quant=None, spec=None,
                  config: Optional[ServingConfig] = None, device=None):
         cfg = config or ServingConfig()
         self.device = resolve_device(device)
@@ -101,6 +113,13 @@ class ServingEngine:
         self.prefill_chunk = int(pick(prefill_chunk, "prefill_chunk"))
         self.prefix_cache_mb = float(pick(prefix_cache_mb, "prefix_cache_mb"))
         self._quant = parse_quant(quant if quant is not None else cfg.quant)
+        # speculative decode: one config for the engine's life, resolved
+        # argument > config > MXTPU_SPEC_DECODE
+        if spec is None:
+            spec = cfg.spec
+        self._spec = parse_spec(spec) if spec is not None else spec_from_env()
+        self._drafter = self._spec.drafter if self._spec is not None \
+            else None
         kv_dtype = kv_dtype or cfg.kv_dtype or torch.float32
         self._kv_dtype = getattr(torch, kv_dtype) \
             if isinstance(kv_dtype, str) else kv_dtype
@@ -109,6 +128,7 @@ class ServingEngine:
         self._submit_q: "queue.Queue" = queue.Queue(maxsize=self.queue_depth)
         self._decode_fns = ProgramCache("serving_decode")
         self._prefill_fns = ProgramCache("serving_prefill")
+        self._verify_fns = ProgramCache("serving_verify")
         self._pages: dict = {}      # PB -> the prefill programs' page
         self._pool = None           # the programs' graph memory pool
         self._start_lock = threading.Lock()
@@ -131,6 +151,12 @@ class ServingEngine:
         self._topk = np.zeros(self.slots, np.int64)
         self._seed = np.zeros(self.slots, np.int64)
         self._reqs: List[Optional[ServingRequest]] = [None] * self.slots
+        # per-slot drafts, proposed at the end of a decode turn and consumed
+        # by the next verify dispatch; dlen == 0: plain decode this turn
+        if self._spec is not None:
+            self._draft = np.zeros((self.slots, self._spec.k), np.int64)
+            self._dlen = np.zeros(self.slots, np.int64)
+        self._ngram_seen = (0, 0)
         # partial-prefill cursor: at most one request prefills at a time
         self._pf: Optional[dict] = None
         self._prefix: Optional[kv.PrefixCache] = None
@@ -145,15 +171,32 @@ class ServingEngine:
 
     def stats(self) -> dict:
         """Counters of this engine: ``kv_dtype``, ``kv_bytes_resident``,
-        ``prefills``, ``prefill_chunks``, ``decode_steps`` (decode chunks
-        run), ``decode_tokens``, ``tokens_out``, ``completed``, the prefix
-        cache's hits and inserts, the last TTFT split, and on the card
+        ``prefills``, ``prefill_chunks``, ``prefill_positions`` (positions
+        the prefill chunks stepped), ``decode_steps`` (decode turns:
+        decode chunks and verify dispatches), ``decode_tokens``,
+        ``tokens_out``, ``completed``, the prefix cache's hits and
+        inserts, the last TTFT split, and on the card
         ``programs_captured``, ``capture_ms_total`` (of which
         ``capture_record_ms_total`` ran the bodies under capture) and the
-        chunks run as graph replays (``prefill_replays``,
-        ``decode_replays``)."""
+        turns run as graph replays (``prefill_replays``,
+        ``decode_replays``, ``verify_replays``).
+
+        Under ``spec``: ``spec_dispatches`` (verify dispatches),
+        ``tokens_drafted``, ``tokens_accepted`` and ``tokens_rejected``
+        (accepted + rejected == drafted), the accept length (tokens a slot
+        emitted from one verify dispatch: ``accept_len_last``,
+        ``accept_len_count``, ``accept_len_total``, ``accept_len_mean``
+        and ``accept_len_hist``, {length: slots}), the prefix cache's
+        ``ngram_hits`` and ``ngram_misses``, and ``draft_ms_total``, the
+        drafter's host time."""
         with self._stats_lock:
-            return dict(self._stats)
+            out = dict(self._stats)
+            out["accept_len_hist"] = dict(self._stats.get(
+                "accept_len_hist", {}))
+        n = out.get("accept_len_count", 0)
+        out["accept_len_mean"] = out.get("accept_len_total", 0) / n \
+            if n else 0.0
+        return out
 
     # -- public surface ------------------------------------------------------
     def start(self) -> "ServingEngine":
@@ -167,6 +210,11 @@ class ServingEngine:
                 self._prefix = kv.PrefixCache(
                     kv.block_nbytes(self._model, self._kv_dtype, self._quant),
                     self.prefix_cache_mb)
+            if self._spec is not None and self._drafter is None:
+                # the default drafter: the stream's own n-grams, then the
+                # prefix cache's index (self-context only without a cache)
+                self._drafter = NgramDrafter.from_config(self._spec,
+                                                         self._prefix)
             self._thread = threading.Thread(
                 target=self._run, daemon=True,
                 name="mxtpu-torch-serving-scheduler")
@@ -233,7 +281,10 @@ class ServingEngine:
                     if self._pf is not None:
                         self._prefill_chunk()    # ONE chunk, then decode
                     if self._active.any():
-                        self._decode_chunk()
+                        if self._spec is not None:
+                            self._spec_decode_turn()
+                        else:
+                            self._decode_chunk()
         except Exception as e:      # latched; stop() re-raises it
             self._error = e
         finally:
@@ -334,6 +385,7 @@ class ServingEngine:
             prog, "prefill_replays", pf["prompt"], pf["t0"], start,
             pf["prev"], pf["temp"], pf["topk"], pf["seed"])
         self._record("prefill_chunks")
+        self._record("prefill_positions", csize)
         page = pf["page"]
         pf["t"] = start + csize
         pf["prev"] = int(outs_np[-1])
@@ -399,8 +451,10 @@ class ServingEngine:
                                           self._kv_dtype, self._quant,
                                           self.device)
         elif need > self._TOT:
-            # the program over the old tensors can never run again
+            # the programs over the old tensors can never run again
             self._decode_fns.evict((self.slots, self._TOT, self.chunk))
+            if self._spec is not None:
+                self._verify_fns.evict((self.slots, self._TOT, self._spec.k))
             self._caches = kv.promote(self._caches, need)
             self._record("kv_promotions")
         else:
@@ -419,24 +473,131 @@ class ServingEngine:
             self._limit, self._temp, self._topk, self._seed)
         now = time.monotonic()
         self._record("decode_steps")
-        emitted = 0
-        for slot in np.flatnonzero(self._active):
-            req = self._reqs[slot]
-            fresh = toks_np[lives[:, slot], slot]
-            if fresh.size:
-                left = req._emit(fresh.tolist(), now)
-                emitted += int(self._left[slot] - left)
-                self._left[slot] = left
-            if self._left[slot] == 0:
-                self._retire(slot, DONE, now)
-            elif req._cancelled():
-                self._retire(slot, CANCELLED, now)
-            elif req._expired(now):
-                self._retire(slot, EXPIRED, now)
+        emitted = sum(self._deliver(slot, toks_np[lives[:, slot], slot], now)
+                      for slot in np.flatnonzero(self._active))
+        self._record_decode(emitted, now - t_dispatch)
+
+    def _deliver(self, slot: int, fresh: np.ndarray, now: float) -> int:
+        """Hand a decode turn's ``fresh`` tokens to the slot's request and
+        retire it once done, cancelled or expired; returns the tokens the
+        request took."""
+        req = self._reqs[slot]
+        got = 0
+        if fresh.size:
+            left = req._emit(fresh.tolist(), now)
+            got = int(self._left[slot] - left)
+            self._left[slot] = left
+        if self._left[slot] == 0:
+            self._retire(slot, DONE, now)
+        elif req._cancelled():
+            self._retire(slot, CANCELLED, now)
+        elif req._expired(now):
+            self._retire(slot, EXPIRED, now)
+        return got
+
+    def _record_decode(self, emitted: int, wall_s: float) -> None:
         if emitted:
             self._record("tokens_out", emitted)
             self._record("decode_tokens", emitted)
-            self._record("decode_ms_total", (now - t_dispatch) * 1e3)
+            self._record("decode_ms_total", wall_s * 1e3)
+
+    # -- speculative decode (spec mode only) ---------------------------------
+    def _spec_decode_turn(self) -> None:
+        """One decode turn under speculation: the verify program when any
+        slot holds drafts (a slot without them takes a plain step inside
+        it), the plain decode chunk when none does; then the next turn's
+        drafts from each survivor's stream."""
+        if int(self._dlen.sum()) > 0:
+            self._verify_chunk()
+        else:
+            self._decode_chunk()
+        self._propose_drafts()
+
+    def _propose_drafts(self) -> None:
+        """Refill the draft buffers for the next dispatch, greedy slots only
+        (a sampled slot's next token is a draw; the program forces its
+        ``dlen`` to 0 as well), clipped to the slot's live positions left:
+        a request's final token always decodes plain."""
+        t0 = time.perf_counter()
+        k = self._spec.k
+        drafted = 0
+        for slot in np.flatnonzero(self._active):
+            self._dlen[slot] = 0
+            room = int(self._limit[slot] - self._p[slot]) - 1
+            if self._temp[slot] > 0 or room <= 0:
+                continue
+            req = self._reqs[slot]
+            prop = self._drafter.propose(req.prompt + req.tokens(),
+                                         min(k, room))
+            n = min(len(prop), k, room)
+            if n > 0:
+                self._draft[slot, :n] = prop[:n]
+                self._dlen[slot] = n
+                drafted += n
+        if drafted:
+            self._record("tokens_drafted", drafted)
+        self._publish_ngram_stats()
+        self._record("draft_ms_total", (time.perf_counter() - t0) * 1e3)
+
+    def _publish_ngram_stats(self) -> None:
+        """The prefix cache's n-gram counters, as deltas, into the stats."""
+        if self._prefix is None:
+            return
+        now = (self._prefix.ngram_hits, self._prefix.ngram_misses)
+        for name, new, seen in zip(("ngram_hits", "ngram_misses"), now,
+                                   self._ngram_seen):
+            if new > seen:
+                self._record(name, new - seen)
+        self._ngram_seen = now
+
+    def _verify_chunk(self) -> None:
+        """One verify dispatch: every slot's k + 1 positions scored by one
+        forward, drafts accepted on the device, one readback."""
+        t_dispatch = time.monotonic()
+        key = (self.slots, self._TOT, self._spec.k)
+        prog = self._verify_fns.get_or_build(key, lambda: kv.build_verify(
+            self._model, self._params, self._caches, *key,
+            quant=self._quant, pool=self._pool))
+        self._tok, self._p, outs, lives = self._run_program(
+            prog, "verify_replays", self._tok, self._p, self._active,
+            self._limit, self._temp, self._topk, self._seed, self._draft,
+            self._dlen)
+        now = time.monotonic()
+        self._record("decode_steps")
+        self._record("spec_dispatches")
+        emitted = accepted = rejected = 0
+        hist = {}
+        for slot in np.flatnonzero(self._active):
+            fresh = outs[slot, lives[slot]]
+            drafted = int(self._dlen[slot])
+            self._dlen[slot] = 0              # consumed, hit or miss
+            if fresh.size:
+                # tokens this slot emitted from one dispatch: 1 is no win,
+                # k + 1 every draft accepted
+                e = int(fresh.size)
+                hist[e] = hist.get(e, 0) + 1
+                self._record("accept_len_last", e)
+                confirmed = min(e - 1, drafted)
+                accepted += confirmed
+                rejected += drafted - confirmed
+            emitted += self._deliver(slot, fresh, now)
+        self._record_accepts(hist, accepted, rejected)
+        self._record_decode(emitted, now - t_dispatch)
+
+    def _record_accepts(self, hist: dict, accepted: int,
+                        rejected: int) -> None:
+        with self._stats_lock:
+            st = self._stats
+            for name, n in (("tokens_accepted", accepted),
+                            ("tokens_rejected", rejected),
+                            ("accept_len_count", sum(hist.values())),
+                            ("accept_len_total",
+                             sum(e * c for e, c in hist.items()))):
+                if n:
+                    st[name] = st.get(name, 0) + n
+            h = st.setdefault("accept_len_hist", {})
+            for e, c in hist.items():
+                h[e] = h.get(e, 0) + c
 
     def _run_program(self, prog: kv.ChunkProgram, replays: str, *args):
         """Run one chunk program; count its capture and its replay."""
@@ -464,6 +625,8 @@ class ServingEngine:
         self._temp[slot] = 0.0
         self._topk[slot] = 0
         self._seed[slot] = 0
+        if self._spec is not None:
+            self._dlen[slot] = 0
 
     def _shutdown_sweep(self) -> None:
         """Nothing submitted may block forever: in-slot, mid-prefill and

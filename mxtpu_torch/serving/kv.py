@@ -16,7 +16,10 @@ Port of ``mxtpu/serving/kv.py``. The decode loop runs over one
   (:func:`build_prefill_chunk`), one position per step as the reference
   scans it.
 * **Shared-prefix reuse** — :class:`PrefixCache`, a reference-counted radix
-  tree over 32-token prompt blocks.
+  tree over 32-token prompt blocks, with an n-gram index over its token
+  paths that the speculative drafter reads.
+* **Speculative verify** — :func:`build_verify` scores ``k + 1`` positions
+  of every slot in one program and accepts drafts on the device.
 
 Step semantics (shared with ``generate``): feeding position ``p`` consumes
 the token at ``p``, writes its K/V at ``p`` and emits the token for
@@ -45,7 +48,8 @@ from ..step_cache import GraphProgram, HostStaging
 __all__ = ["bucket32", "cache_dims", "empty_cache", "empty_page",
            "reset_page", "promote", "merge_page", "install_rows",
            "cache_nbytes", "block_nbytes", "ChunkProgram",
-           "build_prefill_chunk", "build_decode", "PrefixCache"]
+           "build_prefill_chunk", "build_decode", "build_verify",
+           "PrefixCache"]
 
 # kernel wrappers whose ``launches`` count what a replay runs
 _COUNTED = (quant_attention.dequant_decode,)
@@ -56,13 +60,26 @@ def _kv_mode(quant) -> Optional[str]:
     return getattr(quant, "kv", None)
 
 
+def _quantized(quant) -> bool:
+    return bool(getattr(quant, "enabled", False))
+
+
 def _step_fn(model, S: int, TOT: int, quant):
-    """The model's own ``serving_step`` over a float cache, its quantized
-    twin (``mxtpu_torch.quant.serve.build_step``) when a KV mode is set."""
-    if _kv_mode(quant):
+    """The model's own ``serving_step`` on the fp32 path, its quantized
+    twin (``mxtpu_torch.quant.serve.build_step``) when a spec is active."""
+    if _quantized(quant):
         from ..quant.serve import build_step
         return build_step(model, S, TOT, quant)
     return model.serving_step(S, TOT)
+
+
+def _verify_step_fn(model, S: int, TOT: int, K1: int, quant):
+    """``serving_verify_step`` on the fp32 path, its quantized twin
+    (``build_verify_step``) when a spec is active, as :func:`_step_fn`."""
+    if _quantized(quant):
+        from ..quant.serve import build_verify_step
+        return build_verify_step(model, S, TOT, K1, quant)
+    return model.serving_verify_step(S, TOT, K1)
 
 
 def bucket32(n: int, max_len: int) -> int:
@@ -197,7 +214,7 @@ def build_prefill_chunk(model, params, page, PB: int, csize: int,
     j + 1``; ``page`` is updated in place."""
     step = _step_fn(model, 1, PB, quant)
     sample = model.serving_sample()
-    dev = params["embed"].device
+    dev = params["pos"].device
     state = torch.zeros(6 + PB, dtype=torch.float64, device=dev)
     out = torch.zeros(csize, dtype=torch.long, device=dev)
 
@@ -240,7 +257,7 @@ def build_decode(model, params, caches, S: int, TOT: int, chunk: int,
     the host consumes ``toks[j, s]`` only where ``lives[j, s]``."""
     step = _step_fn(model, S, TOT, quant)
     sample = model.serving_sample()
-    dev = params["embed"].device
+    dev = params["pos"].device
     state = torch.zeros((7, S), dtype=torch.float64, device=dev)
     out = torch.zeros((2 * chunk + 2, S), dtype=torch.long, device=dev)
 
@@ -275,6 +292,81 @@ def build_decode(model, params, caches, S: int, TOT: int, chunk: int,
     return ChunkProgram(body, state, out, pack, unpack, pool)
 
 
+def build_verify(model, params, caches, S: int, TOT: int, k: int,
+                 quant=None, pool=None) -> ChunkProgram:
+    """The speculative-decode verify program for (slots ``S``, KV bucket
+    ``TOT``, draft depth ``k``) over ``caches``: one forward scores all
+    ``K1 = k + 1`` positions of every slot (``build_verify_step``, or the
+    model's ``serving_verify_step``), then greedy accept/reject runs on the
+    device, so the host reads back one (tokens, lives) pair a dispatch.
+
+    Each slot's token, position, active flag, limit, sampling state and
+    drafts (``draft (S, k)``, ``dlen (S,)``) live in the program's state,
+    so drafter misses (``dlen == 0``), sampled slots and every mix of
+    accept lengths reuse one program. Position 0 goes through the model's
+    sampler with the decode chunk's own (seed, position) key, so a sampled
+    slot (whose ``dlen`` the program forces to 0) emits the stream plain
+    decode emits; drafts are accepted greedily.
+
+    Call: ``prog(tok, p, active, limit, temp, topk, seed, draft, dlen)``
+    (``draft`` an (S, k) host array, the rest (S,)) ``-> (tok, p, outs
+    (S, K1), lives (S, K1) bool)``. ``outs[s, j]`` is the model's token for
+    position ``p[s] + j + 1``; ``lives[s, j]`` marks the emitted prefix:
+    position 0 always, position j while every draft below it matched
+    (``draft[s, i] == outs[s, i]`` for ``i < j``), all capped by the slot's
+    live ``limit``. The accepted rows' K/V were written by the forward;
+    rows above the accept point are rewritten by the next dispatch before
+    anything reads them, so rejection rolls back by cursor arithmetic
+    alone (int8 KV scales included)."""
+    K1 = k + 1
+    step = _verify_step_fn(model, S, TOT, K1, quant)
+    sample = model.serving_sample()
+    dev = params["pos"].device
+    state = torch.zeros((8 + k, S), dtype=torch.float64, device=dev)
+    out = torch.zeros((2 * K1 + 2, S), dtype=torch.long, device=dev)
+    offs = torch.arange(K1, device=dev)
+
+    def body(steps: int = 1):
+        # one dispatch is one step: ``steps`` (the capture's warm-up
+        # asks for 1) changes nothing
+        ints = state.long()
+        tok, p, active, limit, topk, seed, dlen = ints[:7].unbind(0)
+        temp = state[7].float()
+        draft = ints[8:].t()                                   # (S, k)
+        feeds = torch.cat([tok[:, None], draft], dim=1)        # (S, K1)
+        _, logits = step(params, caches, feeds, p)
+        greedy = torch.argmax(logits, dim=-1)                  # (S, K1)
+        nxt0 = sample(logits[:, 0].contiguous(), temp, topk, seed, p)
+        outs = torch.cat([nxt0[:, None], greedy[:, 1:]], dim=1)
+        # draft j proposes the token for position p+j+1, whose truth is
+        # outs[:, j] while every draft below it matched: cumprod keeps the
+        # leading run
+        dl = torch.where(temp > 0, 0, dlen)
+        acc = (offs[None, :k] < dl[:, None]) & (draft == outs[:, :k])
+        a = torch.cumprod(acc.long(), dim=1).sum(dim=1)
+        lives = (active[:, None] > 0) \
+            & (p[:, None] + offs[None, :] < limit[:, None]) \
+            & (offs[None, :] <= a[:, None])
+        e = lives.sum(dim=1)
+        last = outs.gather(1, (e - 1).clamp(min=0)[:, None])[:, 0]
+        out[:K1].copy_(outs.t())
+        out[K1:2 * K1].copy_(lives.t())
+        out[2 * K1].copy_(torch.where(e > 0, last, tok))
+        out[2 * K1 + 1].copy_(p + e)
+
+    def pack(tok, p, active, limit, temp, topk, seed, draft, dlen):
+        return np.concatenate([
+            np.stack([tok, p, active, limit, topk,
+                      np.asarray(seed) & 0xFFFFFFFF, dlen, temp]),
+            np.asarray(draft).T]).astype(np.float64)
+
+    def unpack(o):
+        return o[2 * K1], o[2 * K1 + 1], o[:K1].T, \
+            o[K1:2 * K1].T.astype(bool)
+
+    return ChunkProgram(body, state, out, pack, unpack, pool)
+
+
 # ---------------------------------------------------------------------------
 # shared-prefix radix KV reuse
 # ---------------------------------------------------------------------------
@@ -293,12 +385,23 @@ class PrefixCache:
     nodes in LRU order. Blocks are copies (pages are updated in place)."""
 
     BLOCK = 32
+    # n-gram side index over the tree's token-id paths (the speculative
+    # drafter's read path): every 1..NGRAM-token window maps to the next
+    # NGRAM_CONT tokens seen after it, the latest insert wins, at most
+    # NGRAM_CAP entries in LRU order (a stale entry costs only a rejected
+    # draft)
+    NGRAM = 3
+    NGRAM_CONT = 8
+    NGRAM_CAP = 1 << 16
 
     def __init__(self, block_bytes: int, capacity_mb: float):
         self.block_bytes = int(block_bytes)
         self.capacity_bytes = int(float(capacity_mb) * (1 << 20))
         self.evictions = 0
+        self.ngram_hits = 0
+        self.ngram_misses = 0
         self._nodes: "OrderedDict[tuple, dict]" = OrderedDict()
+        self._ngram: "OrderedDict[tuple, tuple]" = OrderedDict()
 
     def __len__(self) -> int:
         return len(self._nodes)
@@ -376,7 +479,36 @@ class PrefixCache:
             m += self.BLOCK
         if created:
             self._evict()
+        self._index_ngrams(tokens[:m])
         return created
+
+    def _index_ngrams(self, seq) -> None:
+        """Index every 1..NGRAM-token window of the cached path against the
+        tokens that follow it (token ids only, never K/V rows)."""
+        seq = tuple(seq)
+        for n in range(1, self.NGRAM + 1):
+            for i in range(len(seq) - n):
+                key = seq[i:i + n]
+                self._ngram[key] = seq[i + n:i + n + self.NGRAM_CONT]
+                self._ngram.move_to_end(key)
+        while len(self._ngram) > self.NGRAM_CAP:
+            self._ngram.popitem(last=False)
+
+    def ngram_lookup(self, suffix, k: int) -> List[int]:
+        """Up to ``k`` tokens proposed to follow ``suffix``, from the
+        longest indexed n-gram that ends it; ``[]`` on a miss. Counts
+        ``ngram_hits`` and ``ngram_misses``. Proposals are advisory: the
+        verify step rejects what the model disagrees with."""
+        suffix = tuple(suffix)
+        for n in range(min(self.NGRAM, len(suffix)), 0, -1):
+            key = suffix[len(suffix) - n:]
+            cont = self._ngram.get(key)
+            if cont:
+                self._ngram.move_to_end(key)
+                self.ngram_hits += 1
+                return list(cont[:k])
+        self.ngram_misses += 1
+        return []
 
     def _evict(self) -> None:
         while self.bytes > self.capacity_bytes:

@@ -30,7 +30,9 @@ Phases, in order; any failure exits non-zero without a result line:
    D=128), q in bf16, cursors past the bucket and D=40; the timed cases
    on a CUDA graph (the device alone), eagerly, and against the launch
    floor and the byte bound; then a cache and the same cache zero-padded
-   into a larger bucket give the same bits under one ``span``;
+   into a larger bucket give the same bits under one ``span``, and so do
+   the float-cache step's logits (``serving_step``, and ``int8_w`` over a
+   float cache; TOT 256 -> 288 and 704 -> 1024);
 4. forward: ``transformer_lm("base", vocab_size=50257)`` (GPT-2 124M
    dimensions) scores a (4, 1024) batch; K1 must launch;
 5. serving: ``ServingEngine(that model, slots=8, quant="int8_kv")`` answers
@@ -41,8 +43,9 @@ Phases, in order; any failure exits non-zero without a result line:
    its launch count must equal the replayed steps' and the captures'
    warm-up steps'; tokens/s, TTFT, captures and their time, peak memory;
    then two of the requests twice through one engine, the second time
-   under ``torch.profiler``, for the device's busy share while replaying
-   and K5's launches and mean time per launch;
+   under ``torch.profiler`` with the tracer on, for the device's busy
+   share while replaying, K5's launches and mean time per launch, and the
+   engine's ``serving/*`` spans in the profiler's trace;
 5b. int8 weight products (``quant.serve._int8_matmul``: row quantization,
    cuBLASLt int8 x int8 -> int32 through ``torch._int_mm``, rescale) at
    M in {1, 8, 40} x (768 -> 768, 768 -> 3072, 3072 -> 768, 768 ->
@@ -53,21 +56,46 @@ Phases, in order; any failure exits non-zero without a result line:
 5c. speculative serving on phase 5's model: ``ServingEngine(slots=8,
    quant="int8_kv,int8_w", spec=SpecConfig(k=4), prefix_cache_mb=64)``
    serves phase 5's lengths (the 333- and 480-token prompts share 256
-   tokens, the 170-token request samples at temperature 0.8, top-k 40),
-   then a second burst of other prompts; the same two bursts without
-   ``spec``; then the first burst under ``quant="int8_kv"`` (f32 weights)
-   with and without ``spec``. Every request's tokens equal the spec-less
-   engine's in both legs; every prefill chunk, decode chunk and verify
-   dispatch a replay, one capture per key, none in the second burst; K5's
+   tokens, the 170-token request samples at temperature 0.8, top-k 40);
+   the same burst without ``spec``; then the burst under
+   ``quant="int8_kv"`` (f32 weights) and over a float cache
+   (``quant=None``), each with and without ``spec``. Every request's
+   tokens equal the spec-less engine's in all three legs; every prefill
+   chunk, decode chunk and verify dispatch a replay, one capture per key,
+   none in the profiled wave that follows the speculative burst; K5's
    launches exactly L x (prefill positions + decode chunks x 8 + 5 x
    verify dispatches + the captures' warm-up steps, 5 for a verify
-   program); a prefix-cache hit; tokens/s, TTFT, captures, accept
+   program; none over the float cache); a prefix-cache hit; tokens/s,
+   TTFT, captures, accept
    lengths, drafted/accepted/rejected, n-gram hits, the drafter's host
    time and peak memory of each leg; then two requests through the
    speculative engine under ``torch.profiler``;
+5e. the serving control plane on phase 5's model: a two-tenant trace of
+   ``sched.replay`` (8 batch-tier requests of 400-700 tokens, 128 new,
+   after a one-bucket pilot; then, once the first batched group decodes,
+   8 interactive requests of 64-200 tokens, 64 new) through
+   ``ServingEngine(slots=8, quant="int8_kv", sched=True, prefill_batch=4,
+   stall_deadline_s=60, engine_id="e0")``: at least one preemption with
+   park and resume and one batched prefill group of 2 or more; every
+   request's tokens equal a plain ``ServingEngine(slots=8,
+   quant="int8_kv")``'s; every B=1 and batched prefill chunk and decode
+   chunk a replay, one capture a key; K5's launches exactly L x (batched
+   and B=1 prefill positions + decode chunks x 8 + the warm-ups); the
+   ``serving`` heartbeats at least the dispatches and no stall; one feed
+   transfer a request; tokens/s, TTFT median and max, shed, preempted and
+   resumed a tenant. Then three handoffs of phase 5c's first burst
+   (``int8_kv``, a float cache, ``int8_kv`` with ``spec=4``): drained
+   after a few decode turns with one request mid-prefill, adopted by a
+   fresh engine; every request's tokens equal the undisturbed engine's
+   (5c's spec-less legs), zero drops; drain and adopt ms, handoff bytes,
+   the adopting engine's captures; the timeline of an adopted request
+   (submit, admit, prefill, decode, drain, adopt, decode, retire, in
+   order); K5 against its plain version at the batched prefill's shape
+   (S 4, PB 704, every cursor last), timed on a graph;
 6. card against CPU: at base width with 2 layers, the same weights on the
    card and on the CPU give the same greedy tokens for 2 requests of 32
-   new tokens (int8 and fp8 KV), and forward logits that agree; then the
+   new tokens (int8 and fp8 KV, a float cache, int8 weights over a float
+   cache), and forward logits that agree; then the
    serving programs at that size (int8 KV): a greedy and a sampled
    request through the prefill and decode programs (cursors in K5's
    chunk 0 of a split page), once by graph replays and once through the
@@ -76,7 +104,10 @@ Phases, in order; any failure exits non-zero without a result line:
 6b. the verify step card against CPU: one verify dispatch of a base-width,
    2-layer ``int8_kv,int8_w`` model (S 8, TOT 832, k 4, one slot clipped
    at TOT - 1) by a replay of its captured program and on the CPU: tok,
-   p, outs and lives equal, logits within ``VERIFY_LOGITS_TOL``; each of
+   p, outs and lives equal, logits within ``VERIFY_LOGITS_TOL``; the int8
+   codes of every row quantization (activations of each product, K/V rows
+   appended) captured on both sides: the rows whose codes all agree
+   within 1e-4, the others behind codes one step apart; each of
    the 10 K5 calls
    inside the replay against the plain version (clones captured beside
    them), and K5 timed at those calls' shapes;
@@ -138,12 +169,13 @@ Phases, in order; any failure exits non-zero without a result line:
     ``F.cross_entropy``.
 
 Launch counts are set to 0 just before phases 4, 5, 5c (its first
-burst), 8, 9 (each fused run), 10, saxpy's drive in 11 and the 10 steps
-of 12, and read just after. The line before the last is the kernels' JSON
-record, with one K1, K2, K3 and K4 record for each route and the path it
-runs on, and two K5 records (plain serving, phase 5; speculative verify,
-phase 5c with the times of phase 6b), each with its launches inside graph
-replays; the last line is
+burst), 5e (its SLO burst), 8, 9 (each fused run), 10, saxpy's drive in
+11 and the 10 steps of 12, and read just after. The line before the last
+is the kernels' JSON record, with one K1, K2, K3 and K4 record for each
+route and the path it runs on, and three K5 records (plain serving, phase
+5; speculative verify, phase 5c with the times of phase 6b; the SLO
+batched prefill, phase 5e), each with its launches inside graph replays;
+the whole smoke's time is printed before it; the last line is
 ``{"ok": true, "device": {...}}``.
 Weights and data are random, from fixed seeds.
 """
@@ -569,6 +601,7 @@ def phase_k5(torch, quant_attention, kv_quant):
             prefill = dict(TOT=TOT, ms=ms, eager_ms=eager_ms,
                            bound_ms=bound_ms)
     k5_span_check(torch, quant_attention, kv_quant, g)
+    float_span_check(torch)
     return dict(main, prefill=prefill)
 
 
@@ -606,6 +639,46 @@ def k5_span_check(torch, quant_attention, kv_quant, g):
           f"{quant_attention._card_chunk('cuda', S, H, 1024, D)}): "
           f"{'bit-equal' if torch.equal(c, d) else 'differ'}, max diff "
           f"{(c - d).abs().max().item():.3e}", flush=True)
+
+
+def float_span_check(torch):
+    """The float-cache step's read (``serving_step``, and ``build_step``'s
+    ``_float_read`` under ``int8_w``), base width, one layer, S 8, ragged
+    cursors: logits over a cache and over the same cache zero-padded into
+    a larger bucket (TOT 256 -> 288, 704 -> 1024) must be bit-equal, as an
+    engine's tokens must not depend on when it promoted its cache."""
+    from mxtpu_torch.gluon.model_zoo import transformer as lm
+    from mxtpu_torch.quant import serve
+    net = lm.transformer_lm("base", vocab_size=50257, num_layers=1, seed=9)
+    g = torch.Generator(device="cuda").manual_seed(10)
+    S = 8
+    w8 = serve.parse_quant("int8_w")
+    steps = {"serving_step": (lambda T: net.serving_step(S, T),
+                              net._gen_params()),
+             "int8_w step": (lambda T: serve.build_step(net, S, T, w8),
+                             serve.quantize_lm(net, w8))}
+    lines = []
+    with torch.inference_mode():
+        for small, big in ((256, 288), (704, 1024)):
+            cache = torch.randn(1, 2, S, 12, small, 64, device="cuda",
+                                generator=g) * 0.3
+            padded = torch.zeros(1, 2, S, 12, big, 64, device="cuda")
+            padded[..., :small, :] = cache
+            tok = torch.randint(0, 50257, (S,), device="cuda", generator=g)
+            p = torch.randint(0, small, (S,), device="cuda", generator=g)
+            p[0], p[-1] = 0, small - 1
+            for name, (make, params) in steps.items():
+                _, a = make(small)(params, cache.clone(), tok, p)
+                _, b = make(big)(params, padded.clone(), tok, p)
+                torch.cuda.synchronize()
+                same = torch.equal(a, b)
+                lines.append(f"{name} TOT {small} vs {big}: "
+                             f"{'bit-equal' if same else 'differ'} (max "
+                             f"diff {(a - b).abs().max().item():.3e})")
+                check(same, f"float read: {lines[-1]}")
+    print("float-cache read, a cache and the same cache zero-padded into a "
+          "larger bucket (base width, S 8, ragged cursors): "
+          + "; ".join(lines), flush=True)
 
 
 def phase_bwd(torch, attention):
@@ -951,7 +1024,9 @@ def phase_profile(torch, model, serving):
     device's busy share of the second wave's wall time, the kernels that
     take it, and K5's launches and mean device time per launch (its
     kernels' names hold ``dequant_``)."""
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
+    from mxtpu_torch.observability import tracer
     prompts = serving_prompts(torch)[2:4]
     with serving.ServingEngine(model, slots=8, quant="int8_kv",
                                prefix_cache_mb=0) as eng:
@@ -959,15 +1034,30 @@ def phase_profile(torch, model, serving):
         for r in [eng.submit(p, 128) for p in prompts]:
             r.result(timeout=900)
         first_ms = (time.monotonic() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.monotonic()
-            for r in [eng.submit(p, 128) for p in prompts]:
-                r.result(timeout=900)
-            torch.cuda.synchronize()
-            wall_us = (time.monotonic() - t0) * 1e6
+        tracer.start()
+        try:
+            # the spans run on the engine's scheduler thread
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         experimental_config=_ExperimentalConfig(
+                             profile_all_threads=True)) as prof:
+                t0 = time.monotonic()
+                for r in [eng.submit(p, 128) for p in prompts]:
+                    r.result(timeout=900)
+                torch.cuda.synchronize()
+                wall_us = (time.monotonic() - t0) * 1e6
+        finally:
+            tracer.stop()
+            tracer.reset()
         stats = eng.stats()
-    by_name, k5 = {}, {}
+    by_name, k5, spans = {}, {}, {}
     for e in prof.events():
+        if e.name.startswith("serving/"):
+            # the spans, on the host and mirrored onto the device's
+            # timeline as annotations: not kernels
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                spans[e.name] = spans.get(e.name, 0) + 1
+            continue
         if e.device_type == torch.autograd.DeviceType.CUDA:
             us = e.time_range.elapsed_us()
             by_name[e.name] = by_name.get(e.name, 0.0) + us
@@ -976,6 +1066,11 @@ def phase_profile(torch, model, serving):
                 k5[e.name] = (n + 1, tot + us)
     busy = sum(by_name.values())
     captured = stats.get("programs_captured")
+    check(spans.get("serving/decode", 0) > 0
+          and spans.get("serving/prefill_chunk", 0) > 0,
+          f"the engine's serving/* spans are not in the profile: {spans}")
+    print(f"profile serving: the engine's spans in the torch.profiler trace "
+          f"(tracer on): {spans}", flush=True)
     print(f"profile serving: first wave (captures {captured} programs in "
           f"{stats.get('capture_ms_total', 0):.1f} ms) {first_ms:.1f} ms; "
           f"second wave (2 x 128, replays only, profiler on) "
@@ -1120,11 +1215,12 @@ def spec_burst_line(label, b):
             f"{b['launches']}; kv_dtype {st['kv_dtype']}")
 
 
-def check_spec_burst(label, b, L, chunk, K1, verify_keys=None):
+def check_spec_burst(label, b, L, chunk, K1, verify_keys=None, k5=True):
     """Every chunk and dispatch of the burst a replay, one trace per
     program key (none when ``verify_keys`` is None: a burst after the
     first), and K5's launches exactly L x (prefill positions + decode
-    chunks x chunk + K1 x verify dispatches + the captures' warm-ups)."""
+    chunks x chunk + K1 x verify dispatches + the captures' warm-ups), or
+    none over a float cache (``k5=False``)."""
     d, tr = b["delta"], b["traces"]
     check(d.get("prefill_replays", 0) == d.get("prefill_chunks", 0)
           and d.get("decode_replays", 0) + d.get("verify_replays", 0)
@@ -1145,9 +1241,11 @@ def check_spec_burst(label, b, L, chunk, K1, verify_keys=None):
         + K1 * tr["serving_verify"]
     steps = d.get("prefill_positions", 0) \
         + (d.get("decode_steps", 0) - spec) * chunk + K1 * spec
-    check(b["launches"] == L * (steps + warm),
-          f"{label}: {b['launches']} dequant_decode launches, not {L} x "
-          f"({steps} positions replayed + {warm} in warm-ups)")
+    want = L * (steps + warm) if k5 else 0
+    check(b["launches"] == want,
+          f"{label}: {b['launches']} dequant_decode launches, not {want}: "
+          f"{L} x ({steps} positions replayed + {warm} in warm-ups)"
+          f"{'' if k5 else ' over an int8 cache, none over a float one'}")
     return steps, warm
 
 
@@ -1174,31 +1272,36 @@ def spec_stats_line(label, b):
 def phase_spec(torch, model, serving, quant_attention, step_cache, counts,
                smi):
     """Speculative serving at base width: ``int8_kv,int8_w`` with
-    ``spec=SpecConfig(k=4)`` (two bursts of the phase-5 lengths, two
+    ``spec=SpecConfig(k=4)`` (a burst of the phase-5 lengths, two
     prompts sharing 256 tokens, one sampled request), the same without
-    ``spec``, then ``int8_kv`` (f32 weights) with and without ``spec`` on
-    the first burst. Tokens equal leg for leg; every verify dispatch a
-    replay; K5's launches exact; a prefix-cache hit. Returns the
-    speculative leg's K5 launches (first burst) and those inside
-    replays."""
+    ``spec``, then ``int8_kv`` (f32 weights) and a float cache
+    (``quant=None``) with and without ``spec``. Tokens equal leg for leg;
+    every verify dispatch a replay; no capture in the profiled wave after
+    the speculative burst; K5's launches exact (none over the float
+    cache); a prefix-cache hit. Returns the speculative leg's K5 launches,
+    those inside replays, and the tokens of the spec-less ``int8_kv`` and
+    float legs."""
     L, K1 = len(model.blocks), SPEC_K + 1
-    bursts = [spec_prompts(torch, 4), spec_prompts(torch, 5)]
+    bursts = [spec_prompts(torch, 4)]
     legs = {}
     for name, quant, k, zero in (
             ("spec int8_kv,int8_w", "int8_kv,int8_w", SPEC_K, counts),
             ("reference int8_kv,int8_w", "int8_kv,int8_w", 0, None),
             ("spec int8_kv", "int8_kv", SPEC_K, None),
-            ("reference int8_kv", "int8_kv", 0, None)):
+            ("reference int8_kv", "int8_kv", 0, None),
+            ("spec float", None, SPEC_K, None),
+            ("reference float", None, 0, None)):
         legs[name] = spec_leg(
             torch, model, serving, quant_attention, step_cache, quant, k,
-            bursts if "int8_w" in quant else bursts[:1], zero,
+            bursts, zero,
             profile_prompts=serving_prompts(torch, 6)[2:4]
             if name == "spec int8_kv,int8_w" else None)
         torch.cuda.empty_cache()
     spec_b, peak_a, keys, chunk, prof = legs["spec int8_kv,int8_w"]
     differ = []
     for a, b in (("spec int8_kv,int8_w", "reference int8_kv,int8_w"),
-                 ("spec int8_kv", "reference int8_kv")):
+                 ("spec int8_kv", "reference int8_kv"),
+                 ("spec float", "reference float")):
         for i, (x, y) in enumerate(zip(legs[a][0], legs[b][0])):
             for r, (s_, t_) in enumerate(zip(x["toks"], y["toks"])):
                 if s_ != t_:
@@ -1211,14 +1314,16 @@ def phase_spec(torch, model, serving, quant_attention, step_cache, counts,
     check(not differ, "; ".join(differ))
     steps, warm = check_spec_burst("spec burst 1", spec_b[0], L, chunk, K1,
                                    keys)
-    check_spec_burst("spec burst 2", spec_b[1], L, chunk, K1)
+    check(prof[3].get("programs_captured", 0) == 0,
+          f"the profiled wave after the speculative burst captured "
+          f"{prof[3].get('programs_captured')} programs")
     for name in ("reference int8_kv,int8_w", "spec int8_kv",
-                 "reference int8_kv"):
+                 "reference int8_kv", "spec float", "reference float"):
         b = legs[name][0][0]
         check_spec_burst(name, b, L, chunk,
                          K1 if name.startswith("spec") else 1,
-                         legs[name][2])
-    for name in ("spec int8_kv,int8_w", "spec int8_kv"):
+                         legs[name][2], k5="float" not in name)
+    for name in ("spec int8_kv,int8_w", "spec int8_kv", "spec float"):
         d = legs[name][0][0]["delta"]
         check(d.get("spec_dispatches", 0) > 0,
               f"{name}: no verify dispatch ran")
@@ -1236,16 +1341,16 @@ def phase_spec(torch, model, serving, quant_attention, step_cache, counts,
                   flush=True)
         print(f"  {name}: peak memory allocated in burst 1 {peak} bytes "
               f"above what was held before", flush=True)
-    for name in ("spec int8_kv,int8_w", "spec int8_kv"):
+    for name in ("spec int8_kv,int8_w", "spec int8_kv", "spec float"):
         for i, b in enumerate(legs[name][0]):
             print("  " + spec_stats_line(f"{name} burst {i + 1}", b),
                   flush=True)
     print(f"  tokens: every request of every burst equal to the spec-less "
-          f"engine's (greedy and sampled), in both legs; K5 launches "
+          f"engine's (greedy and sampled), in all three legs; K5 launches "
           f"(spec burst 1) {spec_b[0]['launches']} = {L} x ({steps} "
           f"positions + {warm} warm-up); verify keys {keys}, one trace "
-          f"each, none in burst 2; every verify dispatch a replay",
-          flush=True)
+          f"each, none in the profiled wave after it; every verify dispatch"
+          f" a replay", flush=True)
     if prof is not None:
         wall_ms, busy_ms, by_name, d = prof
         print(f"profile speculative int8_kv,int8_w (prompts of 170 and 250 "
@@ -1270,7 +1375,358 @@ def phase_spec(torch, model, serving, quant_attention, step_cache, counts,
                   f"{us / busy_us:.3f} of device time, {us / n:.3f} us a "
                   f"launch", flush=True)
     b = spec_b[0]
-    return b["launches"], L * steps
+    return b["launches"], L * steps, {
+        "int8_kv": legs["reference int8_kv"][0][0]["toks"],
+        None: legs["reference float"][0][0]["toks"]}
+
+
+# ---------------------------------------------------------------------------
+# the serving control plane (phase 5e)
+# ---------------------------------------------------------------------------
+
+# tenant -> (name, tier, prompt lengths, new tokens)
+SLO = dict(low=("bulk", "batch", (400, 700), 128),
+           high=("chat", "interactive", (64, 200), 64))
+SLO_N = 8             # requests a tenant
+SLO_BATCH = 4         # prefill_batch
+SLO_STALL_S = 60.0    # the watchdog's deadline, above any capture
+SLO_PILOT = (250, 6)  # the pilot's prompt and new tokens: one bucket
+
+
+def slo_trace():
+    """Each tenant's first ``SLO_N`` requests of a seeded two-tenant
+    ``sched.replay`` trace ("bursty"), each prompt cut to a length drawn
+    from the tenant's range, and a pilot (the low tenant's next request,
+    cut to ``SLO_PILOT``): {"low"/"high": [(prompt, new, name, tier)],
+    "pilot": [one]}."""
+    import random
+    from mxtpu_torch.sched import replay
+    profiles = tuple(replay.TenantProfile(name, tier, prefix_len=0,
+                                          suffix_len=hi, max_new=new)
+                     for name, tier, (_, hi), new in SLO.values())
+    trace = replay.make_trace("bursty", seed=11, rate=24.0, duration_s=4.0,
+                              vocab=50257, tenants=profiles)
+    rng = random.Random(11)
+    out = {}
+    for key, (name, tier, (lo, hi), new) in SLO.items():
+        reqs = [r for r in trace.requests if r.tenant == name][:SLO_N + 1]
+        check(len(reqs) == SLO_N + 1, f"the trace has {len(reqs)} {name} "
+              f"requests, not {SLO_N + 1}")
+        out[key] = [(list(r.prompt[:rng.randint(lo, hi)]), r.max_new,
+                     r.tenant, r.priority) for r in reqs[:SLO_N]]
+        if key == "low":
+            r = reqs[SLO_N]
+            out["pilot"] = [(list(r.prompt[:SLO_PILOT[0]]), SLO_PILOT[1],
+                             r.tenant, r.priority)]
+    return out
+
+
+def slo_burst(torch, serving, eng, trace):
+    """The pilot, then the low tenant's requests at once: the pilot's
+    prefill (it completes at admission, in its bucket, taking no slot)
+    holds the scheduler while they are staged, so they prefill in two
+    groups of ``SLO_BATCH``. Once the first group decodes, the high
+    tenant's requests: they wait out the second group's prefill, and when
+    it ends every slot holds a batch-tier request with tokens still to
+    go, so they preempt. Returns the requests, pilot, low then high, and
+    the slots active when the high tenant arrived."""
+    reqs = [eng.submit(p, n, tenant=t, priority=pr)
+            for p, n, t, pr in trace["pilot"] + trace["low"]]
+    t0 = time.monotonic()
+    while eng.load()["active"] < SLO_BATCH:
+        check(time.monotonic() - t0 < 600, "the first batched group never "
+              "reached decode")
+        time.sleep(0.001)
+    active = eng.load()["active"]
+    reqs += [eng.submit(p, n, tenant=t, priority=pr)
+             for p, n, t, pr in trace["high"]]
+    for r in reqs:
+        r.result(timeout=900)
+    torch.cuda.synchronize()
+    for r in reqs:
+        check(r.state == serving.DONE and len(r.tokens()) == r.max_new,
+              f"request {r.id}: state {r.state}, {len(r.tokens())} tokens")
+    return reqs, active
+
+
+def tenant_line(reqs, row):
+    ttft = sorted((r.t_first_token - r.t_submit) * 1e3 for r in reqs)
+    wall = max(r.t_done for r in reqs) - min(r.t_submit for r in reqs)
+    toks = sum(len(r.tokens()) for r in reqs)
+    return (f"{reqs[0].tenant} ({reqs[0].priority}): {toks} tokens in "
+            f"{wall:.2f} s = {toks / wall:.1f} tokens/s, TTFT ms median "
+            f"{ttft[len(ttft) // 2]:.1f} max {ttft[-1]:.1f}; shed "
+            f"{row.get('shed', 0)}, preempted {row.get('preempted', 0)}, "
+            f"resumed {row.get('resumed', 0)}")
+
+
+def batched_chunk_ms(torch, eng):
+    """Device time of one replay of the engine's batched prefill chunk at
+    its largest bucket and of its B=1 chunk there (full chunks), each
+    replayed 5 times over the state of its last call: ((key, ms), (key,
+    ms))."""
+    progs = dict(zip(eng._prefill_fns._fns.keys(), eng._prefill_fns.values()))
+    full = eng.prefill_chunk
+    batched = max((k for k in progs if k[0] == "batch" and k[3] == full),
+                  key=lambda k: k[2])
+    plain = [k for k in progs if k[0] != "batch" and k[1] == full]
+    plain = min(plain, key=lambda k: abs(k[0] - batched[2]))
+    out = []
+    for key in (batched, plain):
+        prog = progs[key]
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            prog.graph.replay()
+        end.record()
+        end.synchronize()
+        out.append((key, start.elapsed_time(end) / 5))
+    return out
+
+
+def k5_batched_record(torch, quant_attention, kv_quant):
+    """K5 at the batched prefill's shape (S ``SLO_BATCH``, H 12, PB 704,
+    D 64, every cursor at the last position, ``span=1024``,
+    ``plan_slots=1`` as the batched step calls it) against its plain
+    version, timed on a CUDA graph cycling ``K5_CACHES`` caches, with its
+    byte bound."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    S, H, TOT, D = SLO_BATCH, 12, 704, 64
+    q = torch.randn(S, H, D, device="cuda", generator=g)
+    caches = k5_caches(torch, kv_quant, g, S, H, TOT, D, "int8", K5_CACHES)
+    pc = torch.full((S,), TOT - 1, dtype=torch.int32, device="cuda")
+    scale = 1.0 / math.sqrt(D)
+    out = quant_attention.dequant_decode(q, *caches[0], pc, scale, 1024, 1)
+    ref = quant_attention._decode_plain(q, *caches[0], pc, scale)
+    torch.cuda.synchronize()
+    err = k5_error(torch, out, ref)
+    tol = 1e-5 * max(ref.abs().max().item(), 1.0)
+    check(math.isfinite(err) and err <= tol,
+          f"K5 at the batched prefill shape: err {err} (tol {tol})")
+    turn = [0]
+
+    def cycled(fn, *extra):
+        def call():
+            turn[0] += 1
+            return fn(q, *caches[turn[0] % K5_CACHES], pc, scale, *extra)
+        return call
+
+    ms = graph_ms(torch, cycled(quant_attention.dequant_decode, 1024, 1),
+                  10 * K5_CACHES)
+    plain_ms = graph_ms(torch, cycled(quant_attention._decode_plain),
+                        2 * K5_CACHES, reps=1)
+    nbytes, rows = k5_bytes(pc, H, TOT, D, q)
+    bound_ms, bound_by = _bound(4.0 * rows * D, nbytes, "float32")
+    C = quant_attention._card_chunk("cuda", 1, H, 1024, D)
+    print(f"K5 at the batched prefill shape S{S} H{H} TOT{TOT} D{D} C{C} "
+          f"(span 1024, planned for one slot), pc all {TOT - 1}: "
+          f"max_abs_err {err:.3e} (tol {tol:.3e}); kernel {ms:.5f} ms "
+          f"(graph), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+          f"({bound_by}: {nbytes} bytes)", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def in_order(names, want):
+    """Whether ``want`` is a subsequence of ``names``."""
+    it = iter(names)
+    return all(any(n == w for n in it) for w in want)
+
+
+def handoff_leg(torch, serving, model, quant, k, ref, timeline=False):
+    """``spec_prompts(torch, 4)`` (128 new each, one sampled) through
+    ``ServingEngine(slots=8, quant=quant, spec=k)``, drained once a few
+    decode turns have run and one request is in the middle of its
+    prefill, then adopted into a fresh engine: every request's tokens
+    must equal ``ref`` (an undisturbed engine's), with zero drops."""
+    from mxtpu_torch.observability import tracer
+    kw = dict(slots=8, quant=quant, spec=serving.SpecConfig(k=k)
+              if k else None, prefix_cache_mb=64)
+    sp = serving.SamplingParams(temperature=0.8, top_k=40, seed=1234)
+    if timeline:
+        tracer.reset()
+        tracer.start()
+    eng = serving.ServingEngine(model, **kw).start()
+    reqs = [eng.submit(p, 128, sampling=sp if i == SPEC_SAMPLED else None)
+            for i, p in enumerate(spec_prompts(torch, 4))]
+    t0 = time.monotonic()
+    while not (eng.stats().get("decode_steps", 0) >= 3
+               and eng._pf is not None and eng._pf["t"] > 0):
+        check(time.monotonic() - t0 < 600, "no moment with decode turns "
+              "run and a request mid-prefill")
+        time.sleep(0.001)
+    t1 = time.perf_counter()
+    h = eng.drain()
+    drain_ms = (time.perf_counter() - t1) * 1e3
+    eng2 = serving.ServingEngine(model, **kw)
+    t1 = time.perf_counter()
+    eng2.adopt(h)
+    adopt_ms = (time.perf_counter() - t1) * 1e3
+    outs = [r.result(timeout=900) for r in reqs]
+    st2 = eng2.stats()
+    eng2.stop()
+    names = None
+    if timeline:
+        rid = h.entries[0]["req"].id
+        names = [e["name"] for e in eng2.request_timeline(rid)]
+        tracer.stop()
+        tracer.reset()
+    label = f"handoff {quant or 'float'}{f' spec={k}' if k else ''}"
+    check(len(h.partial) == 1 and h.entries,
+          f"{label}: {len(h.entries)} slot entries, {len(h.partial)} "
+          f"mid-prefill")
+    check(all(r.state == serving.DONE for r in reqs)
+          and st2.get("cancelled", 0) == 0
+          and st2.get("adopted") == h.in_flight == len(reqs),
+          f"{label}: a request dropped: {[r.state for r in reqs]}")
+    differ = [i for i, (a, b) in enumerate(zip(outs, ref)) if a != b]
+    check(not differ, f"{label}: requests {differ} differ from the "
+          f"undisturbed engine's tokens")
+    drafts = sum(e.get("dlen") or 0 for e in h.entries)
+    print(f"  {label}: drained {len(h.entries)} decoding, {len(h.partial)}"
+          f" mid-prefill (cursor {h.partial[0]['t']} of "
+          f"{h.partial[0]['PB']}), {len(h.pending)} queued"
+          f"{f', {drafts} drafted tokens in flight' if k else ''}; drain "
+          f"{drain_ms:.1f} ms, adopt {adopt_ms:.1f} ms, handoff "
+          f"{h.nbytes} bytes; the adopting engine captured "
+          f"{st2.get('programs_captured', 0)} programs in "
+          f"{st2.get('capture_ms_total', 0):.1f} ms; tokens equal the "
+          f"undisturbed engine's, zero drops", flush=True)
+    return names
+
+
+def slo_refs(torch, model, serving, quant_attention, step_cache):
+    """The undisturbed engines' tokens of phase 5c's first burst: its
+    spec-less ``int8_kv`` and float legs (when 5e runs without 5c)."""
+    bursts = [spec_prompts(torch, 4)]
+    return {q: spec_leg(torch, model, serving, quant_attention, step_cache,
+                        q, 0, bursts)[0][0]["toks"]
+            for q in ("int8_kv", None)}
+
+
+def phase_slo(torch, model, serving, quant_attention, step_cache, counts,
+              smi, refs=None):
+    """The SLO control plane on the card (phase 5e): the two-tenant burst
+    through a sched engine with batched prefill, against a plain engine;
+    three drain/adopt handoffs against undisturbed engines (``refs``:
+    phase 5c's spec-less first-burst tokens, run here when None); one
+    adopted request's timeline. Returns the K5 record of the batched
+    prefill path."""
+    from mxtpu_torch import profiler
+    from mxtpu_torch.quant import kv_quant
+    L = len(model.blocks)
+    if refs is None:
+        refs = slo_refs(torch, model, serving, quant_attention, step_cache)
+    trace = slo_trace()
+    profiler.reset_serving_stats()
+    profiler.reset_feed_stats()
+    stalls0 = profiler.get_resilience_stats()["watchdog_stalls"]
+    traces0 = program_traces(step_cache)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    counts(0)
+    with serving.ServingEngine(model, slots=8, quant="int8_kv", sched=True,
+                               prefill_batch=SLO_BATCH,
+                               stall_deadline_s=SLO_STALL_S,
+                               engine_id="e0") as eng:
+        reqs, active = slo_burst(torch, serving, eng, trace)
+        launches = quant_attention.dequant_decode.launches
+        st = eng.stats()
+        beats = eng._wd.beats()
+        keys = len(eng._prefill_fns)
+        chunk = eng.chunk
+        chunk_ms = batched_chunk_ms(torch, eng)
+    wall = time.monotonic() - t0
+    feed = profiler.get_feed_stats()
+    tenants = profiler.get_serving_stats().get("tenants", {})
+    traces = {k_: v - traces0[k_]
+              for k_, v in program_traces(step_cache).items()}
+    with serving.ServingEngine(model, slots=8, quant="int8_kv",
+                               queue_depth=32) as eng:
+        plain = [eng.submit(p, n) for p, n, _, _ in
+                 trace["pilot"] + trace["low"] + trace["high"]]
+        plain = [r.result(timeout=900) for r in plain]
+    differ = [i for i, (r, t) in enumerate(zip(reqs, plain))
+              if r.tokens() != t]
+    check(not differ, f"SLO burst: requests {differ} differ from the plain "
+          f"engine's tokens")
+    check(st.get("preempted", 0) >= 1 and st.get("resumed", 0) >= 1,
+          f"SLO burst: preempted {st.get('preempted')}, resumed "
+          f"{st.get('resumed')}")
+    check(st.get("prefill_groups", 0) >= 1, "SLO burst: no batched prefill "
+          "group of 2 or more prompts")
+    check(st.get("prefill_replays") == st.get("prefill_chunks")
+          and st.get("batched_replays") == st.get("batched_chunks")
+          and st.get("decode_replays") == st.get("decode_steps"),
+          f"SLO burst: a chunk ran outside a replay: {st}")
+    captured = st.get("programs_captured", 0)
+    check(captured == sum(traces.values())
+          and traces["serving_prefill"] == keys,
+          f"SLO burst: {captured} captures, traces {traces}, {keys} prefill "
+          f"keys: not one capture per key")
+    positions = st.get("prefill_positions", 0) \
+        + st.get("batched_positions", 0) + st["decode_steps"] * chunk
+    check(launches == L * (positions + captured),
+          f"SLO burst: {launches} dequant_decode launches, not {L} x "
+          f"({positions} positions + {captured} warm-up steps)")
+    dispatches = st.get("prefill_chunks", 0) \
+        + st.get("batched_chunks", 0) + st["decode_steps"]
+    stalls = profiler.get_resilience_stats()["watchdog_stalls"] - stalls0
+    check(beats >= dispatches and stalls == 0,
+          f"SLO burst: {beats} serving beats for {dispatches} dispatches, "
+          f"{stalls} stalls")
+    check(feed["transfer_count"] == len(reqs),
+          f"SLO burst: {feed['transfer_count']} feed transfers for "
+          f"{len(reqs)} requests")
+    print(f"SLO burst (phase 5e) on {smi}: ServingEngine(slots=8, int8_kv, "
+          f"sched, prefill_batch={SLO_BATCH}, stall_deadline_s="
+          f"{SLO_STALL_S}, engine_id=e0): a pilot ({SLO_PILOT[0]} tokens, "
+          f"{SLO_PILOT[1]} new), {SLO_N} batch-tier requests (prompts "
+          f"{sorted(len(p) for p, *_ in trace['low'])}, 128 new), then "
+          f"{SLO_N} interactive ({sorted(len(p) for p, *_ in trace['high'])}"
+          f", 64 new) once the first group decoded ({active} slots "
+          f"active): {wall:.2f} s; "
+          f"preempted {st.get('preempted')}, resumed {st.get('resumed')}, "
+          f"shed {st.get('shed', 0)}; batched prefill groups "
+          f"{st.get('prefill_groups')} ({st.get('batched_chunks')} chunks, "
+          f"{st.get('batched_positions')} positions), B=1 prefill chunks "
+          f"{st.get('prefill_chunks')} ({st.get('prefill_positions')} "
+          f"positions), decode chunks {st['decode_steps']}; every chunk a "
+          f"replay; {captured} captures ({traces}) in "
+          f"{st.get('capture_ms_total', 0):.1f} ms, one a key; K5 "
+          f"launches {launches} = {L} x ({positions} + {captured}); "
+          f"serving beats {beats} for {dispatches} dispatches, no stall; "
+          f"feed transfers {feed['transfer_count']} "
+          f"({feed['transfer_bytes']} bytes, {feed['transfer_ms_total']:.2f}"
+          f" ms of host time); every request's tokens equal the plain "
+          f"engine's", flush=True)
+    for key in ("low", "high"):
+        part = [r for r in reqs if r.tenant == SLO[key][0]]
+        print("  " + tenant_line(part, tenants.get(SLO[key][0], {})),
+              flush=True)
+    (bk, b_ms), (pk, p_ms) = chunk_ms
+    print(f"  what batching costs: a replay of the batched chunk {bk} "
+          f"{b_ms:.3f} ms ({SLO_BATCH} rows, float products one row at a "
+          f"time) against the B=1 chunk {pk} {p_ms:.3f} ms: "
+          f"{SLO_BATCH * p_ms / b_ms:.2f}x the B=1 chunk's positions a "
+          f"second", flush=True)
+    print(f"handoffs (phase 5e), 8 requests of phase 5c's first burst on "
+          f"{smi}:", flush=True)
+    names = handoff_leg(torch, serving, model, "int8_kv", 0,
+                        refs["int8_kv"], timeline=True)
+    handoff_leg(torch, serving, model, None, 0, refs[None])
+    handoff_leg(torch, serving, model, "int8_kv", SPEC_K, refs["int8_kv"])
+    want = ["serving/submit", "serving/admit", "serving/prefill_chunk",
+            "serving/decode", "serving/drain_freeze", "serving/adopt_resume",
+            "serving/decode", "serving/retire"]
+    check(in_order(names, want), f"timeline of an adopted request: {names}")
+    runs = [n for i, n in enumerate(names) if i == 0 or n != names[i - 1]]
+    print(f"  timeline of an adopted request (int8_kv leg, {len(names)} "
+          f"events; repeats folded): {' -> '.join(runs)}", flush=True)
+    rec = k5_batched_record(torch, quant_attention, kv_quant)
+    return dict(launches=launches, launches_in_replays=L * positions, **rec)
 
 
 def phase_int8_products(torch, serve, smi):
@@ -1372,13 +1828,29 @@ def phase_verify_card_vs_cpu(torch, lm, serving, quant_attention, smi):
         _, ln_ = vstep_c(nudged, caches("cpu"), feeds, torch.from_numpy(p))
         nrows = (ln_ - lc).abs().amax(-1)
         vstep_g = serve.build_verify_step(gpu, S, TOT, K1, spec)
-        _, lgpu = vstep_g(pg_, caches("cuda"), feeds.cuda(),
-                          torch.from_numpy(p).cuda())
+        lgpu, codes_g = with_codes(kv_quant, lambda: vstep_g(
+            pg_, caches("cuda"), feeds.cuda(), torch.from_numpy(p).cuda()))
+        lc2, codes_c = with_codes(kv_quant, lambda: vstep_c(
+            pc_, caches("cpu"), feeds, torch.from_numpy(p)))
+        check(torch.equal(lc2, lc), "the CPU verify step is not repeatable")
         rows = (lgpu.cpu() - lc).abs().amax(-1)          # (S, K1)
         lerr, close = rows.max().item(), (rows <= 1e-4).float().mean().item()
         check(lerr <= VERIFY_LOGITS_TOL[0] and close >= VERIFY_LOGITS_TOL[1],
               f"verify logits card vs CPU: max diff {lerr}, share of rows "
               f"within 1e-4 {close} (tol {VERIFY_LOGITS_TOL})")
+        moved, roots, root_step, root_off = code_divergence(
+            torch, codes_c, codes_g, S, K1)
+        agree = ~moved
+        check(roots == 0 or (root_step == 1
+                             and root_off <= CODE_BOUNDARY),
+              f"verify card vs CPU: {roots} rows part at an int8 code "
+              f"{root_step} steps away, {root_off:.3e} from a half step "
+              f"(at most one step, within {CODE_BOUNDARY})")
+        eq_err = rows[agree].max().item() if agree.any() else 0.0
+        moved_err = rows[moved].max().item() if moved.any() else 0.0
+        check(eq_err <= 1e-4, f"verify card vs CPU: rows whose int8 codes "
+              f"all agree differ by {eq_err} (tol 1e-4); rows "
+              f"{rows.tolist()}, rows moved by a code {moved.tolist()}")
         ref = kv.build_verify(cpu, pc_, caches("cpu"), S, TOT, k,
                               quant=spec)(*state.values())
         # the card: the captured program, its K5 calls recorded by clones
@@ -1449,7 +1921,13 @@ def phase_verify_card_vs_cpu(torch, lm, serving, quant_attention, smi):
           f"{S} TOT {TOT} k {k}, one slot clipped at TOT - 1) on {smi}: "
           f"tok, p, outs, lives equal ({n_ok} tokens emitted); logits max "
           f"diff {lerr:.3e}, {close:.3f} of the (slot, position) rows within"
-          f" 1e-4 (tol {VERIFY_LOGITS_TOL}; on the CPU alone, the position "
+          f" 1e-4 (tol {VERIFY_LOGITS_TOL}); per code, over {len(codes_c)}"
+          f" row quantizations (activations and K/V rows): "
+          f"{int(agree.sum())} rows whose codes all agree, max diff "
+          f"{eq_err:.3e} (tol 1e-4); {int((~agree).sum())} rows downstream"
+          f" of {roots} root differences, each one step at a value "
+          f"{root_off:.2e} from a half step at most (tol {CODE_BOUNDARY}),"
+          f" max diff {moved_err:.3e} (on the CPU alone, the position "
           f"table scaled by 1 + 1e-6 moves the logits by up to "
           f"{nrows.max().item():.3e}, {(nrows <= 1e-4).float().mean():.3f} "
           f"of the rows within 1e-4); K5 inside the replay, {L * K1} "
@@ -1459,6 +1937,80 @@ def phase_verify_card_vs_cpu(torch, lm, serving, quant_attention, smi):
           flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms / K1, bound_by=bound_by, library_ms=None)
+
+
+def with_codes(kv_quant, fn):
+    """``fn()``'s logits and every row quantization it ran
+    (``kv_quant.quantize_rows``: the activation rows of each int8 product
+    and the K/V rows it appends), in call order, on the host: (input,
+    codes, scales) a call."""
+    real = kv_quant.quantize_rows
+    seen = []
+
+    def rec(x, mode="int8"):
+        q, s_ = real(x, mode)
+        seen.append((x.float().cpu(), q.cpu(), s_.cpu()))
+        return q, s_
+
+    kv_quant.quantize_rows = rec
+    try:
+        _, logits = fn()
+    finally:
+        kv_quant.quantize_rows = real
+    return logits.cpu(), seen
+
+
+# a code that differs between the card and the CPU before anything else
+# of its row does must come from a value at a rounding boundary: within
+# this much of a half step on the CPU's side
+CODE_BOUNDARY = 1e-3
+
+
+def code_divergence(torch, codes_c, codes_g, S, K1):
+    """Where the card's int8 codes part from the CPU's, row by row.
+
+    Calls run in the verify step's order: per layer the q, k, v products
+    (``(S * K1, in)`` activation rows), the K/V rows appended (``(S, H,
+    D)``, K then V, position by position), then the out and FFN products;
+    then the head. Row (slot, position j) attends to positions 0..j, so a
+    difference at (s, j') reaches every (s, j >= j'). A *root* difference
+    is one in a row nothing before it had moved: it must be one step, at
+    a value that sits within ``CODE_BOUNDARY`` of a half step on the CPU
+    (f32 reassociation rounding it the other way); what follows a root
+    may differ by more. Returns (moved (S, K1) bool: rows downstream of a
+    root, roots, the largest root step, the farthest root value from a
+    half step)."""
+    check(len(codes_c) == len(codes_g), "verify card vs CPU: other "
+          f"quantizations ran ({len(codes_c)} vs {len(codes_g)})")
+    moved = torch.zeros(S, K1, dtype=torch.bool)
+    roots, worst_step, worst_off = 0, 0, 0.0
+    kv_calls = 0
+    for (x, qc, sc), (_, qg, _) in zip(codes_c, codes_g):
+        d = (qc.to(torch.int32) - qg.to(torch.int32)).abs()
+        v = x / sc[..., None]
+        off = ((v - v.floor()) - 0.5).abs()
+        if d.dim() == 2 and d.shape[0] == S * K1:
+            d, off = d.view(S, K1, -1), off.view(S, K1, -1)
+        elif d.dim() == 3 and d.shape[0] == S:
+            j = (kv_calls // 2) % K1
+            kv_calls += 1
+            full = torch.zeros((S, K1) + d.shape[1:], dtype=d.dtype)
+            full[:, j] = d
+            d = full.reshape(S, K1, -1)
+            full = torch.zeros((S, K1) + off.shape[1:])
+            full[:, j] = off
+            off = full.reshape(S, K1, -1)
+        else:
+            raise SmokeFailure(f"unexpected quantization {tuple(d.shape)}")
+        own = d.amax(-1) > 0
+        new = own & ~moved
+        if new.any():
+            roots += int(new.sum())
+            worst_step = max(worst_step, int(d[new].max()))
+            worst_off = max(worst_off, float(off[new][d[new] > 0].max()))
+        moved = torch.cummax((moved | own).to(torch.int8), dim=1).values \
+            .bool()
+    return moved, roots, worst_step, worst_off
 
 
 def drive_programs(torch, kv, model, spec, reqs, replay):
@@ -1482,7 +2034,8 @@ def drive_programs(torch, kv, model, spec, reqs, replay):
     def call(prog, *args):
         if replay:
             return prog(*args)
-        prog.state.copy_(torch.from_numpy(prog.pack(*args)))
+        prog.stage(*args)
+        torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
             prog.body()
@@ -1580,7 +2133,7 @@ def phase_card_vs_cpu(torch, lm, serving):
         lg = gpu(toks.cuda()).cpu()
     ferr = (lc - lg).abs().max().item()
     check(ferr <= 1e-3, f"forward logits card vs CPU differ by {ferr}")
-    for quant in ("int8_kv", "fp8_kv"):
+    for quant in ("int8_kv", "fp8_kv", None, "int8_w"):
         outs = {}
         for name, net, dev in (("cuda", gpu, None), ("cpu", cpu, "cpu")):
             with serving.ServingEngine(net, slots=2, quant=quant,
@@ -1600,7 +2153,8 @@ def phase_card_vs_cpu(torch, lm, serving):
                 f"top-2 logit margin there {float(top[0] - top[1]):.3e}")
     print(f"card vs CPU, base width 2 layers: forward logits max diff "
           f"{ferr:.3e} (tol 1e-3); greedy tokens equal for 2 requests x 32, "
-          f"int8_kv and fp8_kv", flush=True)
+          f"int8_kv, fp8_kv, a float cache (quant=None) and int8_w over a "
+          f"float cache", flush=True)
 
 
 class SeqLoss:
@@ -2544,7 +3098,7 @@ def run():
     print(smi[0], flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)}", flush=True)
-    t0 = time.monotonic()
+    t_all = t0 = time.monotonic()
     built = _build.build_all()
     print(f"built {sorted(built)} in {time.monotonic() - t0:.1f} s "
           f"(nvcc per kernel: "
@@ -2577,9 +3131,12 @@ def run():
     from mxtpu_torch.quant import serve as quant_serve
     timed_phase("int8 products", phase_int8_products, torch, quant_serve,
                 smi[0])
-    spec_launches, spec_replayed = timed_phase(
+    spec_launches, spec_replayed, refs = timed_phase(
         "speculative serving", phase_spec, torch, model, serving,
         quant_attention, step_cache, counts, smi[0])
+    k5_slo = timed_phase("SLO control plane", phase_slo, torch, model,
+                         serving, quant_attention, step_cache, counts,
+                         smi[0], refs)
     del model
     torch.cuda.empty_cache()
     timed_phase("card vs CPU", phase_card_vs_cpu, torch, lm, serving)
@@ -2652,11 +3209,16 @@ def run():
              path="serving, speculative verify (int8_kv,int8_w)",
              launches=spec_launches, launches_in_replays=spec_replayed,
              **k5_verify),
+        dict(name="dequant_decode", route="cuda",
+             source="mxtpu_torch/csrc/dequant_decode.cu",
+             replaces="mxtpu/ops/quant_attention.py:99",
+             path="serving, SLO batched prefill", **k5_slo),
         dict(name="rtc saxpy", route="nvrtc", source="mxtpu_torch/rtc.py",
              kernel_source="chip_smoke.py:SAXPY_SRC",
              replaces="mxtpu/rtc.py:47", path="K6 checks, saxpy at 2^26",
              **saxpy),
     ] + head
+    print(f"[chip smoke: {time.monotonic() - t_all:.1f} s]", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -153,7 +153,7 @@ class NDArray:
         if stype != "default":
             raise NotImplementedError(
                 f"stype {stype!r}: sparse storage is not ported yet "
-                "(ROADMAP queue 1 step 7)")
+                "(ndarray/sparse.py)")
         return self
 
     # -- sync -------------------------------------------------------------
@@ -649,7 +649,7 @@ def save(fname: str, data, fmt: str = "npz"):
     if fmt != "npz":
         raise NotImplementedError(
             f"save format {fmt!r}: only 'npz' is ported; the reference "
-            "binary waits with legacy_io.py (ROADMAP queue 1 step 7)")
+            "binary waits with ndarray/legacy_io.py")
     payload = {}
     if isinstance(data, dict):
         if _SAVE_FORMAT_KEY in data:
@@ -684,7 +684,7 @@ def load(fname: str):
     if len(head) == 8 and int.from_bytes(head, "little") == _LEGACY_MAGIC:
         raise NotImplementedError(
             f"{fname}: the reference's legacy binary format is not ported "
-            "yet (legacy_io.py, ROADMAP queue 1 step 7)")
+            "yet (ndarray/legacy_io.py)")
     with open(fname, "rb") as f:
         with np.load(f, allow_pickle=False) as z:
             keys = [k for k in z.keys() if k != _SAVE_FORMAT_KEY]
@@ -698,7 +698,7 @@ def load(fname: str):
                 if len(parts) == 3 and parts[1] in ("rsp", "csr"):
                     raise NotImplementedError(
                         f"{fname}: entry {k!r} is sparse; sparse storage is "
-                        "not ported yet (ROADMAP queue 1 step 7)")
+                        "not ported yet (ndarray/sparse.py)")
             entries = {k: NDArray(z[k]) for k in keys}
     if kind == "list":
         return [entries[f"arr_{i}"] for i in range(len(entries))]

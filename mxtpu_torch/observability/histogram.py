@@ -1,0 +1,190 @@
+"""Bounded log-bucketed streaming histograms (HDR-style) and the latency
+store.
+
+Port of ``mxtpu/observability/histogram.py``. :class:`LogHistogram` is a
+fixed array of geometrically spaced buckets: recording is O(1) with no
+allocation after construction, memory is bounded whatever the sample count,
+and two histograms merge by adding bucket counts.
+
+Bucket ``i`` covers ``(lo·g^(i-1), lo·g^i]`` with growth ``g = 1.04`` from
+``lo = 1 µs`` (1e-3 ms). A quantile is reported as the geometric midpoint of
+its bucket, clamped to the observed min/max, so its relative error is at
+most ``√g − 1 ≈ 2 %``. Quantile rank follows the inverted-CDF convention
+(the ``⌈q·n⌉``-th order statistic), as
+``numpy.percentile(..., method="inverted_cdf")``.
+
+The module store (``record_value`` / ``get_histogram`` /
+``get_histogram_stats`` / ``reset_histograms``) is the locked record path
+for latency samples: ``metrics.record_serving`` routes every ``*_ms_last``
+key here, and ``get_serving_stats()`` derives ``*_last``/``*_total`` and
+``*_p50/p90/p99/p999`` from the same histogram.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+from typing import Dict, List, Optional
+
+__all__ = ["LogHistogram", "record_value", "get_histogram",
+           "get_histogram_stats", "reset_histograms", "QUANTILES"]
+
+# the quantile set every summary reports
+QUANTILES = ((0.50, "p50"), (0.90, "p90"), (0.99, "p99"), (0.999, "p999"))
+
+
+class LogHistogram:
+    """One bounded log-bucketed histogram. Not internally locked — the
+    module store (or any single owning thread) provides exclusion; `record`
+    is O(1) into a preallocated count array."""
+
+    __slots__ = ("lo", "growth", "_log_g", "counts", "count", "sum",
+                 "min", "max", "last")
+
+    #: default range: 1 µs .. ~3 h in ms units, 4 % geometric buckets
+    LO = 1e-3
+    HI = 1e7
+    GROWTH = 1.04
+
+    def __init__(self, lo: float = LO, hi: float = HI,
+                 growth: float = GROWTH):
+        if not (lo > 0 and hi > lo and growth > 1):
+            raise ValueError("need 0 < lo < hi and growth > 1")
+        self.lo = float(lo)
+        self.growth = float(growth)
+        self._log_g = math.log(growth)
+        n = int(math.ceil(math.log(hi / lo) / self._log_g)) + 1
+        self.counts: List[int] = [0] * (n + 1)   # +1: overflow bucket
+        self.count = 0
+        self.sum = 0.0
+        self.min = math.inf
+        self.max = -math.inf
+        self.last = 0.0
+
+    # -- recording -----------------------------------------------------------
+    def _index(self, v: float) -> int:
+        if v <= self.lo:
+            return 0
+        i = int(math.ceil(math.log(v / self.lo) / self._log_g))
+        return min(i, len(self.counts) - 1)
+
+    def record(self, v: float) -> None:
+        v = float(v)
+        if v < 0 or v != v:          # negative clock skew / NaN: clamp out
+            v = 0.0
+        self.counts[self._index(v)] += 1
+        self.count += 1
+        self.sum += v
+        self.min = v if v < self.min else self.min
+        self.max = v if v > self.max else self.max
+        self.last = v
+
+    def merge(self, other: "LogHistogram") -> "LogHistogram":
+        """Add ``other``'s buckets into self (associative + commutative on
+        counts/sum/min/max; ``last`` takes the non-empty operand's)."""
+        if (other.lo != self.lo or other.growth != self.growth
+                or len(other.counts) != len(self.counts)):
+            raise ValueError("cannot merge histograms with different buckets")
+        for i, c in enumerate(other.counts):
+            self.counts[i] += c
+        self.count += other.count
+        self.sum += other.sum
+        self.min = min(self.min, other.min)
+        self.max = max(self.max, other.max)
+        if other.count:
+            self.last = other.last
+        return self
+
+    def copy(self) -> "LogHistogram":
+        h = LogHistogram.__new__(LogHistogram)
+        h.lo, h.growth, h._log_g = self.lo, self.growth, self._log_g
+        h.counts = list(self.counts)
+        h.count, h.sum = self.count, self.sum
+        h.min, h.max, h.last = self.min, self.max, self.last
+        return h
+
+    # -- reading -------------------------------------------------------------
+    def _bucket_value(self, i: int) -> float:
+        if i <= 0:
+            v = self.lo
+        else:
+            # geometric midpoint of (lo·g^(i-1), lo·g^i]: √g off either edge
+            v = self.lo * self.growth ** (i - 0.5)
+        if self.min <= self.max:     # clamp into the observed range
+            v = min(max(v, self.min), self.max)
+        return v
+
+    def percentile(self, q: float) -> float:
+        """Inverted-CDF quantile: the bucket holding the ⌈q·n⌉-th sample,
+        reported at its geometric midpoint (≤ √g−1 relative error)."""
+        if not self.count:
+            return 0.0
+        rank = max(1, int(math.ceil(q * self.count)))
+        acc = 0
+        for i, c in enumerate(self.counts):
+            acc += c
+            if acc >= rank:
+                return self._bucket_value(i)
+        return self._bucket_value(len(self.counts) - 1)
+
+    def summary(self) -> dict:
+        out = {"count": self.count,
+               "sum": round(self.sum, 6),
+               "last": self.last,
+               "min": self.min if self.count else 0.0,
+               "max": self.max if self.count else 0.0}
+        for q, name in QUANTILES:
+            out[name] = self.percentile(q)
+        return out
+
+    def to_dict(self) -> dict:
+        """Serializable form (flight-recorder bundles; sparse buckets)."""
+        return {"lo": self.lo, "growth": self.growth,
+                "buckets": {str(i): c for i, c in enumerate(self.counts) if c},
+                "count": self.count, "sum": self.sum,
+                "min": self.min if self.count else 0.0,
+                "max": self.max if self.count else 0.0, "last": self.last}
+
+
+# ---------------------------------------------------------------------------
+# module store — THE guarded record path for latency series
+# ---------------------------------------------------------------------------
+
+_hist_lock = threading.Lock()
+_hists: Dict[str, LogHistogram] = {}
+
+
+def record_value(name: str, value: float) -> None:
+    """Record one sample into the named histogram (created on first use).
+    This is the locked single-writer path ``metrics.record_serving`` routes
+    every ``*_ms_last`` scalar through."""
+    with _hist_lock:
+        h = _hists.get(name)
+        if h is None:
+            h = _hists[name] = LogHistogram()
+        h.record(value)
+
+
+def get_histogram(name: str) -> Optional[LogHistogram]:
+    """A consistent COPY of one named histogram (None when never recorded)."""
+    with _hist_lock:
+        h = _hists.get(name)
+        return h.copy() if h is not None else None
+
+
+def get_histogram_stats() -> Dict[str, dict]:
+    """``{name: summary}`` for every live histogram."""
+    with _hist_lock:
+        snap = {k: h.copy() for k, h in _hists.items()}
+    return {k: h.summary() for k, h in sorted(snap.items())}
+
+
+def reset_histograms(prefix: Optional[str] = None) -> None:
+    """Drop histograms (all, or only names under ``prefix``) — tests, bench
+    legs, ``reset_serving_stats``."""
+    with _hist_lock:
+        if prefix is None:
+            _hists.clear()
+        else:
+            for k in [k for k in _hists if k.startswith(prefix)]:
+                del _hists[k]

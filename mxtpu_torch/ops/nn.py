@@ -1,5 +1,5 @@
 """Neural-network ops — port of ``mxtpu/ops/nn.py``, every op but the
-multi-device ``SyncBatchNorm`` (ROADMAP queue 1 step 8).
+multi-device ``SyncBatchNorm`` (it needs ``parallel/collectives``).
 
 Convolution and pooling are PyTorch's own ops (cuDNN on the card), as the
 JAX package leaves them to XLA; layout is NCHW at the API, as there. The

@@ -116,7 +116,8 @@ def _check(q, kd, ks, vd, vs, pc):
 
 
 def dequant_decode(q, kd, ks, vd, vs, pc, scale: float,
-                   span: Optional[int] = None):
+                   span: Optional[int] = None,
+                   plan_slots: Optional[int] = None):
     """Launch K5 on CUDA tensors: q (S, H, D) f32/bf16; kd, vd
     (S, H, TOT, D) int8 or float8_e4m3fn; ks, vs (S, H, TOT) f32; pc (S,)
     int32, clipped into ``[0, TOT-1]`` in the kernel; 0 < D <= 512.
@@ -130,7 +131,10 @@ def dequant_decode(q, kd, ks, vd, vs, pc, scale: float,
     ``span`` for every TOT get the same bits from a cache and from the
     same cache zero-padded into a larger bucket: the serving steps pass
     the model's ``max_len``, so that a step's output does not depend on
-    when the engine promoted its cache.
+    when the engine promoted its cache. ``plan_slots`` (default S) is the
+    slot count the rule plans for, in the same way: the batched prefill
+    runs K5 at S = N rows with ``plan_slots=1``, so each row's bits equal
+    the one-request prefill's.
 
     K5 replaces the Pallas kernel ``mxtpu/ops/quant_attention.py:
     _dequant_decode_kernel``. It is bound by bytes (2 * (D + 4) per
@@ -142,7 +146,7 @@ def dequant_decode(q, kd, ks, vd, vs, pc, scale: float,
     if not all(t.is_cuda and t.device == q.device for t in ts):
         raise ValueError("dequant_decode takes CUDA tensors on one device")
     S, H, TOT, D = _check(*ts)
-    C = _card_chunk(q.device, S, H, span or TOT, D)
+    C = _card_chunk(q.device, plan_slots or S, H, span or TOT, D)
     out = torch.empty_like(q)
     ws = None
     if TOT > C:
@@ -166,16 +170,17 @@ dequant_decode.launches = 0
 
 
 def dequant_attention_decode(q, kd, ks, vd, vs, pc, *, scale: float,
-                             span: Optional[int] = None, device=None):
+                             span: Optional[int] = None,
+                             plan_slots: Optional[int] = None, device=None):
     """One decode-step attention read over a quantized paged KV cache.
 
     ``q`` (S, H, D) working-precision queries; ``kd``/``vd`` (S, H, TOT, D)
     int8 or fp8 storage; ``ks``/``vs`` (S, H, TOT) per-row f32 scales;
     ``pc`` (S,) int32 per-slot positions (position ``t`` attends iff
     ``t <= pc[slot]``). Returns the (S, H, D) context in q's dtype. All on
-    ``device`` (None = the card): K5 there (``span``: see
+    ``device`` (None = the card): K5 there (``span``, ``plan_slots``: see
     :func:`dequant_decode`), the plain version on the CPU."""
     check_device(device, q, kd, ks, vd, vs, pc)
     if q.is_cuda:
-        return dequant_decode(q, kd, ks, vd, vs, pc, scale, span)
+        return dequant_decode(q, kd, ks, vd, vs, pc, scale, span, plan_slots)
     return _decode_plain(q, kd, ks, vd, vs, pc, scale)

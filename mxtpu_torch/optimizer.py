@@ -77,7 +77,8 @@ class Optimizer:
                  begin_num_update: int = 0, **kwargs):
         if multi_precision:
             raise NotImplementedError(
-                "multi_precision (f32 master copies) is ROADMAP queue 3")
+                "multi_precision (f32 master copies, mxtpu/optimizer.py) "
+                "is not ported yet")
         self.lr = learning_rate
         self.wd = wd
         self.rescale_grad = rescale_grad

@@ -29,9 +29,10 @@ host sync. On CPU tensors every step runs the body. ``MXTPU_FLASH_BWD`` and
 keeps what they said at its capture, as the reference's trace does.
 
 The multi-device half of the reference (a mesh of more than one device,
-``param_shardings``, ZeRO and gradient compression) is ROADMAP queue 8 and
-raises ``NotImplementedError``. ZeRO over one device is the identity, so
-leaving it out changes no number.
+``param_shardings``, ZeRO and gradient compression) is not ported (it
+needs ``parallel/mesh``, ``zero`` and ``collectives``) and raises
+``NotImplementedError``. ZeRO over one device is the identity, so leaving
+it out changes no number.
 """
 
 from __future__ import annotations
@@ -59,8 +60,9 @@ _COUNTED = (attention.flash_fwd, attention.flash_bwd_dq,
 
 def _queue8(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is the multi-device half of DataParallelTrainer, ROADMAP "
-        f"queue 8; this trainer runs on one card")
+        f"{what} is the multi-device half of DataParallelTrainer "
+        f"(mxtpu/parallel/data_parallel.py), not ported; this trainer runs "
+        f"on one card")
 
 
 class _StepProgram(GraphProgram):

@@ -1,9 +1,11 @@
-"""Quantization counters of the serving path.
+"""Counters of the port, as ``mxtpu/profiler.py`` re-exports them: the
+quantization counters of the serving path, and the device-feed,
+resilience, serving and SLO-scheduler stores of
+``mxtpu_torch.observability.metrics``.
 
-Port of the quant part of ``mxtpu/observability/metrics.py`` (re-exported
-by ``mxtpu/profiler.py``): ``quantize_lm`` records each weight's max-abs
-round-trip error, and ``build_step`` the number of int8 matmul sites it
-stages. The rest of the reference's ``profiler`` is not ported.
+``quantize_lm`` records each weight's max-abs round-trip error, and
+``build_step`` the number of int8 matmul sites it stages. The checkpoint,
+communication and router stores are not ported.
 """
 
 from __future__ import annotations
@@ -11,8 +13,24 @@ from __future__ import annotations
 import threading
 from typing import Dict
 
+from .observability.metrics import (  # noqa: F401
+    get_feed_stats, get_resilience_stats, get_sched_stats, get_serving_stats,
+    record_feed_consume, record_feed_prefetch, record_feed_resident,
+    record_feed_transfer, record_resilience, record_sched, record_serving,
+    record_serving_occupancy, record_tenant, reset_feed_stats,
+    reset_resilience_stats, reset_sched_stats, reset_serving_stats,
+    set_feed_depth)
+
 __all__ = ["record_quant_matmuls", "record_quant_error", "get_quant_stats",
-           "reset_quant_stats"]
+           "reset_quant_stats",
+           "record_feed_transfer", "record_feed_resident",
+           "record_feed_prefetch", "record_feed_consume", "set_feed_depth",
+           "get_feed_stats", "reset_feed_stats",
+           "record_resilience", "get_resilience_stats",
+           "reset_resilience_stats",
+           "record_serving", "record_tenant", "record_serving_occupancy",
+           "get_serving_stats", "reset_serving_stats",
+           "record_sched", "get_sched_stats", "reset_sched_stats"]
 
 _lock = threading.Lock()
 _matmuls = 0

@@ -205,13 +205,21 @@ def _mm_fn(wq: bool):
     return mm
 
 
-def build_step(model, S: int, TOT: int, spec: QuantSpec):
+def build_step(model, S: int, TOT: int, spec: QuantSpec,
+               rowwise: bool = False):
     """The quantized twin of :meth:`TransformerLM.serving_step`: under a KV
     mode, K/V rows are quantized on append (one (D,) row plus one f32
     scale per slot, head and layer) and attention reads the quantized
     storage through ``dequant_attention_decode``; under ``int8_w`` every
     product runs on the int8 path (``params`` from :func:`quantize_lm`),
     over a quantized or a float cache.
+
+    ``rowwise=True`` is the batched prefill's step (``sched.admission``):
+    each slot's row gets the bits the one-request step at ``(1, TOT)``
+    gives it. Float products and the float-cache read run one row at a
+    time (a float GEMM may round a row differently at another row count),
+    int8 products stay flattened (exact int32 sums), and K5 runs once at S
+    rows with its chunks planned for one (``plan_slots=1``).
 
     Returns ``step(params, caches, tok, p) -> (caches, logits)``: ``caches``
     (a :class:`QuantKV` or a float tensor ``(L, 2, S, H, TOT, D)``) is
@@ -234,7 +242,26 @@ def build_step(model, S: int, TOT: int, spec: QuantSpec):
         from .. import profiler
         # matmul sites a step stages: 6 a layer and the head
         profiler.record_quant_matmuls(6 * len(model.blocks) + 1)
-    mm = _mm_fn(wq)
+    mm1 = _mm_fn(wq)
+    plan = 1 if rowwise else None
+
+    def mm(h, lp, w, b):
+        if wq or not rowwise:
+            return mm1(h, lp, w, b)
+        return torch.cat([mm1(h[n:n + 1], lp, w, b) for n in range(S)])
+
+    def read(q, K, V, keep):
+        if not rowwise:
+            return _float_read(q, K, V, keep, scale)
+        return torch.cat([_float_read(q[n:n + 1], K[n:n + 1], V[n:n + 1],
+                                      keep[n:n + 1], scale)
+                          for n in range(S)])
+
+    def head(params, h):
+        if wq or not rowwise:
+            return _head(params, h, V, wq)
+        return torch.cat([_head(params, h[n:n + 1], V, wq)
+                          for n in range(S)])
 
     def ln(x, g, b):
         return F.layer_norm(x, (U,), g, b, 1e-5)
@@ -263,18 +290,18 @@ def build_step(model, S: int, TOT: int, spec: QuantSpec):
                 ctx = quant_attention.dequant_attention_decode(
                     q, caches.data[i, 0], caches.scale[i, 0],
                     caches.data[i, 1], caches.scale[i, 1], pc32, scale=scale,
-                    span=span, device=q.device).reshape(S, U)
+                    span=span, plan_slots=plan,
+                    device=q.device).reshape(S, U)
             else:
                 caches[i, 0, rows, :, pc] = k.to(caches.dtype)
                 caches[i, 1, rows, :, pc] = v.to(caches.dtype)
-                ctx = _float_read(q, caches[i, 0], caches[i, 1], keep,
-                                  scale).reshape(S, U)
+                ctx = read(q, caches[i, 0], caches[i, 1], keep).reshape(S, U)
             x = x + mm(ctx, lp, "ow", "ob")
             g = ln(x, lp["ln2_g"], lp["ln2_b"])
             g = F.gelu(mm(g, lp, "f1w", "f1b"))
             x = x + mm(g, lp, "f2w", "f2b")
         h = ln(x, params["ln_f_g"], params["ln_f_b"])
-        return caches, _head(params, h, V, wq)
+        return caches, head(params, h)
 
     return step
 

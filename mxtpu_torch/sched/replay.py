@@ -1,0 +1,153 @@
+"""Traffic-replay traces: seeded multi-tenant arrival processes.
+
+Port of ``mxtpu/sched/replay.py``. A :class:`TrafficTrace` is a
+deterministic, seeded list of :class:`TrafficRequest`:
+
+* **arrival processes** — ``poisson``, ``bursty`` (Poisson base load with
+  periodic high-rate bursts), ``diurnal`` (a sinusoidal rate thinned from a
+  peak-rate Poisson) and ``heavy_tail`` (bursty arrivals with
+  Pareto-distributed decode lengths);
+* **multi-tenant populations** — each :class:`TenantProfile` takes a share
+  of the arrivals with its own priority tier, deadline and a shared token
+  prefix (what the radix ``PrefixCache`` reuses).
+
+Everything derives from one ``random.Random`` keyed by ``zlib.crc32`` of
+(seed, kind, rate, duration): the same arguments give the same trace, item
+for item, in every process, and the reference's trace. Standard library
+only.
+"""
+
+from __future__ import annotations
+
+import math
+import random
+import zlib
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+__all__ = ["TrafficRequest", "TenantProfile", "TrafficTrace", "make_trace",
+           "KINDS"]
+
+KINDS = ("poisson", "bursty", "diurnal", "heavy_tail")
+
+
+@dataclass(frozen=True)
+class TrafficRequest:
+    """One scripted arrival: submit ``prompt`` at ``t`` seconds after
+    replay start, on behalf of ``tenant`` at ``priority``, asking for
+    ``max_new`` tokens within ``deadline_s`` (None = no deadline)."""
+    t: float
+    tenant: str
+    priority: str
+    prompt: Tuple[int, ...]
+    max_new: int
+    deadline_s: Optional[float]
+
+
+@dataclass(frozen=True)
+class TenantProfile:
+    """One tenant's slice of the traffic mix. ``share`` weights how many
+    arrivals it receives; ``prefix_len`` tokens are drawn ONCE per tenant
+    and shared by all its prompts (prefix-cache-hittable), followed by
+    ``suffix_len`` fresh tokens per request."""
+    name: str
+    priority: str = "standard"
+    share: float = 1.0
+    prefix_len: int = 32
+    suffix_len: int = 8
+    max_new: int = 16
+    deadline_s: Optional[float] = None
+
+
+@dataclass(frozen=True)
+class TrafficTrace:
+    kind: str
+    seed: int
+    duration_s: float
+    requests: Tuple[TrafficRequest, ...]
+    prefixes: Dict[str, Tuple[int, ...]] = field(default_factory=dict)
+
+    def __len__(self) -> int:
+        return len(self.requests)
+
+
+def _poisson_arrivals(rng: random.Random, rate: float,
+                      duration: float) -> List[float]:
+    out, t = [], 0.0
+    while True:
+        t += rng.expovariate(rate)
+        if t >= duration:
+            return out
+        out.append(t)
+
+
+def _thin(rng: random.Random, arrivals: List[float], accept) -> List[float]:
+    """Keep each arrival with probability ``accept(t)`` (Lewis thinning —
+    turns a peak-rate Poisson stream into any rate(t) <= peak)."""
+    return [t for t in arrivals if rng.random() < accept(t)]
+
+
+def _arrival_times(kind: str, rng: random.Random, rate: float,
+                   duration: float) -> List[float]:
+    if kind == "poisson":
+        return _poisson_arrivals(rng, rate, duration)
+    if kind in ("bursty", "heavy_tail"):
+        # steady base load at rate/2 plus 4x-rate bursts covering the
+        # middle fifth of each duration/3 window — overlapping arrivals
+        # stack, which is the point
+        base = _poisson_arrivals(rng, max(rate / 2, 1e-9), duration)
+        burst = _poisson_arrivals(rng, rate * 4, duration)
+        period = duration / 3.0
+        burst = [t for t in burst if 0.4 <= (t % period) / period < 0.6]
+        return sorted(base + burst)
+    if kind == "diurnal":
+        # one full sinusoidal "day" across the trace, floor 10% of peak
+        peak = _poisson_arrivals(rng, rate * 2, duration)
+        return _thin(rng, peak, lambda t: 0.1 + 0.9 * (
+            0.5 - 0.5 * math.cos(2 * math.pi * t / duration)))
+    raise ValueError(f"unknown trace kind {kind!r}; one of {KINDS}")
+
+
+def _pareto_len(rng: random.Random, floor: int, cap: int,
+                alpha: float = 1.3) -> int:
+    """Heavy-tailed length in [floor, cap]: most requests near the floor,
+    a rare few near the cap (the slot-monopolizing shape)."""
+    x = floor * (1.0 - rng.random()) ** (-1.0 / alpha)
+    return int(min(cap, max(floor, round(x))))
+
+
+def make_trace(kind: str = "bursty", seed: int = 0, *,
+               rate: float = 8.0, duration_s: float = 4.0,
+               vocab: int = 256,
+               tenants: Sequence[TenantProfile] = (),
+               heavy_tail_cap: int = 96) -> TrafficTrace:
+    """Build a deterministic trace: ``rate`` is the nominal aggregate
+    arrivals/s (each kind shapes it differently), ``tenants`` the
+    population mix (default: one standard-tier tenant). Token ids are
+    drawn uniformly from ``[1, vocab)`` (0 is reserved so a BOS/pad id
+    never collides with drawn content)."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown trace kind {kind!r}; one of {KINDS}")
+    # zlib.crc32, NOT hash(): str hashes are salted per process
+    # (PYTHONHASHSEED), which would make "the same seed" yield a
+    # different trace every run
+    key = f"{seed}|{kind}|{round(rate * 1e6)}|{round(duration_s * 1e6)}"
+    rng = random.Random(zlib.crc32(key.encode()))
+    if not tenants:
+        tenants = (TenantProfile("default"),)
+    tok = lambda: rng.randrange(1, max(vocab, 2))
+    prefixes = {p.name: tuple(tok() for _ in range(p.prefix_len))
+                for p in tenants}
+    shares = [max(p.share, 0.0) for p in tenants]
+    times = _arrival_times(kind, rng, rate, duration_s)
+    reqs = []
+    for t in times:
+        p = rng.choices(tenants, weights=shares)[0]
+        prompt = prefixes[p.name] + tuple(tok() for _ in range(p.suffix_len))
+        max_new = p.max_new if kind != "heavy_tail" \
+            else _pareto_len(rng, p.max_new, heavy_tail_cap)
+        reqs.append(TrafficRequest(t=t, tenant=p.name, priority=p.priority,
+                                   prompt=prompt, max_new=max_new,
+                                   deadline_s=p.deadline_s))
+    return TrafficTrace(kind=kind, seed=seed, duration_s=duration_s,
+                        requests=tuple(reqs), prefixes=prefixes)

@@ -1,16 +1,18 @@
 """mxtpu_torch.serving — the online serving engine (continuous batching,
-chunked prefill, radix prefix reuse, speculative decode) over
-``transformer_lm``."""
+chunked prefill, radix prefix reuse, speculative decode, the SLO control
+plane, live drain/adopt handoff) over ``transformer_lm``."""
 
-from .api import (CANCELLED, DONE, EXPIRED, PENDING, RUNNING,
-                  DeadlineExceeded, QueueFullError, RequestCancelled,
-                  SamplingParams, ServingConfig, ServingRequest)
-from .engine import ServingEngine
+from .api import (CANCELLED, DONE, EXPIRED, PENDING, RUNNING, SHED, TIERS,
+                  DeadlineExceeded, HandoffMismatch, QueueFullError,
+                  RequestCancelled, SamplingParams, ServingConfig,
+                  ServingRequest, ShedError)
+from .engine import ServingEngine, ServingHandoff
 from .spec import Drafter, ModelDrafter, NgramDrafter, SpecConfig
 from . import kv
 
-__all__ = ["ServingEngine", "ServingRequest", "SamplingParams",
-           "ServingConfig", "QueueFullError", "RequestCancelled",
-           "DeadlineExceeded", "PENDING", "RUNNING", "DONE", "CANCELLED",
-           "EXPIRED", "SpecConfig", "Drafter", "NgramDrafter",
-           "ModelDrafter", "kv"]
+__all__ = ["ServingEngine", "ServingHandoff", "ServingRequest",
+           "SamplingParams", "ServingConfig", "QueueFullError",
+           "RequestCancelled", "DeadlineExceeded", "ShedError",
+           "HandoffMismatch", "TIERS", "PENDING", "RUNNING", "DONE",
+           "CANCELLED", "EXPIRED", "SHED", "SpecConfig", "Drafter",
+           "NgramDrafter", "ModelDrafter", "kv"]

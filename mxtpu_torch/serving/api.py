@@ -1,6 +1,6 @@
 """Request objects and error surface for the serving engine.
 
-Port of ``mxtpu/serving/api.py`` (the parts the plain engine uses). A
+Port of ``mxtpu/serving/api.py``. A
 :class:`ServingRequest` is the handle ``ServingEngine.submit()`` returns:
 the caller blocks on :meth:`ServingRequest.result` or calls
 :meth:`ServingRequest.cancel`. Cross-thread state lives behind the
@@ -18,19 +18,40 @@ from typing import List, Optional
 
 __all__ = ["ServingRequest", "SamplingParams", "ServingConfig",
            "QueueFullError", "RequestCancelled", "DeadlineExceeded",
-           "PENDING", "RUNNING", "DONE", "CANCELLED", "EXPIRED"]
+           "ShedError", "HandoffMismatch", "TIERS",
+           "PENDING", "RUNNING", "DONE", "CANCELLED", "EXPIRED", "SHED"]
 
 PENDING = "pending"        # in the admission queue, not yet prefilled
 RUNNING = "running"        # prefilling or occupying a decode slot
 DONE = "done"              # every requested token delivered
 CANCELLED = "cancelled"    # caller cancelled (or the engine shut down)
 EXPIRED = "expired"        # deadline passed before completion
+SHED = "shed"              # the SLO scheduler shed it before its deadline
 
-_TERMINAL = frozenset({DONE, CANCELLED, EXPIRED})
+_TERMINAL = frozenset({DONE, CANCELLED, EXPIRED, SHED})
+
+# priority tiers of the SLO scheduler (mxtpu_torch.sched.policy), most to
+# least latency-sensitive; a request's tier is fixed for its lifetime
+TIERS = ("interactive", "standard", "batch")
 
 
 class QueueFullError(RuntimeError):
     """Admission queue at capacity — the submit was rejected, not queued."""
+
+
+class ShedError(RuntimeError):
+    """The SLO scheduler shed this request under overload: the measured
+    service rates predicted its deadline unmeetable, so it was rejected
+    early, before it took a prefill cursor or a decode slot and before the
+    deadline passed. Distinct from :exc:`QueueFullError` (queue capacity)
+    and :exc:`DeadlineExceeded` (the deadline really passed)."""
+
+
+class HandoffMismatch(ValueError):
+    """``adopt()`` of a ``ServingHandoff`` the adopting engine cannot take
+    (another KV storage or geometry, drafts without speculative decode,
+    parked requests without the SLO scheduler), raised before any page is
+    installed."""
 
 
 class RequestCancelled(RuntimeError):
@@ -69,15 +90,28 @@ class ServingConfig:
     storage dtype name (e.g. ``'bfloat16'``); ``quant`` a token string
     (``'int8_kv'``, ``'fp8_kv'``, ``'int8_w'``, comma-joined) or a
     ``QuantSpec``; ``spec`` a ``SpecConfig`` or an integer draft depth
-    (speculative decode, off when None)."""
+    (speculative decode, off when None). ``stall_deadline_s`` arms the
+    engine's watchdog; ``sched`` installs the SLO scheduler (``True``, an
+    ``SLOPolicy`` or an ``SLOScheduler``); ``prefill_batch`` (> 1, with
+    ``sched`` only) packs that many pending prompts into one batched
+    prefill program; ``engine_id`` names the engine in the stats and
+    ``load()``. ``decode_kernel`` and ``mesh`` are fields of the reference
+    the port does not take: a value other than None raises
+    ``NotImplementedError``."""
     slots: Optional[int] = None
     queue_depth: Optional[int] = None
     chunk: Optional[int] = None
     prefill_chunk: Optional[int] = None
     prefix_cache_mb: Optional[float] = None
+    stall_deadline_s: Optional[float] = None
     kv_dtype: Optional[str] = None
     quant: object = None
+    decode_kernel: Optional[str] = None
+    sched: object = None
+    prefill_batch: Optional[int] = None
     spec: object = None
+    mesh: object = None
+    engine_id: Optional[str] = None
 
 
 class ServingRequest:
@@ -86,12 +120,15 @@ class ServingRequest:
     (the request retires as :data:`EXPIRED` at the first step boundary past
     it, keeping its partial tokens), optional :class:`SamplingParams`, and
     ``prefix_cache=False`` to opt out of shared-prefix KV reuse both
-    ways."""
+    ways. ``tenant`` names the submitting tenant (the fair-share and
+    per-tenant stats key) and ``priority`` its latency tier (one of
+    :data:`TIERS`); both are inert without the SLO scheduler."""
 
     def __init__(self, prompt, max_new: int,
                  deadline_s: Optional[float] = None,
                  sampling: Optional[SamplingParams] = None,
-                 prefix_cache: bool = True):
+                 prefix_cache: bool = True,
+                 tenant: str = "default", priority: str = "standard"):
         self.id = next(_ids)
         self.prompt = [int(t) for t in prompt]
         if not self.prompt:
@@ -104,6 +141,11 @@ class ServingRequest:
             sampling = SamplingParams(**dict(sampling))
         self.sampling = sampling
         self.use_prefix_cache = bool(prefix_cache)
+        self.tenant = str(tenant)
+        if priority not in TIERS:
+            raise ValueError(f"priority must be one of {TIERS}, "
+                             f"got {priority!r}")
+        self.priority = priority
         self.t_submit = time.monotonic()
         self.deadline = None if deadline_s is None \
             else self.t_submit + float(deadline_s)
@@ -139,8 +181,9 @@ class ServingRequest:
     def result(self, timeout: Optional[float] = None) -> List[int]:
         """Block until terminal; returns the generated-token list. Raises
         :exc:`RequestCancelled` / :exc:`DeadlineExceeded` (partial tokens on
-        ``.args[1]``) or the engine's error for the non-DONE terminals, and
-        ``TimeoutError`` if ``timeout`` elapses first."""
+        ``.args[1]``), the :exc:`ShedError` or the engine's error for the
+        other non-DONE terminals, and ``TimeoutError`` if ``timeout``
+        elapses first."""
         deadline = None if timeout is None else time.monotonic() + timeout
         with self._cond:
             while self.state not in _TERMINAL:
@@ -186,7 +229,19 @@ class ServingRequest:
             self.state = state
             self.error = error
             self.t_done = now
+            n_tokens = len(self._tokens)
             self._cond.notify_all()
+        # one line into the flight recorder's ring of finished requests
+        # (outside _cond: the recorder has its own lock)
+        from ..observability import flight
+        flight.note_request({
+            "id": self.id, "state": state,
+            "prompt": len(self.prompt), "max_new": self.max_new,
+            "tokens": n_tokens,
+            "ttft_ms": None if self.t_first_token is None
+            else round((self.t_first_token - self.t_submit) * 1e3, 3),
+            "total_ms": round((now - self.t_submit) * 1e3, 3),
+            "error": repr(error) if error is not None else None})
 
     def _set_state(self, state: str) -> None:
         with self._cond:

@@ -46,10 +46,10 @@ from ..quant import kv_quant as qkv
 from ..step_cache import GraphProgram, HostStaging
 
 __all__ = ["bucket32", "cache_dims", "empty_cache", "empty_page",
-           "reset_page", "promote", "merge_page", "install_rows",
-           "cache_nbytes", "block_nbytes", "ChunkProgram",
-           "build_prefill_chunk", "build_decode", "build_verify",
-           "PrefixCache"]
+           "reset_page", "promote", "merge_page", "slot_page", "host_page",
+           "device_page", "copy_page", "install_rows", "cache_nbytes",
+           "block_nbytes", "ChunkProgram", "build_prefill_chunk",
+           "build_decode", "build_verify", "PrefixCache"]
 
 # kernel wrappers whose ``launches`` count what a replay runs
 _COUNTED = (quant_attention.dequant_decode,)
@@ -125,6 +125,43 @@ def merge_page(caches, page, slot: int):
     return qkv.merge_page(caches, page, slot)
 
 
+def slot_page(caches, slot: int):
+    """A copy of one slot's ``(L, 2, 1, H, TOT, D)`` page: the drain and
+    park unit. A copy, never a view: the decode program owns the cache and
+    every replay writes it."""
+    page = qkv.slot_page(caches, slot)
+    return qkv.block_slice(page, 0, page.shape[4])
+
+
+def host_page(page):
+    """A copy of ``page`` on the host (quantized pages keep their bytes
+    and scales), for a ``ServingHandoff`` that outlives the engine. The
+    caller synchronises the card's stream first."""
+    if isinstance(page, qkv.QuantKV):
+        return qkv.QuantKV(page.data.to("cpu", copy=True),
+                           page.scale.to("cpu", copy=True), page.mode)
+    return page.to("cpu", copy=True)
+
+
+def device_page(page, device):
+    """A copy of a host page on ``device``."""
+    if isinstance(page, qkv.QuantKV):
+        return qkv.QuantKV(page.data.to(device, copy=True),
+                           page.scale.to(device, copy=True), page.mode)
+    return page.to(device, copy=True)
+
+
+def copy_page(dst, src):
+    """Copy ``src`` into the same-shaped ``dst``, in place (a page some
+    program was built over)."""
+    if isinstance(dst, qkv.QuantKV):
+        qkv.raw(dst.data).copy_(qkv.raw(src.data))
+        dst.scale.copy_(src.scale)
+    else:
+        dst.copy_(src)
+    return dst
+
+
 def install_rows(page, blocks, m: int):
     """Seed a page's first ``m`` token rows from cached prefix blocks."""
     return qkv.install_rows(page, blocks, m)
@@ -157,7 +194,10 @@ class ChunkProgram(GraphProgram):
     exactly), updates the page or cache it was built over in place, and
     writes its results into the static ``out`` buffer. ``pack`` turns a
     call's arguments into the host array that ``state`` takes, ``unpack``
-    turns ``out`` read back to the host into the call's results.
+    turns ``out`` read back to the host into the call's results, and
+    ``load`` (when given) copies the call's device-resident arguments (a
+    staged prompt) into the program's other static buffers, on the stream,
+    before the chunk runs.
 
     A call (:meth:`__call__`) on CUDA buffers copies the packed state in
     with one host-to-device copy (``step_cache.HostStaging``), replays the
@@ -173,17 +213,24 @@ class ChunkProgram(GraphProgram):
 
     def __init__(self, body: Callable, state: torch.Tensor,
                  out: torch.Tensor, pack: Callable, unpack: Callable,
-                 pool=None):
+                 pool=None, load: Optional[Callable] = None):
         super().__init__(body, _COUNTED, pool)
         self.state = state
         self.out = out
         self.pack = pack
         self.unpack = unpack
+        self.load = load or (lambda *args: None)
         self._staging = None     # pinned staging of ``state``
+
+    def stage(self, *args):
+        """A call's inputs into the static buffers, without the pinned
+        staging (what :meth:`eager` runs the body on)."""
+        self.load(*args)
+        self.state.copy_(torch.from_numpy(self.pack(*args)))
 
     def eager(self, *args):
         """The chunk through ``body``, without a graph."""
-        self.state.copy_(torch.from_numpy(self.pack(*args)))
+        self.stage(*args)
         self.body()
         return self.unpack(self.out.to("cpu", copy=True).numpy())
 
@@ -192,6 +239,7 @@ class ChunkProgram(GraphProgram):
             return self.eager(*args)
         if self._staging is None:
             self._staging = HostStaging(self.state)
+        self.load(*args)
         self._staging(self.pack(*args))
         if self.graph is None:
             self.capture(lambda: self.body(1))
@@ -211,18 +259,20 @@ def build_prefill_chunk(model, params, page, PB: int, csize: int,
 
     Call: ``prog(prompt (PB,) ints, t0, start, prev, temp, topk, seed) ->
     outs (csize,)``, where ``outs[j]`` is the token for position ``start +
-    j + 1``; ``page`` is updated in place."""
+    j + 1``; ``page`` is updated in place. ``prompt`` may be a tensor on
+    the program's device (the engine's, staged by its ``DeviceFeed``: one
+    device-to-device copy a call) or a host array."""
     step = _step_fn(model, 1, PB, quant)
     sample = model.serving_sample()
     dev = params["pos"].device
-    state = torch.zeros(6 + PB, dtype=torch.float64, device=dev)
+    state = torch.zeros(6, dtype=torch.float64, device=dev)
+    prompt = torch.zeros(PB, dtype=torch.long, device=dev)
     out = torch.zeros(csize, dtype=torch.long, device=dev)
 
     def body(steps: int = csize):
         ints = state.long()
         start, t0, tok, topk, seed = ints[:5].split(1)
         temp = state[5:6].float()
-        prompt = ints[6:]
         outs = []
         for j in range(steps):
             t = start + j
@@ -233,11 +283,14 @@ def build_prefill_chunk(model, params, page, PB: int, csize: int,
             outs.append(tok)
         out[:steps].copy_(torch.cat(outs))
 
-    def pack(prompt, t0, start, prev, temp, topk, seed):
-        return np.concatenate([[start, t0, prev, topk, seed & 0xFFFFFFFF,
-                                temp], np.asarray(prompt)]).astype(np.float64)
+    def pack(prompt_, t0, start, prev, temp, topk, seed):
+        return np.array([start, t0, prev, topk, seed & 0xFFFFFFFF, temp],
+                        np.float64)
 
-    return ChunkProgram(body, state, out, pack, lambda o: o, pool)
+    def load(prompt_, *_):
+        prompt.copy_(torch.as_tensor(prompt_), non_blocking=True)
+
+    return ChunkProgram(body, state, out, pack, lambda o: o, pool, load)
 
 
 def build_decode(model, params, caches, S: int, TOT: int, chunk: int,

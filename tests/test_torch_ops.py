@@ -35,7 +35,8 @@ RTOL, ATOL = 1e-5, 1e-6
 
 SLICE_MODULES = ("elementwise", "reduce", "matrix", "init_ops", "random",
                  "nn", "operator")
-# ops of those modules that wait for a later slice (ROADMAP queue 1 step 8)
+# ops of those modules that wait for a later slice (SyncBatchNorm needs
+# parallel/collectives)
 WAITING = {"contrib.SyncBatchNorm", "contrib._contrib_SyncBatchNorm"}
 
 

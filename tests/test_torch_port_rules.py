@@ -4,9 +4,9 @@
   ``kernel_sweep.py`` imports JAX or the JAX package ``mxtpu`` (relative
   imports inside the port are its own).
 * Entry points run on the card unless the caller asks for the CPU: without
-  CUDA, building a model or an engine with no ``device``, an ``nd`` array
-  with no ``ctx``, or an ``rtc`` module raises instead of running on the
-  CPU.
+  CUDA, building a model, an engine or a ``DeviceFeed`` with no
+  ``device``, an ``nd`` array with no ``ctx``, or an ``rtc`` module raises
+  instead of running on the CPU.
 """
 
 import ast
@@ -66,6 +66,9 @@ def test_entry_points_refuse_the_cpu_without_cuda():
     from mxtpu_torch.parallel import DataParallelTrainer
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DataParallelTrainer(net, lambda out, y: out.sum(), Adam())
+    from mxtpu_torch.device_feed import DeviceFeed
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeviceFeed([])
     from mxtpu_torch import nd, rtc
     with pytest.raises(RuntimeError, match="device='cpu'"):
         nd.array([1.0])

@@ -176,7 +176,7 @@ def test_trainer_refuses_multi_device_options():
     for kw in (dict(mesh=parallel.make_mesh((2,), ("dp",))),
                dict(param_shardings={"weight": None}), dict(zero=True),
                dict(compression_params={"type": "2bit"})):
-        with pytest.raises(NotImplementedError, match="queue 8"):
+        with pytest.raises(NotImplementedError, match="multi-device half"):
             DataParallelTrainer(tnet, _SeqLoss(), opt, device="cpu", **kw)
     DataParallelTrainer(tnet, _SeqLoss(), opt, device="cpu",
                         mesh=parallel.make_mesh((1,), ("dp",)), zero=False)

@@ -32,7 +32,11 @@ Phases, in order; any failure exits non-zero without a result line:
    floor and the byte bound; then a cache and the same cache zero-padded
    into a larger bucket give the same bits under one ``span``, and so do
    the float-cache step's logits (``serving_step``, and ``int8_w`` over a
-   float cache; TOT 256 -> 288 and 704 -> 1024);
+   float cache; TOT 256 -> 288 and 704 -> 1024); the ``xla`` read
+   (``_decode_xla``, plain ops with exact int32 sums, no kernel) at the
+   decode shape against its CPU result within 1e-5 x max(|CPU|, 1) and
+   K5's plain version within the reference's bound, timed on a graph
+   beside K5;
 4. forward: ``transformer_lm("base", vocab_size=50257)`` (GPT-2 124M
    dimensions) scores a (4, 1024) batch; K1 must launch;
 5. serving: ``ServingEngine(that model, slots=8, quant="int8_kv")`` answers
@@ -92,10 +96,25 @@ Phases, in order; any failure exits non-zero without a result line:
    (submit, admit, prefill, decode, drain, adopt, decode, retire, in
    order); K5 against its plain version at the batched prefill's shape
    (S 4, PB 704, every cursor last), timed on a graph;
+5f. the router: ``Router.local`` over two engines of phase 5's model
+   (``int8_kv``, slots 8, ``sched``) on the card, phase 5's 8 prompts and
+   4 sharing a 32-token first block (their references from phase 5's
+   engine), 128 new tokens each; once both replicas decode, the exporter
+   is scraped once on port 0 (router counters, each engine's label,
+   ``/json``), the busier replica is removed (its requests re-routed as
+   continuations) and the survivor rebalanced (drain, a fresh engine,
+   adopt) mid-flight. Every request equals its reference, zero drops;
+   every chunk a replay on each of the three engines; K5's launches
+   exactly L x (prefill positions + decode chunks x 8 + warm-ups) summed
+   over them; wall time, tokens/s, the removal's and the rebalance's ms,
+   each continuation's TTFT, each engine's stream and captures; then how
+   many int8 codes of a continuation's rows differ between the decode
+   step (slot 3 of 8) and the B=1 prefill that recomputes them;
 6. card against CPU: at base width with 2 layers, the same weights on the
    card and on the CPU give the same greedy tokens for 2 requests of 32
    new tokens (int8 and fp8 KV, a float cache, int8 weights over a float
-   cache), and forward logits that agree; then the
+   cache, int8 KV through the ``xla`` read), and forward logits that
+   agree; then the
    serving programs at that size (int8 KV): a greedy and a sampled
    request through the prefill and decode programs (cursors in K5's
    chunk 0 of a split page), once by graph replays and once through the
@@ -129,8 +148,10 @@ Phases, in order; any failure exits non-zero without a result line:
    K1, K2 and K3 must launch once per layer, micro-batch and step, replays
    counted, all three on the sm90 route; capture ms, ms/step over the
    replays, tokens/s, the bf16 FLOP share, peak memory and
-   ``optimizer_state_bytes()``; then one replayed step under
-   ``torch.profiler``;
+   ``optimizer_state_bytes()``; ``cost_analysis()`` (counted on the
+   first step) within 5% of the hand count, term by term; what the
+   count adds to that first step (the body eagerly, alone and counted);
+   then one replayed step under ``torch.profiler``;
 8b. the training program against its body: from the same weights, 1 + 3
    steps through ``step_async`` (body, capture and replay, replays) and 1
    + 3 through ``eager_step`` (the body each step): losses, weights and
@@ -169,12 +190,13 @@ Phases, in order; any failure exits non-zero without a result line:
     ``F.cross_entropy``.
 
 Launch counts are set to 0 just before phases 4, 5, 5c (its first
-burst), 5e (its SLO burst), 8, 9 (each fused run), 10, saxpy's drive in
+burst), 5e (its SLO burst), 5f, 8, 9 (each fused run), 10, saxpy's drive in
 11 and the 10 steps of 12, and read just after. The line before the last
 is the kernels' JSON record, with one K1, K2, K3 and K4 record for each
-route and the path it runs on, and three K5 records (plain serving, phase
+route and the path it runs on, and four K5 records (plain serving, phase
 5; speculative verify, phase 5c with the times of phase 6b; the SLO
-batched prefill, phase 5e), each with its launches inside graph replays;
+batched prefill, phase 5e; the router's two replicas, phase 5f), each
+with its launches inside graph replays;
 the whole smoke's time is printed before it; the last line is
 ``{"ok": true, "device": {...}}``.
 Weights and data are random, from fixed seeds.
@@ -597,12 +619,59 @@ def phase_k5(torch, quant_attention, kv_quant):
                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         if main is None:
             main = rec
+            xla = xla_check(torch, quant_attention, q, caches, pc, scale,
+                            iters, ms)
         if label == "prefill int8":
             prefill = dict(TOT=TOT, ms=ms, eager_ms=eager_ms,
                            bound_ms=bound_ms)
     k5_span_check(torch, quant_attention, kv_quant, g)
     float_span_check(torch)
-    return dict(main, prefill=prefill)
+    return dict(main, prefill=prefill, xla=xla)
+
+
+def xla_check(torch, quant_attention, q, caches, pc, scale, iters, k5_ms):
+    """The ``xla`` read (``_decode_xla``: the reference's non-Pallas read,
+    plain ops with exact int32 sums) at the decode shape on the card:
+    against its CPU result within 1e-5 x max(|CPU|, 1) (the sums are
+    exact on both, so only the float epilogue may differ), and against
+    K5's plain version within the reference's bound (3 x half an int8
+    step of the V rows, ``tests/test_quant_attention.py``); timed on a
+    graph beside K5's graph time. Plain ops, not a kernel: no K5
+    launch."""
+    xla_fn = quant_attention._decode_xla
+    launches = quant_attention.dequant_decode.launches
+    out = xla_fn(q, *caches[0], pc, scale)
+    cpu = xla_fn(q.cpu(), *(t.cpu() for t in caches[0]), pc.cpu(), scale)
+    ref = quant_attention._decode_plain(q.float(), *caches[0], pc, scale)
+    torch.cuda.synchronize()
+    check(quant_attention.dequant_decode.launches == launches,
+          "the xla read launched K5")
+    bound = 1.5 * caches[0][3].max().item()     # 3 x absmax / 254
+    tol_cpu = 1e-5 * max(cpu.abs().max().item(), 1.0)
+    err_cpu = (out.cpu() - cpu).abs().max().item()
+    err_ref = (out - ref).abs().max().item()
+    same = torch.equal(out.cpu(), cpu)
+    check(math.isfinite(err_cpu) and err_cpu <= tol_cpu,
+          f"xla read: card vs CPU {err_cpu} (tolerance {tol_cpu})")
+    check(math.isfinite(err_ref) and err_ref <= bound,
+          f"xla read: vs K5's plain version {err_ref} (bound {bound})")
+    turn = [0]
+
+    def cycled():
+        turn[0] += 1
+        return xla_fn(q, *caches[turn[0] % K5_CACHES], pc, scale)
+
+    ms = graph_ms(torch, cycled, 2 * K5_CACHES, reps=2)
+    S, H, TOT, D = caches[0][0].shape
+    print(f"xla read (plain ops, int8 x int8 -> exact int32 sums) S{S} H{H} "
+          f"TOT{TOT} D{D}: card vs CPU max diff {err_cpu:.3e} "
+          f"({'bit-equal' if same else 'not bit-equal'}; tolerance "
+          f"{tol_cpu:.3e}), vs K5's plain "
+          f"version {err_ref:.3e} (bound {bound:.3e}); {ms:.5f} ms a call "
+          f"on a graph against K5's {k5_ms:.5f} ({ms / k5_ms:.2f}x)",
+          flush=True)
+    return dict(ms=ms, err_cpu=err_cpu, tol_cpu=tol_cpu, err_plain=err_ref,
+                bound=bound, k5_ms=k5_ms)
 
 
 def k5_span_check(torch, quant_attention, kv_quant, g):
@@ -959,6 +1028,11 @@ def phase_serving(torch, model, serving, quant_attention, step_cache,
         traces2 = {k: v - traces0[k]
                    for k, v in program_traces(step_cache).items()}
         chunk, pchunk = eng.chunk, eng.prefill_chunk
+        # the router phase's references: the first burst's tokens, and the
+        # same engine over the router's 4 shared-block prompts
+        refs = [r.result() for r in reqs]
+        extra = [eng.submit(p, 128) for p in router_prompts(torch)]
+        refs += [r.result(timeout=900) for r in extra]
     check(launches > 0, "serving launched no dequant_decode kernel")
     check(launches % L == 0, f"{launches} dequant_decode launches is not a "
           f"multiple of the {L} layers: a step skipped the kernel")
@@ -1011,7 +1085,7 @@ def phase_serving(torch, model, serving, quant_attention, step_cache,
           f"{stats2['decode_replays'] - stats['decode_replays']}; "
           f"dequant_decode launches {launches2} ({steps2} steps x {L} "
           f"layers)", flush=True)
-    return launches, L * steps
+    return launches, L * steps, refs
 
 
 def phase_profile(torch, model, serving):
@@ -2119,6 +2193,223 @@ def phase_programs(torch, lm, serving, quant_attention, counts):
           f"request's last prefill tokens {got[3][-8:]}", flush=True)
 
 
+ROUTER_SHARED = (110, 180, 240, 340)   # lengths: buckets phase 5 captured
+
+
+def router_prompts(torch, seed=7):
+    """The router phase's 4 extra prompts: one shared 32-token first block
+    (prefix affinity sends them to one replica), then their own tokens."""
+    g = torch.Generator().manual_seed(seed)
+    block = torch.randint(0, 50257, (32,), generator=g).tolist()
+    return [block + torch.randint(0, 50257, (n - 32,), generator=g).tolist()
+            for n in ROUTER_SHARED]
+
+
+def wait_for(cond, what, timeout=600):
+    t0 = time.monotonic()
+    while not cond():
+        if time.monotonic() - t0 > timeout:
+            raise SmokeFailure(f"router: {what} not within {timeout} s")
+        time.sleep(0.002)
+
+
+def continuation_rows(torch, model, prompt, emitted, slots=8, slot=3):
+    """The K/V rows of ``emitted`` (decoded after ``prompt``) written two
+    ways over an int8 cache: by the decode step at ``slots`` rows (slot
+    ``slot``), as an uninterrupted request writes them, and by the B=1
+    prefill step over prompt + emitted, as a continuation re-routed to
+    another replica recomputes them. Returns (codes differing, codes, the
+    largest code difference, scales differing, scales)."""
+    from mxtpu_torch.quant import serve
+    from mxtpu_torch.serving import kv
+    spec = serve.parse_quant("int8_kv")
+    params = serve.quantize_lm(model, spec)
+    n0, n = len(prompt), len(emitted)
+    TOT = kv.bucket32(n0 + n, model._max_len)
+    one = serve.build_step(model, 1, TOT, spec)
+    many = serve.build_step(model, slots, TOT, spec)
+    toks = prompt + emitted
+    dev = model.embedding.weight.device
+
+    def at(t, S=1):
+        return torch.full((S,), t, dtype=torch.long, device=dev)
+
+    with torch.inference_mode():
+        page = kv.empty_cache(model, 1, TOT, quant=spec, device=dev)
+        for t in range(n0):
+            one(params, page, at(toks[t]), at(t))
+        cont = kv.empty_cache(model, 1, TOT, quant=spec, device=dev)
+        kv.copy_page(cont, page)
+        for t in range(n0, n0 + n):
+            one(params, cont, at(toks[t]), at(t))
+        dec = kv.empty_cache(model, slots, TOT, quant=spec, device=dev)
+        kv.merge_page(dec, page, slot)
+        for t in range(n0, n0 + n):
+            tok, p = at(0, slots), at(0, slots)
+            tok[slot], p[slot] = toks[t], t
+            many(params, dec, tok, p)
+        a = cont.data[:, :, 0, :, n0:n0 + n].int()
+        b = dec.data[:, :, slot, :, n0:n0 + n].int()
+        sa = cont.scale[:, :, 0, :, n0:n0 + n]
+        sb = dec.scale[:, :, slot, :, n0:n0 + n]
+        diff = (a - b).abs()
+        return (int((diff > 0).sum()), a.numel(), int(diff.max()),
+                int((sa != sb).sum()), sa.numel())
+
+
+def phase_router(torch, model, serving, quant_attention, step_cache, counts,
+                 refs, smi):
+    """Two ``base`` engines on the card behind ``Router.local`` (phase 5's
+    model, ``int8_kv``, slots 8, ``sched``): phase 5's 8 prompts and 4
+    sharing a first block, 128 new tokens each. Once both replicas decode,
+    the exporter is scraped once (port 0) and the busier replica is
+    removed (its requests re-routed as continuations); then the survivor
+    is rebalanced (drain, a fresh engine, adopt) while it is mid-flight.
+    Every request's tokens must equal its plain engine reference
+    (``refs``: phase 5's engine), with zero drops; K5's launches must equal
+    L x (prefill positions + decode chunks x chunk + captures) summed over
+    the three engines, each with K5 replays of its own. Returns the K5
+    record of the path."""
+    from mxtpu_torch import profiler
+    from mxtpu_torch.observability import exporter
+    import urllib.request
+    prompts = serving_prompts(torch) + router_prompts(torch)
+    check(len(refs) == len(prompts), f"{len(refs)} references for "
+          f"{len(prompts)} prompts")
+    L = len(model.blocks)
+    made = []
+
+    def factory(rid):
+        eng = serving.ServingEngine(model, slots=8, quant="int8_kv",
+                                    sched=True, engine_id=rid)
+        made.append(eng)
+        return eng
+
+    profiler.reset_router_stats()
+    torch.cuda.synchronize()
+    counts(0)
+    t0 = time.monotonic()
+    router = serving.Router.local(factory, 2).start()
+    try:
+        hs = [router.submit(p, 128) for p in prompts]
+        homes = {rid: [i for i, h in enumerate(hs)
+                       if any(r is h for r in book.values())]
+                 for rid, book in router._inflight.items()}
+        # both replicas decoding, and on each up to 3 of its requests past
+        # their first decode chunk, so the removal moves continuations
+        # that carry decoded tokens
+        wait_for(lambda: all(
+            sum(len(hs[i].tokens()) > 8 for i in idx) >= min(3, len(idx))
+            for idx in homes.values()), "both replicas decoding")
+        ex = exporter.start(port=0)
+        try:
+            base = f"http://127.0.0.1:{ex.port}"
+            text = urllib.request.urlopen(base + "/metrics",
+                                          timeout=60).read().decode()
+            snap = json.loads(urllib.request.urlopen(
+                base + "/json", timeout=60).read())
+        finally:
+            exporter.stop()
+        for rid in ("replica0", "replica1"):
+            check(f'mxtpu_engine_in_flight{{engine="{rid}"}}' in text,
+                  f"exporter: no series labelled {rid}")
+        check(f"mxtpu_router_submitted {len(prompts)}" in text
+              and "mxtpu_router_requests_dropped 0" in text,
+              "exporter: router counters missing")
+        check(sorted(snap["engines"]) == ["replica0", "replica1"]
+              and snap["router"]["submitted"] == len(prompts),
+              f"exporter /json: engines {sorted(snap['engines'])}, router "
+              f"{snap['router']}")
+        first = [h._segment()[0] for h in hs]
+        books = {rid: sum(0 if h.done() else 1 for h in book.values())
+                 for rid, book in router._inflight.items()}
+        victim = max(books, key=books.get)
+        survivor = next(r for r in router.replica_ids if r != victim)
+        t1 = time.perf_counter()
+        moved = router.remove_replica(victim)
+        remove_ms = (time.perf_counter() - t1) * 1e3
+        conts = [i for i, h in enumerate(hs)
+                 if h._segment()[0] is not first[i]]
+        wait_for(lambda: any(hs[i]._segment()[0].tokens() for i in conts),
+                 "a continuation's first token")
+        before = router._replicas[survivor].engine
+        mid = sum(not h.done() for h in hs)
+        t1 = time.perf_counter()
+        router.rebalance(survivor)
+        rebalance_ms = (time.perf_counter() - t1) * 1e3
+        outs = [h.result(timeout=900) for h in hs]
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = quant_attention.dequant_decode.launches
+        segs = [h._segment()[0] for h in hs]
+    finally:
+        router.stop()
+    stats = profiler.get_router_stats()
+    for i, (a, b) in enumerate(zip(outs, refs)):
+        if a != b:
+            j = next((n for n, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            raise SmokeFailure(
+                f"router request {i} ({len(prompts[i])} tokens, "
+                f"{'re-routed' if i in conts else 'not re-routed'}): tokens "
+                f"differ from the plain engine's at new token {j} of "
+                f"{len(b)}" + (" (a continuation's recomputed K/V rows may "
+                               "differ from the decode rows: ROADMAP.md "
+                               "queue 3)" if i in conts else ""))
+    check(stats["requests_dropped"] == 0 and moved >= 1
+          and stats["requests_rebalanced"] == moved == len(conts)
+          and stats["replicas_removed"] == 1 and stats["rebalanced"] == 1
+          and stats["replicas"] == 1,
+          f"router stats {stats}, moved {moved}, continuations {conts}")
+    st = {e.engine_id + ("'" if e is not made[0] and e is not made[1]
+                         else ""): e.stats() for e in made}
+    for name, s in st.items():
+        check(s.get("prefill_replays", 0) == s.get("prefill_chunks", 0)
+              and s.get("decode_replays", 0) == s.get("decode_steps", 0),
+              f"{name}: a chunk ran outside a graph replay: {s}")
+    check(all(s.get("decode_replays", 0) > 0 for s in st.values()),
+          f"an engine replayed no decode chunk (K5 inside): "
+          f"{ {n: s.get('decode_replays') for n, s in st.items()} }")
+    chunk = made[0].chunk
+    steps = sum(s.get("prefill_positions", 0)
+                + s.get("decode_steps", 0) * chunk for s in st.values())
+    captured = sum(s.get("programs_captured", 0) for s in st.values())
+    check(launches == L * (steps + captured),
+          f"router: {launches} dequant_decode launches, not {L} x ({steps} "
+          f"steps replayed + {captured} warm-ups) over the 3 engines")
+    tps = len(prompts) * 128 / wall
+    ttft = [(segs[i].t_first_token - segs[i].t_submit) * 1e3 for i in conts]
+    print(f"router, 2 replicas of base int8_kv slots 8 sched on one card: "
+          f"{len(prompts)} requests x 128 tokens in {wall:.2f} s = "
+          f"{tps:.1f} tokens/s, captures included; homes {homes}; every "
+          f"request equals the plain engine's; remove_replica({victim}) "
+          f"{remove_ms:.1f} ms (drain and re-route), moved {moved} "
+          f"(requests {conts}, emitted before the move "
+          f"{[len(hs[i]._prefix_tokens) for i in conts]}); continuation "
+          f"TTFT ms {[round(x, 1) for x in ttft]}; rebalance({survivor}) "
+          f"with {mid} requests in flight {rebalance_ms:.1f} ms (drain, a "
+          f"fresh engine, adopt); router stats {stats}; {smi}", flush=True)
+    for name, s in st.items():
+        print(f"  engine {name}: stream {s.get('stream')}, captures "
+              f"{s.get('programs_captured', 0)} in "
+              f"{s.get('capture_ms_total', 0):.1f} ms, prefill positions "
+              f"{s.get('prefill_positions', 0)}, decode chunks "
+              f"{s.get('decode_steps', 0)}, completed "
+              f"{s.get('completed', 0)}, drained {s.get('drained', 0)}, "
+              f"adopted {s.get('adopted', 0)}", flush=True)
+    print(f"  K5 launches {launches} = {L} x ({steps} steps replayed + "
+          f"{captured} warm-ups) over the 3 engines", flush=True)
+    i = conts[0]
+    emitted = hs[i]._prefix_tokens[:48]
+    diff, n, dmax, sdiff, sn = continuation_rows(torch, model, prompts[i],
+                                                 emitted)
+    print(f"  continuation rows: request {i}'s {len(emitted)} decoded "
+          f"positions, written by the decode step (slot 3 of 8) and by the "
+          f"B=1 prefill of prompt + emitted: {diff} of {n} int8 codes "
+          f"differ (largest by {dmax}), {sdiff} of {sn} scales", flush=True)
+    return dict(launches=launches, launches_in_replays=L * steps)
+
+
 def phase_card_vs_cpu(torch, lm, serving):
     cpu = lm.transformer_lm("base", vocab_size=50257, num_layers=2,
                             device="cpu", seed=5)
@@ -2133,11 +2424,17 @@ def phase_card_vs_cpu(torch, lm, serving):
         lg = gpu(toks.cuda()).cpu()
     ferr = (lc - lg).abs().max().item()
     check(ferr <= 1e-3, f"forward logits card vs CPU differ by {ferr}")
-    for quant in ("int8_kv", "fp8_kv", None, "int8_w"):
+    for quant, kernel in (("int8_kv", None), ("fp8_kv", None), (None, None),
+                          ("int8_w", None), ("int8_kv", "xla")):
         outs = {}
         for name, net, dev in (("cuda", gpu, None), ("cpu", cpu, "cpu")):
             with serving.ServingEngine(net, slots=2, quant=quant,
+                                       decode_kernel=kernel,
                                        device=dev) as eng:
+                check(eng.stats()["decode_kernel"] == (
+                    kernel or ("pallas" if quant and "kv" in quant
+                               else "none")),
+                      f"{quant}: decode_kernel {eng.stats()}")
                 reqs = [eng.submit(p, 32) for p in prompts]
                 outs[name] = [r.result(timeout=600) for r in reqs]
         for i, (a, b) in enumerate(zip(outs["cuda"], outs["cpu"])):
@@ -2148,13 +2445,15 @@ def phase_card_vs_cpu(torch, lm, serving):
                 ctx = torch.tensor([prompts[i] + b[:j]])
                 top = torch.topk(cpu(ctx)[0, -1], 2).values
             raise SmokeFailure(
-                f"{quant} request {i}: card and CPU greedy tokens diverge "
+                f"{quant} ({kernel or 'auto'} read) request {i}: card and "
+                f"CPU greedy tokens diverge "
                 f"at new token {j} ({a[j]} vs {b[j]}); CPU fp32 forward "
                 f"top-2 logit margin there {float(top[0] - top[1]):.3e}")
     print(f"card vs CPU, base width 2 layers: forward logits max diff "
           f"{ferr:.3e} (tol 1e-3); greedy tokens equal for 2 requests x 32, "
-          f"int8_kv, fp8_kv, a float cache (quant=None) and int8_w over a "
-          f"float cache", flush=True)
+          f"int8_kv, fp8_kv, a float cache (quant=None), int8_w over a "
+          f"float cache and int8_kv through the xla read "
+          f"(decode_kernel='xla')", flush=True)
 
 
 class SeqLoss:
@@ -2275,8 +2574,46 @@ def phase_train(torch, lm, attention, optimizer, loss_mod, parallel,
           f"TFLOP/s = {flops / (step_ms / 1e3) / PEAK_FLOPS['bfloat16']:.4f} "
           f"of the 989 TFLOP/s bf16 peak", flush=True)
     print(f"  losses {[round(v, 4) for v in losses]}", flush=True)
+    cost = dpt.cost_analysis()
+    dense = 6 * p_dense * B * T
+    print(f"  cost_analysis (counted on the first step): flops "
+          f"{cost['flops']:.4e} = {cost['flops'] / flops:.4f} x the hand "
+          f"count {flops:.4e}; of it K1-K3 report "
+          f"{cost['kernel flops']:.4e} (K1 4, K2 6, K3 8 x B*H*pairs*D a "
+          f"layer: {18 * B * H * pairs * (U // H) * L:.4e}; the hand count "
+          f"takes 12: {attn_flops:.4e}) and FlopCounterMode the products "
+          f"{cost['flops'] - cost['kernel flops']:.4e} (6*P*tokens "
+          f"{dense:.4e}); bytes accessed {cost['bytes accessed']:.4e}",
+          flush=True)
+    check(abs(cost["flops"] / flops - 1) <= 0.05,
+          f"cost_analysis flops {cost['flops']:.4e} is not within 5% of the "
+          f"hand count {flops:.4e}")
+    count_cost_ms(torch, dpt)
     profile_step(torch, dpt, x, y)
     return launches
+
+
+def count_cost_ms(torch, dpt):
+    """What counting the cost adds to a key's first step: the step's body
+    run eagerly alone and under ``flops.estimate_step_cost`` (as the first
+    step runs it), in turn, twice each, each call synced."""
+    from mxtpu_torch.observability import flops
+    body = dpt._last.body
+    ms = {"alone": [], "counted": []}
+    for which in ("alone", "counted", "counted", "alone"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if which == "alone":
+            body()
+        else:
+            flops.estimate_step_cost(body)
+        torch.cuda.synchronize()
+        ms[which].append((time.perf_counter() - t0) * 1e3)
+    alone, counted = min(ms["alone"]), min(ms["counted"])
+    print(f"  cost count on the first step: the body eagerly {alone:.1f} ms "
+          f"{[round(v, 1) for v in ms['alone']]}, under the counters "
+          f"{counted:.1f} ms {[round(v, 1) for v in ms['counted']]}: "
+          f"+{counted - alone:.1f} ms once a program key", flush=True)
 
 
 def profile_step(torch, dpt, x, y):
@@ -3124,7 +3461,7 @@ def run():
     k5 = timed_phase("K5 checks", phase_k5, torch, quant_attention, kv_quant)
     model, k1_launches = timed_phase("forward", phase_forward, torch, lm,
                                      attention, counts)
-    k5_launches, k5_replayed = timed_phase(
+    k5_launches, k5_replayed, router_refs = timed_phase(
         "serving", phase_serving, torch, model, serving, quant_attention,
         step_cache, counts)
     timed_phase("profile", phase_profile, torch, model, serving)
@@ -3137,6 +3474,9 @@ def run():
     k5_slo = timed_phase("SLO control plane", phase_slo, torch, model,
                          serving, quant_attention, step_cache, counts,
                          smi[0], refs)
+    k5_router = timed_phase("router", phase_router, torch, model, serving,
+                            quant_attention, step_cache, counts, router_refs,
+                            smi[0])
     del model
     torch.cuda.empty_cache()
     timed_phase("card vs CPU", phase_card_vs_cpu, torch, lm, serving)
@@ -3213,6 +3553,11 @@ def run():
              source="mxtpu_torch/csrc/dequant_decode.cu",
              replaces="mxtpu/ops/quant_attention.py:99",
              path="serving, SLO batched prefill", **k5_slo),
+        dict(name="dequant_decode", route="cuda",
+             source="mxtpu_torch/csrc/dequant_decode.cu",
+             replaces="mxtpu/ops/quant_attention.py:99",
+             path="serving, router (2 replicas)",
+             **{**k5, **k5_router}),
         dict(name="rtc saxpy", route="nvrtc", source="mxtpu_torch/rtc.py",
              kernel_source="chip_smoke.py:SAXPY_SRC",
              replaces="mxtpu/rtc.py:47", path="K6 checks, saxpy at 2^26",

@@ -8,6 +8,14 @@ header never loads a stale library. The build runs
 on first use (or all at once through :func:`build_all`, one ``nvcc`` per
 source in parallel) and is written to a temporary name and renamed, so two
 processes building at once cannot load half a file.
+
+The wrappers count their launches here (:func:`count_launch`), on the
+wrapper function's ``launches`` and ``sm90_launches``, under one lock:
+engines on several threads launch, capture and replay at once. A launch
+on a stream that is recording a CUDA graph (:func:`recording`) runs
+nothing, so it goes to that recording's tally instead, whichever thread
+made it (the autograd engine runs a captured backward on a thread of its
+own); the graph's replays add the tally back (:func:`add_launches`).
 """
 
 from __future__ import annotations
@@ -17,12 +25,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import contextlib
 import threading
 import time
 from typing import Dict, Iterable, Optional
 
 __all__ = ["SOURCES", "build_all", "build_log", "kernel", "lib_path",
-           "nvcc_path"]
+           "nvcc_path", "count_launch", "recording", "add_launches",
+           "new_stream"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PKG, "build")
@@ -129,3 +139,76 @@ def kernel(name: str, symbol: str, argtypes):
             fn.restype = ctypes.c_int
             _fns[(name, symbol)] = fn
     return fn
+
+
+_count_lock = threading.Lock()
+_tallies: Dict[int, dict] = {}     # recording stream -> its tally
+
+
+def count_launch(fn, sm90: bool = False, stream: int = 0) -> None:
+    """One launch of ``fn``'s kernel on CUDA stream ``stream`` (its
+    handle): ``fn.launches`` (and, for an sm90 launch,
+    ``fn.sm90_launches``) plus one, or the same in the tally of the graph
+    that ``stream`` is recording."""
+    names = ("launches", "sm90_launches") if sm90 else ("launches",)
+    with _count_lock:
+        tally = _tallies.get(stream)
+        for a in names:
+            if tally is not None:
+                tally[(fn, a)] = tally.get((fn, a), 0) + 1
+            else:
+                setattr(fn, a, getattr(fn, a) + 1)
+
+
+@contextlib.contextmanager
+def recording(stream: int):
+    """While CUDA stream ``stream`` (a handle) records a graph: yields the
+    dict that :func:`count_launch` fills for launches on it,
+    ``{(wrapper, counter): launches}``, in place of the wrappers'
+    counters. Launches on other streams count as usual."""
+    tally: dict = {}
+    with _count_lock:
+        _tallies[stream] = tally
+    try:
+        yield tally
+    finally:
+        with _count_lock:
+            _tallies.pop(stream, None)
+
+
+def add_launches(counts) -> None:
+    """Add ``((wrapper, counter), n)`` pairs to the counters: what one
+    replay of a recorded graph launched."""
+    with _count_lock:
+        for (fn, a), n in counts:
+            setattr(fn, a, getattr(fn, a) + n)
+
+
+def new_stream(device: int) -> int:
+    """The handle of a new non-blocking CUDA stream on card ``device``,
+    made by ``cuStreamCreate`` (``libcuda``) in the card's primary
+    context, the one PyTorch runs in, and never destroyed. PyTorch's own
+    streams (``torch.cuda.Stream()``) are handed out round-robin from a
+    small pool, so two of them may be one stream; this one is no other
+    stream's. Wrap it in ``torch.cuda.ExternalStream``."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    dev, ctx, stream = ctypes.c_int(), ctypes.c_void_p(), ctypes.c_void_p()
+    calls = (("cuInit", (ctypes.c_uint,), (0,)),
+             ("cuDeviceGet", (ctypes.POINTER(ctypes.c_int), ctypes.c_int),
+              (ctypes.byref(dev), device)),
+             ("cuDevicePrimaryCtxRetain", (ctypes.POINTER(ctypes.c_void_p),
+                                           ctypes.c_int),
+              (ctypes.byref(ctx), dev)),
+             ("cuCtxPushCurrent_v2", (ctypes.c_void_p,), (ctx,)),
+             ("cuStreamCreate", (ctypes.POINTER(ctypes.c_void_p),
+                                 ctypes.c_uint),
+              (ctypes.byref(stream), 1)),        # CU_STREAM_NON_BLOCKING
+             ("cuCtxPopCurrent_v2", (ctypes.POINTER(ctypes.c_void_p),),
+              (ctypes.byref(ctypes.c_void_p()),)))
+    for name, argtypes, args in calls:
+        fn = getattr(cuda, name)
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        err = fn(*args)
+        if err:
+            raise RuntimeError(f"{name} failed (CUresult {err})")
+    return stream.value

@@ -10,7 +10,12 @@ Port of the serving half of ``mxtpu/observability``:
   (re-exported by ``mxtpu_torch.profiler``);
 * :mod:`.histogram` — bounded log-bucketed histograms behind the latency
   percentiles;
-* :mod:`.flight` — the always-on crash flight recorder.
+* :mod:`.flight` — the always-on crash flight recorder;
+* :mod:`.flops` — the cost of a program (FLOPs, bytes) and the step-time
+  ring behind MFU;
+* :mod:`.exporter` — the Prometheus/JSON scrape endpoint over every store
+  (``MXTPU_METRICS_PORT`` arms it when an engine starts or a trainer is
+  built).
 
 Span catalog of the serving path: ``serving/prefill_chunk`` (args ``id``,
 or ``ids`` for a batched group), ``serving/decode`` and ``serving/verify``
@@ -19,12 +24,15 @@ or ``ids`` for a batched group), ``serving/decode`` and ``serving/verify``
 ``prefix_hit``, ``prefix_miss``, ``prefill_group``, ``first_token``,
 ``first_decode``, ``retire``, ``reject``, ``shed``, ``preempt``,
 ``resume``, ``drain_freeze``, ``drained``, ``adopt_resume``, ``adopted``;
+``router/rebalance`` and ``router/remove_replica`` (args ``replica``),
+instants ``router/route`` and ``router/reroute``;
 ``feed/transfer`` and ``feed/stall``; ``resilience/fault`` and
 ``resilience/stall``.
 """
 
-from . import export, flight, histogram, metrics, tracer  # noqa: F401
+from . import (export, exporter, flight, flops, histogram,  # noqa: F401
+               metrics, tracer)
 from .tracer import counter, enabled, instant, span
 
-__all__ = ["tracer", "export", "metrics", "histogram", "flight",
-           "span", "instant", "counter", "enabled"]
+__all__ = ["tracer", "export", "exporter", "metrics", "histogram", "flight",
+           "flops", "span", "instant", "counter", "enabled"]

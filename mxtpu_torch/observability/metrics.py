@@ -1,5 +1,6 @@
-"""Subsystem counter stores of the serving path: device feed, resilience,
-serving (with per-tenant rows) and the SLO scheduler.
+"""Subsystem counter stores: device feed, resilience, serving (with
+per-tenant rows), the SLO scheduler and the multi-replica router, and the
+checkpoint, communication, memory and sanitizer counters.
 
 Port of the matching parts of ``mxtpu/observability/metrics.py``,
 re-exported from ``mxtpu_torch.profiler``. Every store is bumped from more
@@ -12,7 +13,8 @@ store, which has its own lock; the two are never nested.
 from __future__ import annotations
 
 import threading
-from typing import Dict
+import weakref
+from typing import Dict, Optional
 
 from . import histogram as _hist
 
@@ -23,7 +25,17 @@ __all__ = ["record_feed_transfer", "record_feed_resident",
            "reset_resilience_stats",
            "record_serving", "record_tenant", "record_serving_occupancy",
            "serving_key", "get_serving_stats", "reset_serving_stats",
-           "record_sched", "get_sched_stats", "reset_sched_stats"]
+           "record_sched", "get_sched_stats", "reset_sched_stats",
+           "record_router", "get_router_stats", "reset_router_stats",
+           "register_engine", "unregister_engine", "get_engine_loads",
+           "record_checkpoint_save", "record_checkpoint_commit",
+           "record_checkpoint_shard_write", "record_checkpoint_restore",
+           "get_checkpoint_stats", "reset_checkpoint_stats",
+           "record_comm_step", "record_collective", "get_comm_stats",
+           "reset_comm_stats",
+           "record_memory_stats", "get_memory_stats", "reset_memory_stats",
+           "record_sanitizer", "get_sanitizer_stats",
+           "sanitizer_violations", "reset_sanitizer_stats"]
 
 _stats_lock = threading.Lock()
 
@@ -322,3 +334,235 @@ def get_sched_stats() -> dict:
 def reset_sched_stats():
     with _stats_lock:
         _sched.clear()
+
+
+# ---------------------------------------------------------------------------
+# multi-replica router (mxtpu_torch.serving.router)
+# ---------------------------------------------------------------------------
+
+_ROUTER_ZERO = {"submitted": 0,
+                # routing decisions: the prefix-affinity target taken / the
+                # target over its headroom, so the request spilled to the
+                # least-loaded replica / no affinity (a prompt shorter than
+                # a block, or prefix caching off) -> least-loaded
+                "routed_affinity": 0, "routed_spill": 0,
+                "routed_least_loaded": 0,
+                # backpressure: one replica's queue was full and the request
+                # moved on (overflow), or every replica was (rejected)
+                "overflow": 0, "rejected": 0,
+                # live rebalancing: engine swaps through drain/adopt,
+                # replicas removed, in-flight requests re-routed to a
+                # survivor, and requests lost in a removal (zero by contract)
+                "rebalanced": 0, "replicas_removed": 0,
+                "requests_rebalanced": 0, "requests_dropped": 0,
+                "fair_share_syncs": 0,
+                "replicas": 0}
+_router = dict(_ROUTER_ZERO)
+_ROUTER_ASSIGN = ("replicas",)
+
+
+def record_router(key: str, n=1):
+    """One router event: routing decisions, overflow and rejection, the
+    rebalance lifecycle. ``replicas`` assigns the current replica count;
+    everything else accumulates."""
+    with _stats_lock:
+        if key in _ROUTER_ASSIGN:
+            _router[key] = int(n)
+        else:
+            _router[key] += n
+
+
+def get_router_stats() -> dict:
+    with _stats_lock:
+        return dict(_router)
+
+
+def reset_router_stats():
+    with _stats_lock:
+        _router.update(_ROUTER_ZERO)
+
+
+# live engines: the serving store above is process-wide (its ``engine``
+# names the last writer), so each started engine also registers here and
+# the exporter serves every engine's ``load()`` under its own label, what a
+# router in another process reads
+_engines: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
+
+
+def register_engine(engine) -> None:
+    """``engine`` (anything with ``engine_id`` and ``load()``) serves from
+    now on; held weakly."""
+    with _stats_lock:
+        _engines[engine.engine_id] = engine
+
+
+def unregister_engine(engine) -> None:
+    with _stats_lock:
+        if _engines.get(engine.engine_id) is engine:
+            del _engines[engine.engine_id]
+
+
+def get_engine_loads() -> Dict[str, dict]:
+    """``{engine_id: engine.load()}`` of the engines serving now
+    (``load()`` is a lock-free snapshot, read outside the stats lock)."""
+    with _stats_lock:
+        engines = dict(_engines)
+    return {eid: e.load() for eid, e in sorted(engines.items())}
+
+
+# ---------------------------------------------------------------------------
+# checkpoint, communication, memory and sanitizer counters: the stores the
+# exporter serves; their writers (checkpointing, collectives, sharded
+# training, the sanitizer) are not ported yet, so they read zero
+# ---------------------------------------------------------------------------
+
+_CKPT_ZERO = {"saves": 0, "commits": 0, "restores": 0,
+              "committed_bytes": 0,
+              "blocked_step_ms_total": 0.0, "blocked_step_ms_last": 0.0,
+              "save_latency_ms_total": 0.0, "save_latency_ms_last": 0.0,
+              "write_ms_last": 0.0,
+              "shard_writes": 0, "shard_write_ms_last": 0.0}
+_ckpt = dict(_CKPT_ZERO)
+
+
+def record_checkpoint_save(blocked_ms: float):
+    """Training-thread side of an async save: how long the step was
+    blocked handing the snapshot over."""
+    with _stats_lock:
+        _ckpt["saves"] += 1
+        _ckpt["blocked_step_ms_last"] = blocked_ms
+        _ckpt["blocked_step_ms_total"] += blocked_ms
+
+
+def record_checkpoint_commit(write_ms: float, latency_ms: float, nbytes: int):
+    """Writer-thread side: ``write_ms`` of serialize, fsync and commit,
+    ``latency_ms`` from enqueue to commit, ``nbytes`` committed."""
+    with _stats_lock:
+        _ckpt["commits"] += 1
+        _ckpt["write_ms_last"] = write_ms
+        _ckpt["save_latency_ms_last"] = latency_ms
+        _ckpt["save_latency_ms_total"] += latency_ms
+        _ckpt["committed_bytes"] += int(nbytes)
+
+
+def record_checkpoint_shard_write(write_ms: float):
+    """A rank other than 0 wrote its shard."""
+    with _stats_lock:
+        _ckpt["shard_writes"] += 1
+        _ckpt["shard_write_ms_last"] = write_ms
+
+
+def record_checkpoint_restore():
+    with _stats_lock:
+        _ckpt["restores"] += 1
+
+
+def get_checkpoint_stats() -> dict:
+    with _stats_lock:
+        return dict(_ckpt)
+
+
+def reset_checkpoint_stats():
+    with _stats_lock:
+        _ckpt.update(_CKPT_ZERO)
+
+
+_COMM_ZERO = {"steps": 0, "zero_steps": 0,
+              "bytes_reduced": 0, "bytes_gathered": 0, "allreduce_bytes": 0,
+              "bucket_count": 0, "shard_bytes_per_device": 0, "dp": 1,
+              "collectives": 0, "collective_ms_total": 0.0,
+              "collective_bytes": 0}
+_comm = dict(_COMM_ZERO)
+
+
+def record_comm_step(bytes_reduced: int = 0, bytes_gathered: int = 0,
+                     bucket_count: int = 0, shard_bytes: int = 0,
+                     dp: int = 1, allreduce_bytes: int = 0,
+                     zero: bool = False):
+    """One training step's gradient exchange, in bytes per device."""
+    with _stats_lock:
+        _comm["steps"] += 1
+        if zero:
+            _comm["zero_steps"] += 1
+        _comm["bytes_reduced"] += int(bytes_reduced)
+        _comm["bytes_gathered"] += int(bytes_gathered)
+        _comm["allreduce_bytes"] += int(allreduce_bytes)
+        _comm["bucket_count"] = int(bucket_count)
+        _comm["shard_bytes_per_device"] = int(shard_bytes)
+        _comm["dp"] = int(dp)
+
+
+def record_collective(ms: float, nbytes: int):
+    """One host-blocking collective: wall ms and payload bytes."""
+    with _stats_lock:
+        _comm["collectives"] += 1
+        _comm["collective_ms_total"] += ms
+        _comm["collective_bytes"] += int(nbytes)
+
+
+def get_comm_stats() -> dict:
+    with _stats_lock:
+        return dict(_comm)
+
+
+def reset_comm_stats():
+    with _stats_lock:
+        _comm.update(_COMM_ZERO)
+
+
+_MEM_ZERO = {"stage": 0, "data_degree": 1, "fsdp_degree": 1,
+             "param_bytes_per_device": 0, "grad_bytes_per_device": 0,
+             "slot_bytes_per_device": 0,
+             "replicated_param_bytes": 0, "replicated_grad_bytes": 0,
+             "replicated_slot_bytes": 0}
+_mem = dict(_MEM_ZERO)
+
+
+def record_memory_stats(**kwargs):
+    """Per-device resident bytes of parameters, gradients and optimizer
+    slots by sharding stage; unknown keys are ignored."""
+    with _stats_lock:
+        for k, v in kwargs.items():
+            if k in _mem:
+                _mem[k] = int(v)
+
+
+def get_memory_stats() -> dict:
+    with _stats_lock:
+        return dict(_mem)
+
+
+def reset_memory_stats():
+    with _stats_lock:
+        _mem.update(_MEM_ZERO)
+
+
+_SAN_ZERO = {"transfer_guards": 0, "transfer_trips": 0,
+             "donation_poisons_armed": 0, "donation_trips": 0,
+             "retrace_escalations": 0,
+             "ownership_checks": 0, "ownership_trips": 0}
+_san = dict(_SAN_ZERO)
+
+
+def record_sanitizer(key: str, n: int = 1):
+    """One sanitizer event: guards armed count coverage, trips count
+    violations."""
+    with _stats_lock:
+        _san[key] += int(n)
+
+
+def get_sanitizer_stats() -> dict:
+    with _stats_lock:
+        return dict(_san)
+
+
+def sanitizer_violations(stats: Optional[dict] = None) -> int:
+    """Total violations in a sanitizer snapshot (0 for a clean run)."""
+    s = stats if stats is not None else get_sanitizer_stats()
+    return (s["transfer_trips"] + s["donation_trips"]
+            + s["retrace_escalations"] + s["ownership_trips"])
+
+
+def reset_sanitizer_stats():
+    with _stats_lock:
+        _san.update(_SAN_ZERO)

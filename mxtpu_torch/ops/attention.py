@@ -36,8 +36,10 @@ from typing import Optional
 
 import torch
 
+from .._build import count_launch as _count_launch
 from .._build import kernel as _kernel
 from ..context import check_device
+from ..observability.flops import note_kernel
 
 __all__ = ["attention_reference", "flash_attention", "flash_bwd",
            "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_fused", "flash_chunk",
@@ -99,6 +101,15 @@ def _acc_dtype(x):
 
 def _causal_keep(tq: int, tk: int, device):
     return torch.ones(tq, tk, dtype=torch.bool, device=device).tril()
+
+
+def _pairs(T: int, Tk: int, causal: bool) -> int:
+    """(query, key) pairs the kernels compute: all T x Tk, or under the
+    causal mask those with key <= query."""
+    if not causal:
+        return T * Tk
+    n = min(T, Tk)
+    return n * (n + 1) // 2 + (T - n) * Tk
 
 
 def _chunk_reference_lse(q, k, v, causal: bool, scale: float):
@@ -226,8 +237,9 @@ def flash_fwd(q, k, v, causal: bool, scale: float):
     if err:
         raise RuntimeError(f"flash_fwd ({'sm90' if sm90 else 'simt'}) "
                            f"launch failed (cudaError {err})")
-    flash_fwd.launches += 1
-    flash_fwd.sm90_launches += sm90
+    _count_launch(flash_fwd, sm90, stream)
+    note_kernel(4.0 * B * H * _pairs(T, Tk, causal) * D,
+                (q, k, v, out, lse))
     return out, lse
 
 
@@ -279,9 +291,11 @@ def _launch_bwd(which, q, k, v, dout, lse, delta, causal, scale):
     if err:
         raise RuntimeError(f"{name} ({'sm90' if sm90 else 'simt'}) launch "
                            f"failed (cudaError {err})")
-    fn = _BWD_FNS[which]
-    fn.launches += 1
-    fn.sm90_launches += sm90
+    _count_launch(_BWD_FNS[which], sm90, stream)
+    # products of (query, key) pairs x D: dq 3, dk and dv 4, all three 5
+    products = {_BWD_DQ: 3, _BWD_DKV: 4, _BWD_FUSED: 5}[which]
+    note_kernel(2.0 * products * B * H * _pairs(T, Tk, causal) * D,
+                (q, k, v, dout, lse, delta, *outs))
     return dq, dk, dv
 
 

@@ -10,20 +10,38 @@ plain version, which does build one, runs only for CPU tensors. The
 kernel splits each (slot, head) over blocks of ``_chunk`` positions; the
 chunk-size rule, the copy width and the argument checks are here, in
 Python, where the CPU tests reach them.
+
+Two reads, as in the reference, chosen by ``MXTPU_DECODE_KERNEL=pallas|xla``
+(engine argument > ``ServingConfig`` > environment; unset = auto) and
+resolved once per engine (:func:`resolve_decode_kernel`), so a change of
+the environment never reaches a live program:
+
+* ``"pallas"`` names K5: the CUDA kernel on the card, its plain version on
+  the CPU. Auto takes it on the card and on the CPU alike (the reference
+  takes ``xla`` off the TPU; the port's CPU path is K5's plain version,
+  which its parity tests hold). It degrades to ``xla`` only where K5
+  cannot run, D > 512.
+* ``"xla"`` names :func:`_decode_xla`, the reference's non-Pallas read as
+  plain PyTorch ops: both dots on int8 codes with exact integer sums
+  under an int8 cache, f32 dots with the scales folded in under fp8. It
+  launches no kernel of the port.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from typing import Optional
 
 import torch
 
+from .._build import count_launch as _count_launch
 from .._build import kernel as _kernel
 from ..context import check_device
 
-__all__ = ["dequant_attention_decode", "dequant_decode"]
+__all__ = ["DECODE_KERNELS", "decode_kernel_mode", "resolve_decode_kernel",
+           "dequant_attention_decode", "dequant_decode"]
 
 _NEG_INF = -1e30
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -32,6 +50,44 @@ _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p]
 _DMAX = 512             # the Pallas path's limit on the head dim
+
+DECODE_KERNELS = ("pallas", "xla")
+_AUTO = ("", "auto")
+# the longest contraction an f32 product sums exactly in int8 codes:
+# every partial sum is an integer of magnitude <= 127 * 127 * _EXACT_K
+# < 2^24, which f32 holds exactly
+_EXACT_K = 1024
+
+
+def decode_kernel_mode(value=None) -> Optional[str]:
+    """The decode-read selector: ``value`` if given, else
+    ``MXTPU_DECODE_KERNEL``. Returns None (auto), ``'pallas'`` or
+    ``'xla'``; anything else raises ``ValueError`` (never a silent
+    fallback)."""
+    raw = os.environ.get("MXTPU_DECODE_KERNEL", "") if value is None \
+        else value
+    raw = str(raw).strip().lower()
+    if raw in _AUTO:
+        return None
+    if raw not in DECODE_KERNELS:
+        raise ValueError(
+            f"MXTPU_DECODE_KERNEL={raw!r} (choose from "
+            f"{list(DECODE_KERNELS)}, or unset for auto: pallas, which is "
+            "K5)")
+    return raw
+
+
+def resolve_decode_kernel(mode=None, TOT: Optional[int] = None,
+                          D: Optional[int] = None) -> str:
+    """The read one program runs, decided when it is built: auto is
+    ``'pallas'`` (K5); ``'pallas'`` at a head dim K5 does not take
+    (D > 512) degrades to ``'xla'``. ``TOT`` is taken for the reference's
+    signature: K5 takes every bucket (the reference's TPU bucket rule is a
+    Mosaic artefact)."""
+    mode = decode_kernel_mode(mode) or "pallas"
+    if mode == "pallas" and D is not None and D > _DMAX:
+        return "xla"
+    return mode
 
 
 def _chunk(S: int, H: int, TOT: int, D: int, sms: int, cmax: int) -> int:
@@ -87,6 +143,52 @@ def _decode_plain(q, kd, ks, vd, vs, pc, scale: float):
         <= lim[:, None, None]
     att = torch.softmax(s.masked_fill(~keep, _NEG_INF), dim=-1)
     return torch.einsum("bht,bhtd->bhd", att, v).to(q.dtype)
+
+
+def _int_dot(dims: str, a, b, axis: int):
+    """``torch.einsum(dims, a, b)`` of int8 codes, contracting the last
+    axis of ``a`` with ``b``'s ``axis``, with exact integer sums, as int32
+    (what ``lax.dot_general(..., preferred_element_type=int32)`` gives the
+    reference). The contraction runs in slices of at most ``_EXACT_K``,
+    each an f32 product whose partial sums are integers of magnitude at
+    most 127 * 127 * 1024 < 2^24 (exact: the port turns TF32 off), and the
+    slices add in int32; so it is exact at any length."""
+    K = a.shape[-1]
+    acc = None
+    for k0 in range(0, K, _EXACT_K):
+        n = min(_EXACT_K, K - k0)
+        part = torch.einsum(dims, a[..., k0:k0 + n].float(),
+                            b.narrow(axis, k0, n).float()).to(torch.int32)
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def _decode_xla(q, kd, ks, vd, vs, pc, scale: float):
+    """The reference's ``_decode_xla`` as plain ops: no kernel of the port,
+    and no dequantized (S, H, TOT, D) cache. Under an int8 cache both dots
+    run on int8 codes with exact int32 sums (:func:`_int_dot`): the query
+    rows quantize (``kv_quant.quantize_rows``) against the K codes for the
+    scores, and the rows of ``att * vscale`` against the V codes for the
+    context, the (row x row) scales applied to the integer sums. An fp8
+    cache keeps f32 dots with the scales folded in as per-row scalars
+    (``q . (data*s) == (q . data)*s``, ``att @ (data*s) == (att*s) @
+    data``). Masked positions get exactly 0 in ``att``, so they quantize
+    to the 0 code and an unwritten row never leaks. Returns q's dtype."""
+    from ..quant import kv_quant
+    TOT = kd.shape[2]
+    mask = torch.arange(TOT, device=q.device)[None, None, :] \
+        <= pc.long()[:, None, None]
+    if kd.dtype == torch.int8:
+        q_q, q_s = kv_quant.quantize_rows(q.float(), "int8")
+        acc = _int_dot("bhd,bhtd->bht", q_q, kd, 3)
+        s = acc.float() * q_s[..., None] * ks * scale
+        att = torch.softmax(s.masked_fill(~mask, _NEG_INF), dim=-1)
+        w_q, w_s = kv_quant.quantize_rows(att * vs, "int8")
+        acc2 = _int_dot("bht,bhtd->bhd", w_q, vd, 2)
+        return (acc2.float() * w_s[..., None]).to(q.dtype)
+    s = torch.einsum("bhd,bhtd->bht", q.float(), kd.float()) * ks * scale
+    att = torch.softmax(s.masked_fill(~mask, _NEG_INF), dim=-1)
+    return torch.einsum("bht,bhtd->bhd", att * vs, vd.float()).to(q.dtype)
 
 
 def _check(q, kd, ks, vd, vs, pc):
@@ -154,15 +256,15 @@ def dequant_decode(q, kd, ks, vd, vs, pc, scale: float,
         ws = torch.empty(S * H * -(-TOT // C) * (-(-D // 4) * 4 + 2),
                          dtype=torch.float32, device=q.device)
     fn = _kernel("dequant_decode", "mxt_dequant_decode", _ARGTYPES)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), kd.data_ptr(), ks.data_ptr(), vd.data_ptr(),
              vs.data_ptr(), pc.data_ptr(), out.data_ptr(),
              None if ws is None else ws.data_ptr(), S, H, TOT, D, C,
              float(scale), _Q_DTYPES[q.dtype], _KV_DTYPES[kd.dtype],
-             _copy_width(D, kd, vd),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             _copy_width(D, kd, vd), stream)
     if err:
         raise RuntimeError(f"dequant_decode launch failed (cudaError {err})")
-    dequant_decode.launches += 1
+    _count_launch(dequant_decode, stream=stream)
     return out
 
 
@@ -170,7 +272,7 @@ dequant_decode.launches = 0
 
 
 def dequant_attention_decode(q, kd, ks, vd, vs, pc, *, scale: float,
-                             span: Optional[int] = None,
+                             kernel=None, span: Optional[int] = None,
                              plan_slots: Optional[int] = None, device=None):
     """One decode-step attention read over a quantized paged KV cache.
 
@@ -178,9 +280,19 @@ def dequant_attention_decode(q, kd, ks, vd, vs, pc, *, scale: float,
     int8 or fp8 storage; ``ks``/``vs`` (S, H, TOT) per-row f32 scales;
     ``pc`` (S,) int32 per-slot positions (position ``t`` attends iff
     ``t <= pc[slot]``). Returns the (S, H, D) context in q's dtype. All on
-    ``device`` (None = the card): K5 there (``span``, ``plan_slots``: see
-    :func:`dequant_decode`), the plain version on the CPU."""
+    ``device`` (None = the card).
+
+    ``kernel`` picks the read (``'pallas'``, ``'xla'`` or None, resolved by
+    :func:`resolve_decode_kernel`): ``'pallas'`` is K5 on the card
+    (``span``, ``plan_slots``: see :func:`dequant_decode`) and its plain
+    version on the CPU; ``'xla'`` is :func:`_decode_xla` on either. Both
+    compute the same masked softmax over the same dequantized values; the
+    ``xla`` read differs by its re-quantized query and attention rows,
+    within the reference's bound (the parity tests hold it)."""
     check_device(device, q, kd, ks, vd, vs, pc)
+    if resolve_decode_kernel(kernel, TOT=kd.shape[2],
+                             D=kd.shape[3]) == "xla":
+        return _decode_xla(q, kd, ks, vd, vs, pc, scale)
     if q.is_cuda:
         return dequant_decode(q, kd, ks, vd, vs, pc, scale, span, plan_slots)
     return _decode_plain(q, kd, ks, vd, vs, pc, scale)

@@ -28,6 +28,12 @@ host sync. On CPU tensors every step runs the body. ``MXTPU_FLASH_BWD`` and
 ``MXTPU_FLASH_LSE`` are read when the body runs, so a captured program
 keeps what they said at its capture, as the reference's trace does.
 
+``device_feed(batches)`` stages batches on the trainer's device ahead of
+the steps (``mxtpu_torch.device_feed.DeviceFeed``), and
+``cost_analysis()`` gives the FLOPs and bytes of the last step's program,
+counted once per program key on its first run
+(``observability.flops.estimate_step_cost``), never on a replay.
+
 The multi-device half of the reference (a mesh of more than one device,
 ``param_shardings``, ZeRO and gradient compression) is not ported (it
 needs ``parallel/mesh``, ``zero`` and ``collectives``) and raises
@@ -45,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..context import check_device, resolve_device
 from ..gluon.nn.basic_layers import Dropout
+from ..observability import exporter, flops
 from ..ops import attention
 from ..rng import sample_bits
 from ..step_cache import (GraphProgram, HostStaging, ProgramCache,
@@ -67,13 +74,22 @@ def _queue8(what: str) -> NotImplementedError:
 
 class _StepProgram(GraphProgram):
     """One key's step: its body, its static batch buffers ``x`` and ``y``,
-    the static ``loss`` the body writes, and whether its first (warm-up)
-    step has run."""
+    the static ``loss`` the body writes, whether its first (warm-up) step
+    has run, and its cost, counted on that first run."""
 
     def __init__(self, body, x, y, loss):
         super().__init__(body, _COUNTED)
         self.x, self.y, self.loss = x, y, loss
         self.warm = False
+        self.cost: Optional[dict] = None
+
+    def run_body(self) -> None:
+        """The body; its first run also counts the program's cost."""
+        if self.cost is not None:
+            self.body()
+            return
+        self.cost = flops.estimate_step_cost(self.body)
+        flops.set_step_flops(self.cost["flops"])
 
 
 class DataParallelTrainer:
@@ -131,6 +147,8 @@ class DataParallelTrainer:
         self._staging = HostStaging(self._values) \
             if self.device.type == "cuda" else None
         self._programs = ProgramCache("data_parallel_step", capacity=4)
+        self._last: Optional[_StepProgram] = None
+        exporter.start_from_env()
         self._t = 0
 
     def _as_tensor(self, a) -> torch.Tensor:
@@ -208,7 +226,7 @@ class DataParallelTrainer:
             raise ValueError(
                 f"batch size {x.shape[0]} is not divisible by "
                 f"micro_batches={k}; pad or drop the tail batch")
-        prog = self._program(x, y)
+        prog = self._last = self._program(x, y)
         t = self._t + 1
         opt = self.optimizer
         clip = opt.clip_gradient if opt.clip_gradient is not None else 0.0
@@ -235,9 +253,9 @@ class DataParallelTrainer:
         it; a capture that fails raises."""
         prog, t = self._begin(x, y)
         if not prog.x.is_cuda:
-            prog.body()
+            prog.run_body()
         elif not prog.warm:
-            on_side_stream(prog.body)
+            on_side_stream(prog.run_body)
             prog.warm = True
         else:
             if prog.graph is None:
@@ -266,6 +284,29 @@ class DataParallelTrainer:
                     capture_ms=sum(p.capture_ms for p in progs),
                     record_ms=sum(p.record_ms for p in progs),
                     replays=sum(p.replays for p in progs))
+
+    def device_feed(self, batches, depth: Optional[int] = None):
+        """``batches`` (an iterable of ``(x, y)`` pairs or ``DataBatch``es)
+        in a :class:`~mxtpu_torch.device_feed.DeviceFeed` on this trainer's
+        device: a producer thread keeps the next ``depth`` batches there,
+        and :meth:`step_async` takes them as they are (no second copy)::
+
+            for x, y in dpt.device_feed(loader):
+                dpt.step_async(x, y)
+        """
+        from ..device_feed import DeviceFeed
+        return DeviceFeed(batches, depth=depth, device=self.device)
+
+    def cost_analysis(self) -> dict:
+        """``{"flops", "bytes accessed", "kernel flops"}`` of the last
+        step's program, as the reference reads them from XLA's cost model
+        (``kernel flops``: the part K1-K4 report): counted once per
+        program key, on its first run (``flops.estimate_step_cost``:
+        ``FlopCounterMode``'s matrix products plus what K1-K4 compute, and
+        every operator's input and output bytes). Valid after a step."""
+        if self._last is None or self._last.cost is None:
+            raise RuntimeError("run at least one step first")
+        return dict(self._last.cost)
 
     def optimizer_state_bytes(self) -> int:
         """Optimizer-slot bytes resident on the card (the reference's

@@ -1,11 +1,11 @@
 """Counters of the port, as ``mxtpu/profiler.py`` re-exports them: the
 quantization counters of the serving path, and the device-feed,
-resilience, serving and SLO-scheduler stores of
-``mxtpu_torch.observability.metrics``.
+resilience, serving, SLO-scheduler, router, checkpoint, communication,
+memory and sanitizer stores of ``mxtpu_torch.observability.metrics``.
 
 ``quantize_lm`` records each weight's max-abs round-trip error, and
 ``build_step`` the number of int8 matmul sites it stages. The checkpoint,
-communication and router stores are not ported.
+communication, memory and sanitizer stores have no writer in the port yet.
 """
 
 from __future__ import annotations
@@ -14,11 +14,18 @@ import threading
 from typing import Dict
 
 from .observability.metrics import (  # noqa: F401
-    get_feed_stats, get_resilience_stats, get_sched_stats, get_serving_stats,
+    get_checkpoint_stats, get_comm_stats, get_feed_stats, get_memory_stats,
+    get_resilience_stats, get_router_stats, get_sanitizer_stats,
+    get_sched_stats, get_serving_stats, record_checkpoint_commit,
+    record_checkpoint_restore, record_checkpoint_save,
+    record_checkpoint_shard_write, record_collective, record_comm_step,
     record_feed_consume, record_feed_prefetch, record_feed_resident,
-    record_feed_transfer, record_resilience, record_sched, record_serving,
-    record_serving_occupancy, record_tenant, reset_feed_stats,
-    reset_resilience_stats, reset_sched_stats, reset_serving_stats,
+    record_feed_transfer, record_memory_stats, record_resilience,
+    record_router, record_sanitizer, record_sched, record_serving,
+    record_serving_occupancy, record_tenant, reset_checkpoint_stats,
+    reset_comm_stats, reset_feed_stats, reset_memory_stats,
+    reset_resilience_stats, reset_router_stats, reset_sanitizer_stats,
+    reset_sched_stats, reset_serving_stats, sanitizer_violations,
     set_feed_depth)
 
 __all__ = ["record_quant_matmuls", "record_quant_error", "get_quant_stats",
@@ -30,7 +37,16 @@ __all__ = ["record_quant_matmuls", "record_quant_error", "get_quant_stats",
            "reset_resilience_stats",
            "record_serving", "record_tenant", "record_serving_occupancy",
            "get_serving_stats", "reset_serving_stats",
-           "record_sched", "get_sched_stats", "reset_sched_stats"]
+           "record_sched", "get_sched_stats", "reset_sched_stats",
+           "record_router", "get_router_stats", "reset_router_stats",
+           "record_checkpoint_save", "record_checkpoint_commit",
+           "record_checkpoint_shard_write", "record_checkpoint_restore",
+           "get_checkpoint_stats", "reset_checkpoint_stats",
+           "record_comm_step", "record_collective", "get_comm_stats",
+           "reset_comm_stats",
+           "record_memory_stats", "get_memory_stats", "reset_memory_stats",
+           "record_sanitizer", "get_sanitizer_stats",
+           "sanitizer_violations", "reset_sanitizer_stats"]
 
 _lock = threading.Lock()
 _matmuls = 0

@@ -206,7 +206,7 @@ def _mm_fn(wq: bool):
 
 
 def build_step(model, S: int, TOT: int, spec: QuantSpec,
-               rowwise: bool = False):
+               rowwise: bool = False, decode_kernel=None):
     """The quantized twin of :meth:`TransformerLM.serving_step`: under a KV
     mode, K/V rows are quantized on append (one (D,) row plus one f32
     scale per slot, head and layer) and attention reads the quantized
@@ -220,6 +220,10 @@ def build_step(model, S: int, TOT: int, spec: QuantSpec,
     time (a float GEMM may round a row differently at another row count),
     int8 products stay flattened (exact int32 sums), and K5 runs once at S
     rows with its chunks planned for one (``plan_slots=1``).
+
+    ``decode_kernel`` picks the quantized cache's read (``'pallas'``, K5;
+    ``'xla'``, plain ops; None: ``MXTPU_DECODE_KERNEL``, then auto), resolved
+    here, once, so the step is pinned to one read.
 
     Returns ``step(params, caches, tok, p) -> (caches, logits)``: ``caches``
     (a :class:`QuantKV` or a float tensor ``(L, 2, S, H, TOT, D)``) is
@@ -238,6 +242,9 @@ def build_step(model, S: int, TOT: int, spec: QuantSpec,
     span = model._max_len
     wq = spec.weights == "int8"
     kvq = spec.kv
+    if kvq:
+        dec_kernel = quant_attention.resolve_decode_kernel(decode_kernel,
+                                                           TOT=TOT, D=D)
     if wq:
         from .. import profiler
         # matmul sites a step stages: 6 a layer and the head
@@ -290,7 +297,7 @@ def build_step(model, S: int, TOT: int, spec: QuantSpec,
                 ctx = quant_attention.dequant_attention_decode(
                     q, caches.data[i, 0], caches.scale[i, 0],
                     caches.data[i, 1], caches.scale[i, 1], pc32, scale=scale,
-                    span=span, plan_slots=plan,
+                    kernel=dec_kernel, span=span, plan_slots=plan,
                     device=q.device).reshape(S, U)
             else:
                 caches[i, 0, rows, :, pc] = k.to(caches.dtype)
@@ -316,7 +323,8 @@ def _float_read(q, K, V, keep, scale: float):
     return torch.einsum("bht,bhtd->bhd", att, V)
 
 
-def build_verify_step(model, S: int, TOT: int, K1: int, spec: QuantSpec):
+def build_verify_step(model, S: int, TOT: int, K1: int, spec: QuantSpec,
+                      decode_kernel=None):
     """The quantized twin of :meth:`TransformerLM.serving_verify_step`: one
     forward scoring ``K1`` = k + 1 consecutive positions per slot, over a
     quantized KV cache and/or int8 weights.
@@ -339,6 +347,8 @@ def build_verify_step(model, S: int, TOT: int, K1: int, spec: QuantSpec):
     Rejected drafts leave rows (data and scales) above the accept point;
     the next dispatch rewrites them, in order, before anything reads them.
 
+    ``decode_kernel`` as :func:`build_step`'s.
+
     Returns ``step(params, caches, toks (S, K1), p (S,)) -> (caches,
     logits (S, K1, vocab))``."""
     H, U, D = _dims(model)
@@ -347,6 +357,9 @@ def build_verify_step(model, S: int, TOT: int, K1: int, spec: QuantSpec):
     span = model._max_len                    # as build_step's
     wq = spec.weights == "int8"
     kvq = spec.kv
+    if kvq:
+        dec_kernel = quant_attention.resolve_decode_kernel(decode_kernel,
+                                                           TOT=TOT, D=D)
     mm1 = _mm_fn(wq)
 
     def mm(h, lp, w, b):
@@ -388,7 +401,8 @@ def build_verify_step(model, S: int, TOT: int, K1: int, spec: QuantSpec):
                         q[:, j].contiguous(), caches.data[i, 0],
                         caches.scale[i, 0], caches.data[i, 1],
                         caches.scale[i, 1], pcs32[:, j].contiguous(),
-                        scale=scale, span=span, device=q.device))
+                        scale=scale, kernel=dec_kernel, span=span,
+                        device=q.device))
             else:
                 for j in range(K1):
                     pc = pcs[:, j]

@@ -47,7 +47,8 @@ __all__ = ["build_prefill_batch", "PrefillGroup"]
 
 
 def build_prefill_batch(model, params, page, N: int, PB: int, csize: int,
-                        quant=None, pool=None) -> kv.ChunkProgram:
+                        quant=None, pool=None,
+                        decode_kernel=None) -> kv.ChunkProgram:
     """The batched prefill chunk program for (rows ``N``, group bucket
     ``PB``, ``csize`` positions) over the group ``page`` ``(L, 2, N, H, PB,
     D)``, updated in place.
@@ -58,8 +59,9 @@ def build_prefill_batch(model, params, page, N: int, PB: int, csize: int,
     ``start + j + 1``; the valid generated tokens of a chunk are those with
     ``t0 - 1 <= start + j < pb`` (decided on the host). ``prompts`` may be
     a tensor on the program's device (one device-to-device copy a call) or
-    a host array."""
-    step = build_step(model, N, PB, quant or QuantSpec(), rowwise=True)
+    a host array. ``decode_kernel`` pins the quantized cache's read."""
+    step = build_step(model, N, PB, quant or QuantSpec(), rowwise=True,
+                      decode_kernel=decode_kernel)
     sample = model.serving_sample()
     dev = params["pos"].device
     state = torch.zeros((8, N), dtype=torch.float64, device=dev)

@@ -82,8 +82,9 @@ Knobs, resolved argument > ``ServingConfig`` > environment > default:
 ``MXTPU_SERVING_CHUNK`` (8), ``MXTPU_SERVING_PREFILL_CHUNK`` (64),
 ``MXTPU_PREFIX_CACHE_MB`` (64; 0 disables), ``MXTPU_SERVING_STALL_S``
 (off), ``MXTPU_SERVING_KV_DTYPE`` (float32), ``MXTPU_SERVING_QUANT``
-(off), ``MXTPU_SPEC_DECODE`` (off); ``MXTPU_SERVING_LOG_S`` sets the
-period of a one-line engine log (off).
+(off), ``MXTPU_SPEC_DECODE`` (off), ``MXTPU_DECODE_KERNEL`` (auto:
+``pallas``, i.e. K5; ``xla`` reads through plain ops); ``MXTPU_SERVING_LOG_S``
+sets the period of a one-line engine log (off).
 """
 
 from __future__ import annotations
@@ -103,7 +104,8 @@ import torch
 
 from ..context import resolve_device
 from ..device_feed import DeviceFeed
-from ..observability import metrics, tracer
+from ..observability import exporter, metrics, tracer
+from ..ops import quant_attention
 from ..quant.serve import parse_quant, quantize_lm
 from ..resilience.elastic import elastic_watchdog
 from ..resilience.faults import fault_point
@@ -132,9 +134,10 @@ _KNOBS = dict(slots=("MXTPU_SERVING_SLOTS", 4),
               kv_dtype=("MXTPU_SERVING_KV_DTYPE", None),
               quant=("MXTPU_SERVING_QUANT", None))
 # stats that hold the latest value rather than a count
-_ASSIGNED = ("slots", "kv_dtype", "kv_bytes_resident", "prefix_cache_bytes",
-             "ttft_ms_last", "queue_wait_ms_last", "prefill_ms_last",
-             "first_decode_ms_last", "accept_len_last", "engine")
+_ASSIGNED = ("slots", "kv_dtype", "decode_kernel", "kv_bytes_resident",
+             "prefix_cache_bytes", "ttft_ms_last", "queue_wait_ms_last",
+             "prefill_ms_last", "first_decode_ms_last", "accept_len_last",
+             "engine")
 
 
 @dataclass
@@ -225,15 +228,12 @@ class ServingEngine:
                  spec=None, mesh=None, engine_id: Optional[str] = None,
                  config: Optional[ServingConfig] = None, device=None):
         cfg = config or ServingConfig()
-        if decode_kernel is not None or cfg.decode_kernel is not None:
-            raise NotImplementedError(
-                "decode_kernel selects the reference's Pallas or XLA read "
-                "(mxtpu/ops/quant_attention.py resolve_decode_kernel); the "
-                "port reads a quantized cache through its one kernel, K5")
         if mesh is not None or cfg.mesh is not None:
             raise NotImplementedError(
                 "mesh: sharded serving (mxtpu/serving/sharded.py) is not "
-                "ported; the engine runs on one card")
+                "ported; it needs the mesh and the sharding specs of "
+                "mxtpu/parallel/{mesh,fsdp}.py first. The engine runs on "
+                "one card")
         self.device = resolve_device(device)
         model_dev = model.embedding.weight.device
         if model_dev != self.device:
@@ -258,6 +258,15 @@ class ServingEngine:
             self._log_s = 0.0
         self._next_log = 0.0
         self._quant = parse_quant(_knob("quant", quant, cfg))
+        # the quantized cache's read: resolved once for the engine's life
+        # (argument > config > MXTPU_DECODE_KERNEL > auto), so program keys
+        # stay (slots, bucket, chunk) and a change of the environment never
+        # reaches a live program; None over a float cache
+        if decode_kernel is None:
+            decode_kernel = cfg.decode_kernel
+        self._decode_kernel = quant_attention.resolve_decode_kernel(
+            decode_kernel, D=kv.cache_dims(model)[2]) \
+            if self._quant.kv else None
         # speculative decode: one config for the engine's life, resolved
         # argument > config > MXTPU_SPEC_DECODE
         if spec is None:
@@ -281,13 +290,15 @@ class ServingEngine:
         self._stop = threading.Event()
         self._draining = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        self._stream = None         # the scheduler thread's CUDA stream
         self._feed: Optional[DeviceFeed] = None
         self._wd: Optional[Watchdog] = None
         self._error: Optional[BaseException] = None
         self._stats_lock = threading.Lock()
         self._stats: dict = {"slots": self.slots, "kv_dtype":
                              self._kv_dtype_str, "kv_bytes_resident": 0,
-                             "engine": self.engine_id}
+                             "engine": self.engine_id,
+                             "decode_kernel": self._decode_kernel or "none"}
         # slot state (scheduler-thread-owned, host side)
         self._params = None
         self._caches = None
@@ -361,7 +372,9 @@ class ServingEngine:
 
     def stats(self) -> dict:
         """Counters of this engine: ``kv_dtype``, ``kv_bytes_resident``,
-        ``prefills``, ``prefill_chunks``, ``prefill_positions`` (positions
+        ``decode_kernel`` (the quantized cache's read, ``'pallas'`` or
+        ``'xla'``; ``'none'`` over a float cache), ``prefills``,
+        ``prefill_chunks``, ``prefill_positions`` (positions
         the prefill chunks stepped), ``decode_steps`` (decode turns:
         decode chunks and verify dispatches), ``decode_tokens``,
         ``tokens_out``, ``completed``, the prefix cache's hits and
@@ -369,7 +382,8 @@ class ServingEngine:
         ``programs_captured``, ``capture_ms_total`` (of which
         ``capture_record_ms_total`` ran the bodies under capture) and the
         turns run as graph replays (``prefill_replays``,
-        ``decode_replays``, ``verify_replays``).
+        ``decode_replays``, ``verify_replays``) and the ``stream`` the
+        scheduler thread replays on.
 
         Under ``spec``: ``spec_dispatches`` (verify dispatches),
         ``tokens_drafted``, ``tokens_accepted`` and ``tokens_rejected``
@@ -404,6 +418,8 @@ class ServingEngine:
             metrics.record_serving("slots", self.slots)
             metrics.record_serving("engine", self.engine_id)
             metrics.record_serving("kv_dtype", self._kv_dtype_str)
+            if self._decode_kernel is not None:
+                metrics.record_serving("decode_kernel", self._decode_kernel)
             self._feed = DeviceFeed(self._staging_source(), depth=2,
                                     device=self.device)
             if self._stall_deadline_s:
@@ -413,6 +429,8 @@ class ServingEngine:
                 target=self._run, daemon=True,
                 name="mxtpu-torch-serving-scheduler")
             self._thread.start()
+            metrics.register_engine(self)
+        exporter.start_from_env()
         return self
 
     def _materialize(self) -> None:
@@ -495,6 +513,7 @@ class ServingEngine:
         CANCELLED so no caller blocks forever. Re-raises a scheduler
         error."""
         self._stop.set()
+        metrics.unregister_engine(self)
         if self._thread is not None:
             self._thread.join(timeout=60)
         if self._feed is not None:
@@ -536,6 +555,7 @@ class ServingEngine:
             heartbeat("elastic")
             self._draining.set()      # submit() now raises
             self._stop.set()          # the scheduler ends at the boundary
+            metrics.unregister_engine(self)
             self._thread.join(timeout=60)
             if self._error is not None:
                 raise self._error     # the sweep already ran
@@ -567,8 +587,10 @@ class ServingEngine:
         # its survivors freeze below as ordinary slot entries
         while self._pfg is not None:
             self._prefill_group_chunk()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        if self._stream is not None:
+            # the scheduler's stream, not the whole device: another engine
+            # on this card may be capturing a graph meanwhile
+            self._stream.synchronize()
         now = time.monotonic()
         entries: List[dict] = []
         for slot in np.flatnonzero(self._active):
@@ -831,6 +853,10 @@ class ServingEngine:
         try:
             if self.device.type == "cuda":
                 torch.cuda.set_device(self.device)
+                # the stream this engine's replays run on (its thread's)
+                self._stream = torch.cuda.current_stream()
+                with self._stats_lock:
+                    self._stats["stream"] = self._stream.cuda_stream
             with torch.inference_mode():
                 while not self._stop.is_set():
                     heartbeat("serving")
@@ -1115,7 +1141,8 @@ class ServingEngine:
             prog = self._prefill_fns.get_or_build(
                 key, lambda: build_prefill_batch(
                     self._model, self._params, g.page, g.N, g.PB, csize,
-                    quant=self._quant, pool=self._pool))
+                    quant=self._quant, pool=self._pool,
+                    decode_kernel=self._decode_kernel))
             prev, lastfed, outs = self._run_program(
                 prog, "batched_replays", *g.chunk_inputs())
         self._record("batched_chunks")
@@ -1279,7 +1306,8 @@ class ServingEngine:
             prog = self._prefill_fns.get_or_build(
                 (pf["PB"], csize), lambda: kv.build_prefill_chunk(
                     self._model, self._params, pf["page"], pf["PB"], csize,
-                    quant=self._quant, pool=self._pool))
+                    quant=self._quant, pool=self._pool,
+                    decode_kernel=self._decode_kernel))
             outs_np = self._run_program(
                 prog, "prefill_replays", pf["prompt"], pf["t0"], start,
                 pf["prev"], pf["temp"], pf["topk"], pf["seed"])
@@ -1392,7 +1420,8 @@ class ServingEngine:
                          args=self._batch_args()):
             prog = self._decode_fns.get_or_build(key, lambda: kv.build_decode(
                 self._model, self._params, self._caches, *key,
-                quant=self._quant, pool=self._pool))
+                quant=self._quant, pool=self._pool,
+                decode_kernel=self._decode_kernel))
             self._tok, self._p, toks_np, lives = self._run_program(
                 prog, "decode_replays", self._tok, self._p, self._active,
                 self._limit, self._temp, self._topk, self._seed)
@@ -1500,7 +1529,8 @@ class ServingEngine:
                          args=self._batch_args(k=self._spec.k)):
             prog = self._verify_fns.get_or_build(key, lambda: kv.build_verify(
                 self._model, self._params, self._caches, *key,
-                quant=self._quant, pool=self._pool))
+                quant=self._quant, pool=self._pool,
+                decode_kernel=self._decode_kernel))
             self._tok, self._p, outs, lives = self._run_program(
                 prog, "verify_replays", self._tok, self._p, self._active,
                 self._limit, self._temp, self._topk, self._seed, self._draft,

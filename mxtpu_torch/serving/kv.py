@@ -64,21 +64,24 @@ def _quantized(quant) -> bool:
     return bool(getattr(quant, "enabled", False))
 
 
-def _step_fn(model, S: int, TOT: int, quant):
+def _step_fn(model, S: int, TOT: int, quant, decode_kernel=None):
     """The model's own ``serving_step`` on the fp32 path, its quantized
-    twin (``mxtpu_torch.quant.serve.build_step``) when a spec is active."""
+    twin (``mxtpu_torch.quant.serve.build_step``) when a spec is active;
+    ``decode_kernel`` pins the quantized cache's read."""
     if _quantized(quant):
         from ..quant.serve import build_step
-        return build_step(model, S, TOT, quant)
+        return build_step(model, S, TOT, quant, decode_kernel=decode_kernel)
     return model.serving_step(S, TOT)
 
 
-def _verify_step_fn(model, S: int, TOT: int, K1: int, quant):
+def _verify_step_fn(model, S: int, TOT: int, K1: int, quant,
+                    decode_kernel=None):
     """``serving_verify_step`` on the fp32 path, its quantized twin
     (``build_verify_step``) when a spec is active, as :func:`_step_fn`."""
     if _quantized(quant):
         from ..quant.serve import build_verify_step
-        return build_verify_step(model, S, TOT, K1, quant)
+        return build_verify_step(model, S, TOT, K1, quant,
+                                 decode_kernel=decode_kernel)
     return model.serving_verify_step(S, TOT, K1)
 
 
@@ -248,7 +251,8 @@ class ChunkProgram(GraphProgram):
 
 
 def build_prefill_chunk(model, params, page, PB: int, csize: int,
-                        quant=None, pool=None) -> ChunkProgram:
+                        quant=None, pool=None,
+                        decode_kernel=None) -> ChunkProgram:
     """The B=1 prefill chunk program for (prompt bucket ``PB``, ``csize``
     positions) over ``page``: steps positions ``start .. start+csize-1``,
     forcing the prompt's token while ``t < t0`` and feeding back the
@@ -261,8 +265,9 @@ def build_prefill_chunk(model, params, page, PB: int, csize: int,
     outs (csize,)``, where ``outs[j]`` is the token for position ``start +
     j + 1``; ``page`` is updated in place. ``prompt`` may be a tensor on
     the program's device (the engine's, staged by its ``DeviceFeed``: one
-    device-to-device copy a call) or a host array."""
-    step = _step_fn(model, 1, PB, quant)
+    device-to-device copy a call) or a host array. ``decode_kernel`` pins
+    the quantized cache's read (``quant.serve.build_step``)."""
+    step = _step_fn(model, 1, PB, quant, decode_kernel)
     sample = model.serving_sample()
     dev = params["pos"].device
     state = torch.zeros(6, dtype=torch.float64, device=dev)
@@ -294,7 +299,7 @@ def build_prefill_chunk(model, params, page, PB: int, csize: int,
 
 
 def build_decode(model, params, caches, S: int, TOT: int, chunk: int,
-                 quant=None, pool=None) -> ChunkProgram:
+                 quant=None, pool=None, decode_kernel=None) -> ChunkProgram:
     """The continuous-batching decode program for (slots ``S``, KV bucket
     ``TOT``) over ``caches``: ``chunk`` steps over all slots, with each
     slot's token, position, active flag, live limit and sampling state in
@@ -307,8 +312,9 @@ def build_decode(model, params, caches, S: int, TOT: int, chunk: int,
 
     Call: ``prog(tok, p, active, limit, temp, topk, seed)``, each an (S,)
     host array, ``-> (tok, p, toks (chunk, S), lives (chunk, S) bool)``;
-    the host consumes ``toks[j, s]`` only where ``lives[j, s]``."""
-    step = _step_fn(model, S, TOT, quant)
+    the host consumes ``toks[j, s]`` only where ``lives[j, s]``;
+    ``decode_kernel`` as :func:`build_prefill_chunk`'s."""
+    step = _step_fn(model, S, TOT, quant, decode_kernel)
     sample = model.serving_sample()
     dev = params["pos"].device
     state = torch.zeros((7, S), dtype=torch.float64, device=dev)
@@ -346,7 +352,7 @@ def build_decode(model, params, caches, S: int, TOT: int, chunk: int,
 
 
 def build_verify(model, params, caches, S: int, TOT: int, k: int,
-                 quant=None, pool=None) -> ChunkProgram:
+                 quant=None, pool=None, decode_kernel=None) -> ChunkProgram:
     """The speculative-decode verify program for (slots ``S``, KV bucket
     ``TOT``, draft depth ``k``) over ``caches``: one forward scores all
     ``K1 = k + 1`` positions of every slot (``build_verify_step``, or the
@@ -370,9 +376,10 @@ def build_verify(model, params, caches, S: int, TOT: int, k: int,
     live ``limit``. The accepted rows' K/V were written by the forward;
     rows above the accept point are rewritten by the next dispatch before
     anything reads them, so rejection rolls back by cursor arithmetic
-    alone (int8 KV scales included)."""
+    alone (int8 KV scales included). ``decode_kernel`` as
+    :func:`build_prefill_chunk`'s."""
     K1 = k + 1
-    step = _verify_step_fn(model, S, TOT, K1, quant)
+    step = _verify_step_fn(model, S, TOT, K1, quant, decode_kernel)
     sample = model.serving_sample()
     dev = params["pos"].device
     state = torch.zeros((8 + k, S), dtype=torch.float64, device=dev)

@@ -24,11 +24,12 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import _build
 from .optimizer import scaled
 
 __all__ = ["CacheStats", "cache_stats", "snapshot", "reset_stats",
-           "ProgramCache", "GraphProgram", "on_side_stream", "HostStaging",
-           "optimizer_fingerprint", "MultiTensorUpdate", "build_update_all",
+           "ProgramCache", "GraphProgram", "capture_stream", "on_side_stream",
+           "HostStaging", "optimizer_fingerprint", "MultiTensorUpdate", "build_update_all",
            "build_update_all_plain"]
 
 
@@ -170,6 +171,22 @@ class ProgramCache:
 
 # the counters a kernel wrapper may carry; a capture records both
 _COUNTERS = ("launches", "sm90_launches")
+# one capture records at a time in the process (see GraphProgram)
+_capture_lock = threading.Lock()
+_capture_streams: Dict[int, Any] = {}     # card -> its capture stream
+
+
+def capture_stream():
+    """The process's capture stream on the current card, made once outside
+    PyTorch's stream pool (``_build.new_stream``): no feed, warm-up or
+    engine stream can be it, so no other thread's work is recorded into a
+    graph or counted in its tally. Taken under ``_capture_lock``."""
+    dev = torch.cuda.current_device()
+    stream = _capture_streams.get(dev)
+    if stream is None:
+        stream = _capture_streams[dev] = torch.cuda.ExternalStream(
+            _build.new_stream(dev), device=dev)
+    return stream
 
 
 def on_side_stream(fn: Callable) -> None:
@@ -191,15 +208,20 @@ class GraphProgram:
     :meth:`capture` records ``body()`` in the thread-local error mode into
     the graph memory ``pool`` (None: a pool of its own), after running
     ``warm_up`` on a side stream when one is given; a host sync in the body
-    makes it raise, and nothing falls back. The cycle collector is off
-    while it records: a collection there could free another program's
-    graph, whose release is an error during a capture and spoils it.
+    makes it raise, and nothing falls back. One capture records at a time
+    in the process (engines on several threads may capture at once), on
+    the one :func:`capture_stream`, and the cycle collector is off while
+    it does: a collection there could free another program's graph, whose
+    release is an error during a capture and spoils it.
 
-    A capture runs nothing, so the launches that ``counted`` kernel
-    wrappers count while it records are taken off their counters
-    (``launches`` and, where a wrapper has it, ``sm90_launches``) and
-    :meth:`replay` adds them back, once a replay. ``capture_ms`` covers
-    warm-up, recording and instantiation; ``record_ms`` the body's run
+    A capture runs nothing, so the launches that the ``counted`` kernel
+    wrappers make on the capture's stream go to the capture's own tally
+    (``_build.recording``; from any thread: a captured backward runs on
+    the autograd engine's), never to the wrappers' counters (``launches``
+    and, where a wrapper has it, ``sm90_launches``), which launches on
+    other streams keep counting meanwhile; :meth:`replay` adds the tally,
+    once a replay. ``capture_ms`` covers warm-up, waiting for another
+    capture, recording and instantiation; ``record_ms`` the body's run
     under capture."""
 
     def __init__(self, body: Callable, counted: Sequence = (), pool=None):
@@ -211,37 +233,35 @@ class GraphProgram:
         self.record_ms = 0.0
         self._counters = [(fn, a) for fn in counted for a in _COUNTERS
                           if hasattr(fn, a)]
-        self._launches: List[int] = []     # per counter, a replay's
+        self._launches: List[Tuple[tuple, int]] = []   # a replay's
 
     def capture(self, warm_up: Optional[Callable] = None) -> None:
         t0 = time.perf_counter()
         if warm_up is not None:
             on_side_stream(warm_up)
-        before = [getattr(fn, a) for fn, a in self._counters]
         graph = torch.cuda.CUDAGraph()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, pool=self.pool,
-                                  capture_error_mode="thread_local"):
-                t1 = time.perf_counter()
-                self.body()
-                self.record_ms = (time.perf_counter() - t1) * 1e3
-        finally:
-            if collecting:
-                gc.enable()
-        self._launches = [getattr(fn, a) - b
-                          for (fn, a), b in zip(self._counters, before)]
-        for (fn, a), b in zip(self._counters, before):
-            setattr(fn, a, b)
+        with _capture_lock:
+            stream = capture_stream()
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with _build.recording(stream.cuda_stream) as tally, \
+                        torch.cuda.graph(graph, pool=self.pool, stream=stream,
+                                         capture_error_mode="thread_local"):
+                    t1 = time.perf_counter()
+                    self.body()
+                    self.record_ms = (time.perf_counter() - t1) * 1e3
+            finally:
+                if collecting:
+                    gc.enable()
+        self._launches = [(c, tally.get(c, 0)) for c in self._counters]
         self.graph = graph
         self.capture_ms = (time.perf_counter() - t0) * 1e3
 
     def replay(self) -> None:
         self.graph.replay()
         self.replays += 1
-        for (fn, a), n in zip(self._counters, self._launches):
-            setattr(fn, a, getattr(fn, a) + n)
+        _build.add_launches(self._launches)
 
 
 class HostStaging:

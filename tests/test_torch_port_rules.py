@@ -47,6 +47,17 @@ def test_no_jax_or_mxtpu_imports(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+@pytest.mark.parametrize("module", [
+    "serving/router.py", "observability/exporter.py",
+    "observability/flops.py"])
+def test_the_counterparts_are_checked(module):
+    """Each module that has a counterpart in the JAX package lies where
+    its counterpart does, and the import rule above reads it."""
+    path = ROOT / "mxtpu_torch" / module
+    assert path in _port_sources()
+    assert (ROOT / "mxtpu" / module).exists()
+
+
 def test_entry_points_refuse_the_cpu_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None is the card")

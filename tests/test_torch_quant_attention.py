@@ -289,3 +289,134 @@ def test_copy_width_follows_alignment():
     assert tqa._copy_width(36, base, base) == 4
     assert tqa._copy_width(64, base[4:], base) == 4
     assert tqa._copy_width(33, base, base) == 1
+
+
+# ---------------------------------------------------------------------------
+# the xla read and the decode-kernel selector
+# ---------------------------------------------------------------------------
+
+
+def _xla_args(TOT, mode, seed):
+    q, kd, ks, vd, vs, pc = _decode_case(TOT, mode, seed=seed)
+    jargs = (jnp.asarray(q), kd, ks, vd, vs, jnp.asarray(pc))
+    targs = (torch.from_numpy(q), _to_torch(kd), _to_torch(ks),
+             _to_torch(vd), _to_torch(vs), torch.from_numpy(pc))
+    return jargs, targs, 1.0 / math.sqrt(q.shape[-1])
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("TOT", [32, 96, 256])
+def test_decode_xla_matches_jax_xla(TOT, mode):
+    """``kernel="xla"`` against the JAX package's ``_decode_xla`` on the
+    same quantized bytes: 1e-5 x max(|ref|, 1)."""
+    jargs, targs, scale = _xla_args(TOT, mode, seed=TOT + 1)
+    ref = np.asarray(jqa.dequant_attention_decode(*jargs, scale=scale,
+                                                  kernel="xla"))
+    out = tqa.dequant_attention_decode(*targs, scale=scale, kernel="xla",
+                                       device="cpu")
+    assert out.shape == targs[0].shape and out.dtype == torch.float32
+    bound = 1e-5 * max(float(np.abs(ref).max()), 1.0)
+    assert float(np.abs(out.numpy() - ref).max()) < bound
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("TOT", [32, 64, 128, 256])
+def test_decode_xla_within_the_reference_bound_of_k5(TOT, mode):
+    """The two reads of the port against each other, within the bound the
+    reference holds its two reads to (``tests/test_quant_attention.py``):
+    the int8 ``xla`` read re-quantizes the query and attention rows, one
+    more half-step through each dot; fp8 differs by reassociation only."""
+    jargs, targs, scale = _xla_args(TOT, mode, seed=TOT)
+    xla = tqa.dequant_attention_decode(*targs, scale=scale, kernel="xla",
+                                       device="cpu")
+    k5 = tqa.dequant_attention_decode(*targs, scale=scale, kernel="pallas",
+                                      device="cpu")
+    if mode == "int8":
+        v = tkv.dequantize_rows(targs[3], targs[4])
+        bound = 3.0 * float(v.abs().amax(-1).max()) / (2.0 * 127)
+    else:
+        bound = 1e-5 * max(float(k5.abs().max()), 1.0)
+    assert float((xla - k5).abs().max()) < bound + 1e-5
+
+
+@pytest.mark.parametrize("K", [1024, 1025, 3000])
+def test_int_dot_is_exact_past_the_f32_edge(K):
+    """Int8 x int8 sums of the ``xla`` read are exact at any contraction
+    length: codes of +-127 at the largest f32 slice (1024: 127^2 x 1024 <
+    2^24) and past it, against int64. A single f32 product of 1041 or more
+    such codes would not be exact."""
+    rs = np.random.RandomState(K)
+    a = np.where(rs.rand(2, 3, K) < 0.9, 127, -127).astype(np.int8)
+    b = np.where(rs.rand(2, 3, 4, K) < 0.9, 127, -127).astype(np.int8)
+    got = tqa._int_dot("bhd,bhtd->bht", torch.from_numpy(a),
+                       torch.from_numpy(b), 3)
+    want = np.einsum("bhd,bhtd->bht", a.astype(np.int64), b.astype(np.int64))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the context's contraction runs over positions (axis 2 of the cache)
+    w = np.full((1, 2, K), 127, np.int8)
+    vd = np.full((1, 2, K, 5), -127, np.int8)
+    got = tqa._int_dot("bht,bhtd->bhd", torch.from_numpy(w),
+                       torch.from_numpy(vd), 2)
+    assert int(got.min()) == int(got.max()) == -127 * 127 * K
+
+
+def test_decode_kernel_mode_validation(monkeypatch):
+    assert tqa.decode_kernel_mode("pallas") == "pallas"
+    assert tqa.decode_kernel_mode("XLA") == "xla"
+    assert tqa.decode_kernel_mode("") is None
+    assert tqa.decode_kernel_mode("auto") is None
+    monkeypatch.delenv("MXTPU_DECODE_KERNEL", raising=False)
+    assert tqa.decode_kernel_mode() is None
+    monkeypatch.setenv("MXTPU_DECODE_KERNEL", "pallas")
+    assert tqa.decode_kernel_mode() == "pallas"
+    with pytest.raises(ValueError, match="MXTPU_DECODE_KERNEL"):
+        tqa.decode_kernel_mode("cuda")
+    for value in ("pallas", "XLA", "", "auto"):
+        assert tqa.decode_kernel_mode(value) == jqa.decode_kernel_mode(value)
+
+
+def test_resolve_decode_kernel_degrades_only_past_k5s_head_dim(monkeypatch):
+    """Auto is K5 (``pallas``) on the CPU as on the card (a departure: the
+    reference takes ``xla`` off the TPU); a forced ``pallas`` sticks at
+    every bucket (the reference's 128-multiple rule is a Mosaic artefact)
+    and degrades to ``xla`` only at D > 512, as the reference's does."""
+    monkeypatch.delenv("MXTPU_DECODE_KERNEL", raising=False)
+    assert tqa.resolve_decode_kernel() == "pallas"
+    assert tqa.resolve_decode_kernel("pallas", TOT=128, D=16) == "pallas"
+    assert tqa.resolve_decode_kernel("pallas", TOT=96, D=16) == "pallas"
+    assert tqa.resolve_decode_kernel("pallas", TOT=136, D=16) == "pallas"
+    assert tqa.resolve_decode_kernel("pallas", TOT=256, D=512) == "pallas"
+    assert tqa.resolve_decode_kernel("pallas", TOT=256, D=600) == "xla"
+    assert jqa.resolve_decode_kernel("pallas", TOT=256, D=600) == "xla"
+    assert tqa.resolve_decode_kernel("xla", TOT=256, D=16) == "xla"
+    monkeypatch.setenv("MXTPU_DECODE_KERNEL", "xla")
+    assert tqa.resolve_decode_kernel() == "xla"
+
+
+def test_engine_resolves_the_read_once(monkeypatch):
+    """The engine resolves its read once: a change of
+    ``MXTPU_DECODE_KERNEL`` between requests builds no program and
+    changes no token; ``stats()`` and the serving store name the read."""
+    from mxtpu_torch import profiler, step_cache
+    from mxtpu_torch.gluon.model_zoo import transformer_lm
+    from mxtpu_torch.serving import ServingEngine
+    monkeypatch.delenv("MXTPU_DECODE_KERNEL", raising=False)
+    net = transformer_lm("tiny", vocab_size=50, device="cpu", seed=2)
+    prompt = np.random.RandomState(5).randint(1, 50, size=30).tolist()
+
+    def traces():
+        return step_cache.snapshot().get("serving_decode", {}).get(
+            "traces", 0)
+
+    with ServingEngine(net, slots=2, queue_depth=8, chunk=4,
+                       quant="int8_kv", decode_kernel="xla",
+                       device="cpu") as eng:
+        first = eng.submit(prompt, 8).result(timeout=300)
+        after = traces()
+        for flip in ("pallas", "xla", "pallas"):
+            monkeypatch.setenv("MXTPU_DECODE_KERNEL", flip)
+            assert eng.submit(prompt, 8).result(timeout=300) == first
+        assert traces() == after
+        assert eng.stats()["decode_kernel"] == "xla"
+        assert profiler.get_serving_stats()["decode_kernel"] == "xla"

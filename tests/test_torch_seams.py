@@ -17,7 +17,7 @@ package's on the same inputs, and the engine's knobs and guardrails.
 * The float-cache step (``serving_step``'s read) gives the same bits on a
   cache and on the same cache zero-padded into a larger bucket.
 * The engine: knob resolution (argument > config > environment >
-  default), ``decode_kernel`` and ``mesh`` refused, ``load()``, the
+  default; ``decode_kernel`` too), ``mesh`` refused, ``load()``, the
   ``serving`` heartbeats and an armed watchdog that never fires.
 """
 
@@ -371,9 +371,20 @@ def test_engine_knobs_resolve_argument_config_env_default(net, monkeypatch):
     assert eng.slots == 3 and eng._kv_dtype_str == "float32"
     monkeypatch.delenv("MXTPU_SERVING_SLOTS")
     assert ServingEngine(net, device="cpu").slots == 4
-    with pytest.raises(NotImplementedError, match="resolve_decode_kernel"):
-        ServingEngine(net, decode_kernel="pallas", device="cpu")
-    with pytest.raises(NotImplementedError, match="sharded.py"):
+    monkeypatch.setenv("MXTPU_DECODE_KERNEL", "xla")
+    assert eng.stats()["decode_kernel"] == "none"      # a float cache
+    assert ServingEngine(net, quant="int8_kv", device="cpu").stats()[
+        "decode_kernel"] == "xla"
+    kcfg = ServingConfig(decode_kernel="pallas")
+    assert ServingEngine(net, quant="int8_kv", config=kcfg,
+                         device="cpu")._decode_kernel == "pallas"
+    assert ServingEngine(net, quant="int8_kv", config=kcfg,
+                         decode_kernel="xla",
+                         device="cpu")._decode_kernel == "xla"
+    with pytest.raises(ValueError, match="MXTPU_DECODE_KERNEL"):
+        ServingEngine(net, quant="int8_kv", decode_kernel="cuda",
+                      device="cpu")
+    with pytest.raises(NotImplementedError, match="sharded.py.*fsdp"):
         ServingEngine(net, config=ServingConfig(mesh=object()), device="cpu")
     with pytest.raises(ValueError, match="prefill_batch"):
         ServingEngine(net, prefill_batch=2, device="cpu")

@@ -302,3 +302,72 @@ def test_device_seed_dropout_masks_per_step_and_under_remat():
                        zip(first, step[m * L:(m + 1) * L]))
     assert rlosses == losses
     assert all(torch.equal(a, b) for a, b in zip(rweights, weights))
+
+
+def test_device_feed_steps_equal_the_plain_batches():
+    """``device_feed`` stages each batch once on the trainer's device and
+    the steps over it give the losses of the same batches passed as
+    they are."""
+    from mxtpu_torch import profiler
+    batches = _batches(4, seed=3)
+    losses = []
+    for fed in (False, True):
+        dpt = DataParallelTrainer(_port_net(), _SeqLoss(),
+                                  topt.Adam(learning_rate=3e-3),
+                                  micro_batches=K, device="cpu")
+        profiler.reset_feed_stats()
+        src = dpt.device_feed(batches, depth=2) if fed else batches
+        losses.append([dpt.step(x, y) for x, y in src])
+        if fed:
+            st = profiler.get_feed_stats()
+            assert st["batches_consumed"] == 4 and st["transfer_count"] == 8
+    assert losses[0] == losses[1]
+
+
+def test_cost_analysis_counts_the_program_once():
+    """``cost_analysis`` gives the step program's FLOPs once per key,
+    counted on the key's first run: 6 x (dense parameters + the tied head)
+    x tokens for the products, and the plain attention's 2 forward and 5
+    backward products of T x T x D a head and layer; never again on later
+    steps."""
+    from mxtpu_torch.observability import flops
+    net = _port_net()
+    dpt = DataParallelTrainer(net, _SeqLoss(), topt.Adam(learning_rate=3e-3),
+                              micro_batches=K, device="cpu")
+    with pytest.raises(RuntimeError, match="first"):
+        dpt.cost_analysis()
+    calls = []
+    real = flops.estimate_step_cost
+
+    def counting(fn, *a):
+        calls.append(1)
+        return real(fn, *a)
+
+    flops.estimate_step_cost = counting
+    try:
+        for x, y in _batches(3):
+            dpt.step(x, y)
+    finally:
+        flops.estimate_step_cost = real
+    assert len(calls) == 1
+    cost = dpt.cost_analysis()
+    U, L = net._units, len(net.blocks)
+    H = net.blocks[0].attn._heads
+    dense = sum(p.numel() for n, p in net.named_parameters()
+                if p.dim() == 2 and "embed" not in n and "pos" not in n)
+    want = 6 * (dense + VOCAB * U) * B * T + 14 * B * H * T * T * (U // H) * L
+    assert cost["flops"] == want, (cost, want)
+    assert cost["bytes accessed"] > 0
+    assert flops.get_step_flops() == want
+    # a kernel's own count lands in the run that launched it, and outside
+    # a run its tensors' bytes are not summed
+    moved = (torch.zeros(3), torch.zeros(2, dtype=torch.int8))
+
+    class _Unsized:
+        def numel(self):
+            raise AssertionError("bytes summed outside a count")
+
+    flops.note_kernel(10.0, (_Unsized(),))
+    got = flops.estimate_step_cost(lambda: flops.note_kernel(10.0, moved))
+    assert got == {"flops": 10.0, "bytes accessed": 14.0,
+                   "kernel flops": 10.0}

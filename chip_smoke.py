@@ -107,9 +107,12 @@ Phases, in order; any failure exits non-zero without a result line:
    every chunk a replay on each of the three engines; K5's launches
    exactly L x (prefill positions + decode chunks x 8 + warm-ups) summed
    over them; wall time, tokens/s, the removal's and the rebalance's ms,
-   each continuation's TTFT, each engine's stream and captures; then how
-   many int8 codes of a continuation's rows differ between the decode
-   step (slot 3 of 8) and the B=1 prefill that recomputes them;
+   each continuation's TTFT, each engine's stream and captures. Each
+   continuation that held a decode slot on the removed replica must hold,
+   on the survivor, that replica's K/V rows bit for bit (int8 codes and
+   scales; the prompt's rows and the emitted tokens' apart; at least one
+   with rows that decode wrote): the survivor prefills the prompt and
+   replays the emitted tokens through its decode steps;
 6. card against CPU: at base width with 2 layers, the same weights on the
    card and on the CPU give the same greedy tokens for 2 requests of 32
    new tokens (int8 and fp8 KV, a float cache, int8 weights over a float
@@ -187,13 +190,34 @@ Phases, in order; any failure exits non-zero without a result line:
     must fall by 0.3, each kernel launch 10 times, and losses and weights
     agree with the same steps through a plain ``CustomOp`` of ``nd`` ops;
     then the pair timed against its plain version, its bound and
-    ``F.cross_entropy``.
+    ``F.cross_entropy``;
+13. Gluon: (a) ``transformer_lm("flagship", vocab_size=16384)`` through
+    ``net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))``, ``net.cast(
+    "bfloat16")`` and ``gluon.Trainer(net.collect_params(), "adam",
+    {"learning_rate": 3e-4})`` memorises one batch (B=8, T=1024) in 12
+    steps of ``autograd.record()``, forward, ``SoftmaxCrossEntropyLoss``,
+    ``backward()``, ``trainer.step(8)``: the loss must fall by 0.3, K1,
+    K2 and K3 launch 8 x 12 times each, all on the sm90 route, and the
+    update's program is captured on step 1 and replayed on steps 2-12;
+    the median ms a step of the last 10 and the peak memory beside phase
+    8's captured ms for the same tokens; (b) at full width but 2 layers
+    (f32, B=2, T=256) the card and the CPU load one ``.params`` file and
+    take 3 Gluon steps under Adam, then 3 under ``RMSProp(centered=
+    True)``: losses within 1e-5, weights within 5e-5 of each tensor's
+    largest entry or 1, whichever is larger (phase 10's 5e-5); (c) (b)'s net in bf16 takes 3 Adam steps under
+    ``multi_precision``: every bf16 weight is its f32 master cast, bit for
+    bit; (d) ``save_parameters`` into a fresh net gives bit-equal
+    parameters, and ``save_states`` into a fresh Trainer a next step
+    bit-equal to the uninterrupted run's; (e) ``DataParallelTrainer``
+    (micro_batches 1) takes (b)'s Gluon-built net: its first loss within
+    1e-5 of the Gluon path's.
 
 Launch counts are set to 0 just before phases 4, 5, 5c (its first
 burst), 5e (its SLO burst), 5f, 8, 9 (each fused run), 10, saxpy's drive in
-11 and the 10 steps of 12, and read just after. The line before the last
-is the kernels' JSON record, with one K1, K2, K3 and K4 record for each
-route and the path it runs on, and four K5 records (plain serving, phase
+11, the 10 steps of 12 and the 12 steps of 13 (a), and read just after.
+The line before the last is the kernels' JSON record, with one K1, K2, K3
+and K4 record for each route and the path it runs on (the sm90 records of
+K1-K3 count phases 8 and 13 (a)), and four K5 records (plain serving, phase
 5; speculative verify, phase 5c with the times of phase 6b; the SLO
 batched prefill, phase 5e; the router's two replicas, phase 5f), each
 with its launches inside graph replays;
@@ -2213,48 +2237,20 @@ def wait_for(cond, what, timeout=600):
         time.sleep(0.002)
 
 
-def continuation_rows(torch, model, prompt, emitted, slots=8, slot=3):
-    """The K/V rows of ``emitted`` (decoded after ``prompt``) written two
-    ways over an int8 cache: by the decode step at ``slots`` rows (slot
-    ``slot``), as an uninterrupted request writes them, and by the B=1
-    prefill step over prompt + emitted, as a continuation re-routed to
-    another replica recomputes them. Returns (codes differing, codes, the
-    largest code difference, scales differing, scales)."""
-    from mxtpu_torch.quant import serve
-    from mxtpu_torch.serving import kv
-    spec = serve.parse_quant("int8_kv")
-    params = serve.quantize_lm(model, spec)
-    n0, n = len(prompt), len(emitted)
-    TOT = kv.bucket32(n0 + n, model._max_len)
-    one = serve.build_step(model, 1, TOT, spec)
-    many = serve.build_step(model, slots, TOT, spec)
-    toks = prompt + emitted
-    dev = model.embedding.weight.device
+def slot_rows(eng, req, n):
+    """The first ``n`` K/V positions of ``req``'s decode slot in ``eng``'s
+    int8 cache, on the host: (codes, scales), each (L, 2, H, n, ...)."""
+    slot = next(i for i, r in enumerate(eng._reqs) if r is req)
+    c = eng._caches
+    return (c.data[:, :, slot, :, :n].cpu(),
+            c.scale[:, :, slot, :, :n].cpu())
 
-    def at(t, S=1):
-        return torch.full((S,), t, dtype=torch.long, device=dev)
 
-    with torch.inference_mode():
-        page = kv.empty_cache(model, 1, TOT, quant=spec, device=dev)
-        for t in range(n0):
-            one(params, page, at(toks[t]), at(t))
-        cont = kv.empty_cache(model, 1, TOT, quant=spec, device=dev)
-        kv.copy_page(cont, page)
-        for t in range(n0, n0 + n):
-            one(params, cont, at(toks[t]), at(t))
-        dec = kv.empty_cache(model, slots, TOT, quant=spec, device=dev)
-        kv.merge_page(dec, page, slot)
-        for t in range(n0, n0 + n):
-            tok, p = at(0, slots), at(0, slots)
-            tok[slot], p[slot] = toks[t], t
-            many(params, dec, tok, p)
-        a = cont.data[:, :, 0, :, n0:n0 + n].int()
-        b = dec.data[:, :, slot, :, n0:n0 + n].int()
-        sa = cont.scale[:, :, 0, :, n0:n0 + n]
-        sb = dec.scale[:, :, slot, :, n0:n0 + n]
-        diff = (a - b).abs()
-        return (int((diff > 0).sum()), a.numel(), int(diff.max()),
-                int((sa != sb).sum()), sa.numel())
+def rows_differ(a, b, n0):
+    """(prompt, emitted) counts of entries of ``a`` that differ from
+    ``b`` along the position axis (3), split at ``n0``."""
+    bad = a != b
+    return int(bad[:, :, :, :n0].sum()), int(bad[:, :, :, n0:].sum())
 
 
 def phase_router(torch, model, serving, quant_attention, step_cache, counts,
@@ -2325,13 +2321,29 @@ def phase_router(torch, model, serving, quant_attention, step_cache, counts,
                  for rid, book in router._inflight.items()}
         victim = max(books, key=books.get)
         survivor = next(r for r in router.replica_ids if r != victim)
+        veng = router._replicas[victim].engine
         t1 = time.perf_counter()
         moved = router.remove_replica(victim)
         remove_ms = (time.perf_counter() - t1) * 1e3
         conts = [i for i, h in enumerate(hs)
                  if h._segment()[0] is not first[i]]
-        wait_for(lambda: any(hs[i]._segment()[0].tokens() for i in conts),
-                 "a continuation's first token")
+        # the victim's rows of each continuation that held a decode slot:
+        # every position before its last emitted token
+        slotted = [i for i in conts if any(r is first[i] for r in veng._reqs)
+                   and first[i].tokens()]
+        want = {i: slot_rows(veng, first[i], len(prompts[i])
+                             + len(first[i].tokens()) - 1) for i in slotted}
+        seng = router._replicas[survivor].engine
+
+        def in_decode(i):
+            seg = hs[i]._segment()[0]
+            return seg.done() or (seg.tokens() and any(
+                r is seg for r in seng._reqs))
+
+        wait_for(lambda: all(in_decode(i) for i in slotted),
+                 "every continuation's first new token")
+        got = {i: slot_rows(seng, hs[i]._segment()[0], want[i][0].shape[3])
+               for i in slotted if not hs[i]._segment()[0].done()}
         before = router._replicas[survivor].engine
         mid = sum(not h.done() for h in hs)
         t1 = time.perf_counter()
@@ -2353,9 +2365,21 @@ def phase_router(torch, model, serving, quant_attention, step_cache, counts,
                 f"router request {i} ({len(prompts[i])} tokens, "
                 f"{'re-routed' if i in conts else 'not re-routed'}): tokens "
                 f"differ from the plain engine's at new token {j} of "
-                f"{len(b)}" + (" (a continuation's recomputed K/V rows may "
-                               "differ from the decode rows: ROADMAP.md "
-                               "queue 3)" if i in conts else ""))
+                f"{len(b)}")
+    # the continuation's rows are the victim's, bit for bit: codes and
+    # scales, prompt and emitted rows apart
+    diffs = {i: rows_differ(got[i][0], want[i][0], len(prompts[i]))
+             + rows_differ(got[i][1], want[i][1], len(prompts[i]))
+             for i in got}
+    n_codes = sum(w[0].numel() for w in want.values())
+    decoded = [i for i in got
+               if want[i][0].shape[3] > -(-len(prompts[i]) // 32) * 32]
+    check(decoded, f"router: no compared continuation {sorted(got)} has "
+          f"rows that decode wrote")
+    check(got and all(d == (0, 0, 0, 0) for d in diffs.values()),
+          f"router: continuation rows differ from the removed replica's "
+          f"(prompt codes, emitted codes, prompt scales, emitted scales) "
+          f"{diffs}" + ("" if got else ": no continuation held a slot"))
     check(stats["requests_dropped"] == 0 and moved >= 1
           and stats["requests_rebalanced"] == moved == len(conts)
           and stats["replicas_removed"] == 1 and stats["rebalanced"] == 1
@@ -2399,14 +2423,13 @@ def phase_router(torch, model, serving, quant_attention, step_cache, counts,
               f"adopted {s.get('adopted', 0)}", flush=True)
     print(f"  K5 launches {launches} = {L} x ({steps} steps replayed + "
           f"{captured} warm-ups) over the 3 engines", flush=True)
-    i = conts[0]
-    emitted = hs[i]._prefix_tokens[:48]
-    diff, n, dmax, sdiff, sn = continuation_rows(torch, model, prompts[i],
-                                                 emitted)
-    print(f"  continuation rows: request {i}'s {len(emitted)} decoded "
-          f"positions, written by the decode step (slot 3 of 8) and by the "
-          f"B=1 prefill of prompt + emitted: {diff} of {n} int8 codes "
-          f"differ (largest by {dmax}), {sdiff} of {sn} scales", flush=True)
+    print(f"  continuation rows against the removed replica's, requests "
+          f"{sorted(got)} ({n_codes} int8 codes; decode wrote rows of "
+          f"{decoded}; differing prompt codes, "
+          f"emitted codes, prompt scales, emitted scales): {diffs}; "
+          f"before the forced-token replay 14-23 codes differed (PERF.md, "
+          f"PR 12 U1-U4, W1-W2: 34.0-55.3 tokens/s, remove_replica "
+          f"656.5-2817.8 ms, continuation TTFT 7.0-34.9 s)", flush=True)
     return dict(launches=launches, launches_in_replays=L * steps)
 
 
@@ -2590,7 +2613,7 @@ def phase_train(torch, lm, attention, optimizer, loss_mod, parallel,
           f"hand count {flops:.4e}")
     count_cost_ms(torch, dpt)
     profile_step(torch, dpt, x, y)
-    return launches
+    return launches, step_ms
 
 
 def count_cost_ms(torch, dpt):
@@ -2948,6 +2971,221 @@ def phase_train_card_vs_cpu(torch, lm, attention, optimizer, loss_mod,
           f"{ldiff:.3e} (tol {ltol:g}); weights max diff (tol {wtol:g}) "
           + ", ".join(f"{d:.3e} in {n}" for d, n in wdiffs[:3])
           + f"; launches {launches}", flush=True)
+    return launches
+
+
+GLUON = dict(B=8, T=1024, vocab=16384, steps=12)
+
+
+def gluon_steps(mx, net, trainer, batches, ctx, sync=None):
+    """Gluon steps (record, forward, loss, backward, ``trainer.step``);
+    returns each step's mean loss as a float. ``sync`` (when given) is
+    called after each step, for timing."""
+    from mxtpu_torch import autograd, gluon, nd
+    L = gluon.loss.SoftmaxCrossEntropyLoss()
+    losses = []
+    for x, y in batches:
+        xs, ys = nd.array(x, ctx=ctx), nd.array(y, ctx=ctx)
+        with autograd.record():
+            loss = L(net(xs), ys)
+        loss.backward()
+        trainer.step(x.shape[0])
+        losses.append(loss.mean())
+        if sync is not None:
+            sync()
+    return [float(v.asscalar()) for v in losses]
+
+
+def gluon_weights(torch, net):
+    return [p.data().data.detach().float().cpu()
+            for p in net.collect_params().values()]
+
+
+def weight_diffs(torch, net_a, net_b):
+    """Each parameter's largest difference over its largest entry (in
+    ``net_b``) or 1, whichever is larger: phase 10's absolute tolerance for
+    the tensors whose entries stay within 1 (a bias whose true gradient is
+    0, such as the key projection's, holds rounding noise that Adam
+    normalises, so its own largest entry is no scale), relative above.
+    Largest first, with the name."""
+    out = []
+    for (n, pa), pb in zip(net_a.collect_params().items(),
+                           net_b.collect_params().values()):
+        a = pa.data().data.detach().float().cpu()
+        b = pb.data().data.detach().float().cpu()
+        out.append(((a - b).abs().max().item()
+                    / max(b.abs().max().item(), 1.0), n))
+    return sorted(out, reverse=True)
+
+
+def phase_gluon(torch, mx, lm, attention, parallel, loss_mod, step_cache,
+                counts, smi, phase8_ms):
+    """Phase 13: the Gluon front end on the card (see the module
+    docstring). Returns leg (a)'s attention launch counts."""
+    import tempfile
+    import numpy as np
+    from mxtpu_torch import gluon
+    gpu = mx.gpu(0)
+    B, T, V, steps = GLUON["B"], GLUON["T"], GLUON["vocab"], GLUON["steps"]
+    # (a) the flagship through Gluon, bf16
+    net = lm.transformer_lm("flagship", vocab_size=V)
+    net.initialize(mx.init.Xavier(), ctx=gpu)
+    net.cast("bfloat16")
+    L = len(net.blocks)
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": 3e-4})
+    rs = np.random.RandomState(0)
+    batch = (rs.randint(0, V, (B, T)).astype(np.int32),
+             rs.randint(0, V, (B, T)).astype(np.float32))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_cache.reset_stats("trainer_update")
+    times = []
+
+    def tick():
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+
+    counts(0)
+    tick()
+    losses = gluon_steps(mx, net, trainer, [batch] * steps, gpu, sync=tick)
+    launches = attention_launches(attention)
+    peak = torch.cuda.max_memory_allocated()
+    cache = step_cache.snapshot()["trainer_update"]
+    (entry,) = trainer._bulk_cache.values()
+    prog = entry.program
+    step_ms = [(b - a) * 1e3 for a, b in zip(times, times[1:])]
+    want = L * steps
+    check(all(math.isfinite(v) for v in losses), f"gluon losses {losses}")
+    check(all(launches[k] == want for k in ("K1", "K2", "K3", "K1_sm90",
+                                            "K2_sm90", "K3_sm90"))
+          and launches["K4"] == 0,
+          f"gluon launches {launches}: want K1 = K2 = K3 = their sm90 "
+          f"counts = {want} ({L} layers x {steps} steps), K4 = 0")
+    check(cache == {"hits": steps - 1, "traces": 1, "retraces": 0}
+          and prog is not None and prog.graph is not None
+          and prog.replays == steps,
+          f"gluon update program: trainer_update {cache}, replays "
+          f"{getattr(prog, 'replays', None)}: want it captured on step 1 "
+          f"and replayed on all {steps} steps")
+    check(losses[-1] < losses[0] - 0.3,
+          f"gluon learning gate: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"(must fall by 0.3)")
+    med = float(np.median(step_ms[2:]))
+    print(f"gluon (a): flagship bf16 d{net._units} L{L} through "
+          f"initialize(Xavier) + Trainer(adam 3e-4), B{B} T{T}: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} over {steps} steps; step 1 "
+          f"{step_ms[0]:.1f} ms (the update captured in "
+          f"{prog.capture_ms:.1f} ms), median of the last 10 {med:.2f} "
+          f"ms/step = {B * T / med * 1e3:.1f} tokens/s (phase 8's captured "
+          f"step for the same {B}x{T} tokens: {phase8_ms / 4:.2f} ms, for "
+          f"information); max_memory_allocated {peak} bytes; "
+          f"trainer_update {cache}, program replays {prog.replays}; "
+          f"launches {launches}; {smi}", flush=True)
+    print(f"  losses {[round(v, 4) for v in losses]}; ms/step "
+          f"{[round(v, 2) for v in step_ms]}", flush=True)
+    del net, trainer, entry, prog
+    torch.cuda.empty_cache()
+
+    # (b) card vs CPU, f32, full width, 2 layers, one .params file
+    rs = np.random.RandomState(13)
+    small = [(rs.randint(0, V, (2, 256)).astype(np.int32),
+              rs.randint(0, V, (2, 256)).astype(np.float32))
+             for _ in range(6)]
+    with tempfile.TemporaryDirectory() as tmp:
+        f = os.path.join(tmp, "w.params")
+        card = lm.transformer_lm("flagship", vocab_size=V, num_layers=2)
+        card.initialize(mx.init.Xavier(), ctx=gpu)
+        card.save_parameters(f)
+        host = lm.transformer_lm("flagship", vocab_size=V, num_layers=2,
+                                 device="cpu")
+        host.load_parameters(f)
+        res = {}
+        for name, net, ctx in (("card", card, gpu), ("cpu", host, mx.cpu())):
+            with mx.Context(ctx):
+                tr = gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": 1e-3})
+                first = gluon_steps(mx, net, tr, small[:3], ctx)
+                tr = gluon.Trainer(net.collect_params(), "rmsprop",
+                                   {"learning_rate": 1e-4,
+                                    "centered": True})
+                res[name] = first + gluon_steps(mx, net, tr, small[3:], ctx)
+        ldiff = max(abs(a - b) for a, b in zip(res["card"], res["cpu"]))
+        wdiffs = weight_diffs(torch, card, host)
+        check(ldiff <= 1e-5 and wdiffs[0][0] <= 5e-5,
+              f"gluon card vs CPU: losses card {res['card']} CPU "
+              f"{res['cpu']} differ by {ldiff} (tol 1e-5); weights by "
+              f"{wdiffs[:3]} of each tensor's largest entry or 1 (tol "
+              f"5e-5)")
+        print(f"gluon (b): card vs CPU, flagship width 2 layers f32 B2 "
+              f"T256, one .params file, 3 Adam + 3 RMSProp(centered) "
+              f"steps: losses card {res['card']} CPU {res['cpu']}, max "
+              f"diff {ldiff:.3e} (tol 1e-5); weights max diff of each "
+              f"tensor's largest entry or 1 "
+              + ", ".join(f"{d:.3e} in {n}" for d, n in wdiffs[:3])
+              + " (tol 5e-5)", flush=True)
+
+        # (e) DataParallelTrainer takes the Gluon-built net: its first loss
+        # is the Gluon path's first loss on the same weights
+        fresh = lm.transformer_lm("flagship", vocab_size=V, num_layers=2)
+        fresh.load_parameters(f)
+        x, y = (torch.from_numpy(a).cuda() for a in small[0])
+        dpt = parallel.DataParallelTrainer(
+            fresh, SeqLoss(loss_mod), mx.optimizer.Adam(learning_rate=1e-3),
+            micro_batches=1)
+        dpt_loss = float(dpt.step(x, y))
+        check(abs(dpt_loss - res["card"][0]) <= 1e-5,
+              f"gluon (e): DataParallelTrainer's first loss {dpt_loss} vs "
+              f"the Gluon path's {res['card'][0]} (tol 1e-5)")
+        print(f"gluon (e): DataParallelTrainer(micro_batches=1) on the "
+              f"Gluon-built net: first loss {dpt_loss} vs Gluon "
+              f"{res['card'][0]}, diff {abs(dpt_loss - res['card'][0]):.3e} "
+              f"(tol 1e-5)", flush=True)
+        del fresh, dpt, host
+
+        # (c) multi_precision: bf16 weights, f32 masters
+        card.cast("bfloat16")
+        tr = gluon.Trainer(card.collect_params(), "adam",
+                           {"learning_rate": 1e-3, "multi_precision": True})
+        gluon_steps(mx, card, tr, small[:3], gpu)
+        params = list(card.collect_params().values())
+        bad = [p.name for p, st in zip(params, tr._states)
+               if not torch.equal(p.data().data,
+                                  st[0].to(torch.bfloat16))]
+        check(not bad and all(st[0].dtype == torch.float32
+                              for st in tr._states),
+              f"gluon (c): bf16 weights that are not their f32 master "
+              f"cast: {bad}")
+        print(f"gluon (c): multi_precision Adam, 3 steps: all "
+              f"{len(params)} bf16 weights equal their f32 masters cast to "
+              f"bf16", flush=True)
+
+        # (d) save and resume: the next step equals the uninterrupted one
+        fs, fp = os.path.join(tmp, "r.states"), os.path.join(tmp, "r.params")
+        card.cast("float32")
+        tr = gluon.Trainer(card.collect_params(), "adam",
+                           {"learning_rate": 1e-3})
+        gluon_steps(mx, card, tr, small[:2], gpu)
+        card.save_parameters(fp)
+        tr.save_states(fs)
+        again = lm.transformer_lm("flagship", vocab_size=V, num_layers=2)
+        again.load_parameters(fp)
+        same = all(torch.equal(a, b) for a, b in zip(
+            gluon_weights(torch, card), gluon_weights(torch, again)))
+        tr2 = gluon.Trainer(again.collect_params(), "adam",
+                            {"learning_rate": 1e-3})
+        tr2.load_states(fs)
+        la = gluon_steps(mx, card, tr, small[2:3], gpu)
+        lb = gluon_steps(mx, again, tr2, small[2:3], gpu)
+        nxt = all(torch.equal(a, b) for a, b in zip(
+            gluon_weights(torch, card), gluon_weights(torch, again)))
+        check(same and nxt and la == lb,
+              f"gluon (d): loaded parameters bit-equal {same}; the resumed "
+              f"step's loss {lb} vs {la} and weights bit-equal {nxt}")
+        print(f"gluon (d): save_parameters -> load_parameters bit-equal; "
+              f"save_states -> a fresh Trainer's load_states: the next "
+              f"step's loss {lb[0]} and weights equal the uninterrupted "
+              f"run's bit for bit", flush=True)
     return launches
 
 
@@ -3410,6 +3648,20 @@ def phase_head(torch, mx):
                  **common)]
 
 
+def launch_counter(attention, quant_attention):
+    """``counts(n)``: every kernel wrapper's launch counts (and the sm90
+    route's) set to ``n``."""
+    def counts(n):
+        for fn in (attention.flash_fwd, attention.flash_bwd_dq,
+                   attention.flash_bwd_dkv, attention.flash_bwd_fused,
+                   quant_attention.dequant_decode):
+            fn.launches = n
+        for fn in (attention.flash_fwd, attention.flash_bwd_dq,
+                   attention.flash_bwd_dkv, attention.flash_bwd_fused):
+            fn.sm90_launches = n
+    return counts
+
+
 def run():
     import torch
     if not torch.cuda.is_available():
@@ -3442,14 +3694,7 @@ def run():
           f"{ {k: round(v, 1) for k, v in built.items()} })", flush=True)
     check_build(_build)
 
-    def counts(n):
-        for fn in (attention.flash_fwd, attention.flash_bwd_dq,
-                   attention.flash_bwd_dkv, attention.flash_bwd_fused,
-                   quant_attention.dequant_decode):
-            fn.launches = n
-        for fn in (attention.flash_fwd, attention.flash_bwd_dq,
-                   attention.flash_bwd_dkv, attention.flash_bwd_fused):
-            fn.sm90_launches = n
+    counts = launch_counter(attention, quant_attention)
 
     def timed_phase(name, fn, *args):
         t = time.monotonic()
@@ -3485,9 +3730,9 @@ def run():
     timed_phase("serving programs", phase_programs, torch, lm, serving,
                 quant_attention, counts)
     bwd = timed_phase("K2/K3/K4 checks", phase_bwd, torch, attention)
-    train_launches = timed_phase("train", phase_train, torch, lm, attention,
-                                 optimizer, loss_mod, parallel, step_cache,
-                                 counts)
+    train_launches, train_ms = timed_phase(
+        "train", phase_train, torch, lm, attention, optimizer, loss_mod,
+        parallel, step_cache, counts)
     torch.cuda.empty_cache()
     timed_phase("train program vs body", phase_train_program, torch, lm,
                 attention, optimizer, lr_scheduler, loss_mod, parallel,
@@ -3502,8 +3747,15 @@ def run():
     torch.cuda.empty_cache()
     saxpy = timed_phase("K6 checks", phase_k6, torch, mx)
     head = timed_phase("imperative head", phase_head, torch, mx)
+    torch.cuda.empty_cache()
+    glu = timed_phase("gluon", phase_gluon, torch, mx, lm, attention,
+                      parallel, loss_mod, step_cache, counts, smi[0],
+                      train_ms)
     print(f"K1 launches: forward {k1_launches}, training "
-          f"{train_launches['K1']}", flush=True)
+          f"{train_launches['K1']}, gluon {glu['K1']}", flush=True)
+    sm90 = {k: train_launches[k] + glu[k]
+            for k in ("K1_sm90", "K2_sm90", "K3_sm90")}
+    gl_path = "train (bf16) + gluon (a) (bf16)"
 
     bwd_src = "mxtpu_torch/csrc/flash_bwd.cu"
     sm90_src = "mxtpu_torch/csrc/flash_bwd_sm90.cu"
@@ -3517,17 +3769,17 @@ def run():
              launches=k1_launches, **k1["forward"]),
         dict(name="flash_fwd_sm90", route="cuda",
              source="mxtpu_torch/csrc/flash_fwd_sm90.cu",
-             replaces="mxtpu/ops/attention.py:133", path="train (bf16)",
-             launches=train_launches["K1_sm90"], **k1["train"]),
+             replaces="mxtpu/ops/attention.py:133", path=gl_path,
+             launches=sm90["K1_sm90"], **k1["train"]),
         dict(name="flash_bwd_dq_sm90", route="cuda", source=sm90_src,
-             replaces="mxtpu/ops/attention.py:182", path="train (bf16)",
-             launches=train_launches["K2_sm90"], **bwd["bf16"]["K2"]),
+             replaces="mxtpu/ops/attention.py:182", path=gl_path,
+             launches=sm90["K2_sm90"], **bwd["bf16"]["K2"]),
         dict(name="flash_bwd_dq", route="cuda", source=bwd_src,
              replaces="mxtpu/ops/attention.py:182", path=f32_path,
              launches=f32_launches["K2"], **bwd["f32"]["K2"]),
         dict(name="flash_bwd_dkv_sm90", route="cuda", source=sm90_src,
-             replaces="mxtpu/ops/attention.py:220", path="train (bf16)",
-             launches=train_launches["K3_sm90"], **bwd["bf16"]["K3"]),
+             replaces="mxtpu/ops/attention.py:220", path=gl_path,
+             launches=sm90["K3_sm90"], **bwd["bf16"]["K3"]),
         dict(name="flash_bwd_dkv", route="cuda", source=bwd_src,
              replaces="mxtpu/ops/attention.py:220", path=f32_path,
              launches=f32_launches["K3"], **bwd["f32"]["K3"]),

@@ -8,7 +8,9 @@ and every prefill and decode step reads attention through the
 dequant-decode kernel (``csrc/dequant_decode.cu``). The imperative front
 end is here too: ``nd`` (NDArray and the op registry), ``autograd``,
 ``random``, ``operator`` (``CustomOp``) and ``rtc`` (CUDA C compiled at
-runtime by NVRTC). Module paths mirror ``mxtpu/`` so each module's
+runtime by NVRTC), and the Gluon training front end: ``gluon`` (``Block``,
+``Parameter``, ``Trainer``, layers, losses), ``init``, ``optimizer``,
+``kvstore``, ``metric`` and ``engine``. Module paths mirror ``mxtpu/`` so each module's
 counterpart is easy to find.
 
 The package imports ``torch`` and never JAX or ``mxtpu``. Entry points run
@@ -30,6 +32,15 @@ from . import random  # noqa: E402
 from . import operator  # noqa: E402
 from . import rtc  # noqa: E402
 from .ndarray import NDArray  # noqa: E402
+from . import engine  # noqa: E402
+from . import initializer  # noqa: E402
+from . import initializer as init  # noqa: E402
+from . import optimizer  # noqa: E402
+from . import kvstore  # noqa: E402
+from . import metric  # noqa: E402
+from . import gluon  # noqa: E402
 
-__all__ = ["Context", "NDArray", "autograd", "cpu", "current_context", "gpu",
-           "nd", "num_gpus", "operator", "random", "resolve_device", "rtc"]
+__all__ = ["Context", "NDArray", "autograd", "cpu", "current_context",
+           "engine", "gluon", "gpu", "init", "initializer", "kvstore",
+           "metric", "nd", "num_gpus", "operator", "optimizer", "random",
+           "resolve_device", "rtc"]

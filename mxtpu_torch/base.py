@@ -139,3 +139,34 @@ class MXTPUError(RuntimeError):
 def check(cond: bool, msg: str = "check failed"):
     if not cond:
         raise MXTPUError(msg)
+
+
+class Registry:
+    """Name -> class registry with aliases, case-insensitive (the JAX
+    package's ``Registry``): the initializer and optimizer names that
+    string specs resolve through."""
+
+    def __init__(self, kind: str):
+        self.kind = kind
+        self._registry: Dict[str, object] = {}
+
+    def register(self, obj=None, *, name=None, aliases: tuple = ()):
+        def _do(o):
+            self._registry[(name or o.__name__).lower()] = o
+            for a in aliases:
+                self._registry[a.lower()] = o
+            return o
+        return _do if obj is None else _do(obj)
+
+    def get(self, name: str):
+        key = name.lower()
+        if key not in self._registry:
+            raise KeyError(f"{self.kind} {name!r} is not registered; known: "
+                           f"{sorted(self._registry)}")
+        return self._registry[key]
+
+    def __contains__(self, name) -> bool:
+        return isinstance(name, str) and name.lower() in self._registry
+
+    def keys(self):
+        return sorted(self._registry)

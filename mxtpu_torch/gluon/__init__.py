@@ -1,1 +1,17 @@
-"""mxtpu_torch.gluon — the layers and the model zoo as ``nn.Module``s."""
+"""mxtpu_torch.gluon — the Gluon front end (``Block``, ``Parameter``,
+``Trainer``, layers, losses, utilities) and the model zoo, as torch
+modules."""
+
+from . import loss
+from . import nn
+from . import utils
+from .block import Block, HybridBlock, SymbolBlock
+from .parameter import Constant, Parameter, ParameterDict
+from .trainer import Trainer
+
+from . import contrib  # noqa: E402
+from . import model_zoo  # noqa: E402
+
+__all__ = ["Block", "Constant", "HybridBlock", "Parameter", "ParameterDict",
+           "SymbolBlock", "Trainer", "contrib", "loss", "model_zoo", "nn",
+           "utils"]

@@ -6,18 +6,32 @@ Port of ``mxtpu/gluon/model_zoo/transformer.py``:
            -> N x [LN -> causal MHA -> +res, LN -> FFN(4d, exact GELU) -> +res]
            -> LN -> logits = h . E^T   (tied head)
 
+``TransformerBlock`` and ``TransformerLM`` are Gluon ``HybridBlock``s: their
+``collect_params()`` names, shapes and dtypes are the JAX package's
+(``transformerlm0_transformerblock0_multiheadattention0_dense0_weight``,
+...), and each parameter's tensor is the torch module's parameter under its
+torch name (``blocks.0.attn.q_proj.weight``, ...).
+
+A model is built on ``device`` (None = the card) with random weights drawn
+from ``seed`` on the CPU, so a model built on the card and one built on the
+CPU from the same seed hold the same values, as the serving engine,
+``DataParallelTrainer`` and ``convert`` expect. Those weights are
+provisional for Gluon: ``net.initialize(init, ctx=...)`` draws every
+parameter anew from its initializer (the embedding and position table
+from ``Normal(0.01)``, as the reference declares them, the rest from
+``init``), as a JAX model's ``initialize`` does; ``load_parameters`` and
+``set_data`` replace them.
+
 ``forward`` runs attention through the flash-attention forward kernel (K1)
 on the card, and its backward through K2/K3 (or K4); the tied head's
 gradient reaches ``embedding.weight`` from both of its uses. Models are
 built in eval mode, as the reference's blocks run outside a training scope:
 ``dropout`` acts only in train mode, which ``DataParallelTrainer`` turns on
-for its step. ``cast(dtype)`` casts every parameter. ``serving_step`` is
-the engine's one-position decode step over a float KV cache (plain
-einsums, as in the reference), ``serving_verify_step`` its speculative
-verifier over k + 1 positions, and ``generate`` loops the decode step.
-Weights are random, drawn from ``seed`` on the CPU, so a model built on
-the card and one built on the CPU from the same seed hold the same
-values.
+for its step and a Gluon call under ``autograd.record()`` turns on.
+``cast(dtype)`` casts every parameter. ``serving_step`` is the engine's
+one-position decode step over a float KV cache (plain einsums, as in the
+reference), ``serving_verify_step`` its speculative verifier over k + 1
+positions, and ``generate`` loops the decode step.
 """
 
 from __future__ import annotations
@@ -28,10 +42,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...base import dtype_name, dtype_torch
 from ...context import resolve_device
 from ...rng import sample_bits, uniform
 from ..contrib.nn import MultiHeadAttention
-from ..nn.basic_layers import Dense, Embedding, LayerNorm
+from ..nn.basic_layers import Dense, Embedding, LayerNorm, _Layer
 
 __all__ = ["TransformerBlock", "TransformerLM", "transformer_lm",
            "sample_bits"]
@@ -39,65 +54,71 @@ __all__ = ["TransformerBlock", "TransformerLM", "transformer_lm",
 _NEG_INF = -1e30
 
 
-class TransformerBlock(nn.Module):
+class TransformerBlock(_Layer):
     """One pre-LN decoder block: causal flash MHA + position-wise FFN."""
 
     def __init__(self, units: int, num_heads: int, ffn_units: int = 0,
-                 dropout: float = 0.0, device=None, dtype=torch.float32):
-        super().__init__()
+                 dropout: float = 0.0, dtype="float32", prefix=None,
+                 params=None):
+        super().__init__(prefix=prefix, params=params)
         ffn_units = ffn_units or 4 * units
-        kw = dict(device=device, dtype=dtype)
-        self.ln1 = LayerNorm(units, **kw)
-        self.attn = MultiHeadAttention(units, num_heads, causal=True,
-                                       dropout=dropout, **kw)
-        self.ln2 = LayerNorm(units, **kw)
-        self.ffn1 = Dense(ffn_units, units, **kw)
-        self.ffn2 = Dense(units, ffn_units, **kw)
+        with self.name_scope():
+            self.ln1 = LayerNorm(in_channels=units)
+            self.attn = MultiHeadAttention(units, num_heads, causal=True,
+                                           dropout=dropout, dtype=dtype,
+                                           in_units=units)
+            self.ln2 = LayerNorm(in_channels=units)
+            self.ffn1 = Dense(ffn_units, flatten=False, in_units=units,
+                              dtype=dtype)
+            self.ffn2 = Dense(units, flatten=False, in_units=ffn_units,
+                              dtype=dtype)
 
     def forward(self, x):
         h = x + self.attn(self.ln1(x))
         return h + self.ffn2(F.gelu(self.ffn1(self.ln2(h))))
 
 
-class TransformerLM(nn.Module):
+class TransformerLM(_Layer):
     """Decoder-only LM over token ids: ``(B, T)`` integer tokens in,
     ``(B, T, vocab)`` logits out, for any ``T <= max_len``. Built on
-    ``device`` (None = the card)."""
+    ``device`` (None = the card) with weights drawn from ``seed``."""
 
     def __init__(self, vocab_size: int, units: int = 512, num_layers: int = 6,
                  num_heads: int = 8, max_len: int = 2048, ffn_units: int = 0,
                  dropout: float = 0.0, tie_weights: bool = True, device=None,
-                 dtype=torch.float32, seed: int = 0):
-        super().__init__()
+                 dtype=torch.float32, seed: int = 0, prefix=None,
+                 params=None):
+        super().__init__(prefix=prefix, params=params)
         dev = resolve_device(device)
-        kw = dict(device=dev, dtype=dtype)
         self._vocab = vocab_size
         self._units = units
         self._max_len = max_len
         self._tie = tie_weights
-        self.embedding = Embedding(vocab_size, units, **kw)
-        self.pos_embed = nn.Parameter(torch.empty(max_len, units, **kw))
-        self.blocks = nn.ModuleList(
-            TransformerBlock(units, num_heads, ffn_units, dropout, **kw)
-            for _ in range(num_layers))
-        self.ln_f = LayerNorm(units, **kw)
-        self.head = None if tie_weights else Dense(vocab_size, units, **kw)
+        with self.name_scope():
+            self.embedding = Embedding(vocab_size, units,
+                                       weight_initializer="normal")
+            self.pos_embed = self.params.get(
+                "pos_embed", shape=(max_len, units), init="normal")
+            self.blocks = nn.ModuleList(
+                TransformerBlock(units, num_heads, ffn_units, dropout)
+                for _ in range(num_layers))
+            self.ln_f = LayerNorm(in_channels=units)
+            if not tie_weights:
+                self.head = Dense(vocab_size, flatten=False, in_units=units)
+            else:
+                self.head = None
+        for p in self.collect_params().values():
+            p._bind(torch.empty(p.shape, dtype=dtype_torch(dtype),
+                                device=dev))
+            p._from_seed = True
         self.reset_parameters(seed)
         self.eval()
 
-    def cast(self, dtype):
-        """Cast every parameter (LayerNorm gains included) to ``dtype``, a
-        ``torch.dtype`` or its name (``"bfloat16"``), as ``Block.cast``
-        does; returns the model."""
-        if isinstance(dtype, str):
-            dtype = getattr(torch, dtype)
-        return self.to(dtype=dtype)
-
     @torch.no_grad()
     def reset_parameters(self, seed: int) -> None:
-        """Random weights from ``seed``, drawn on the CPU: N(0, 0.02) for
-        matrices and the embedding, N(0, 0.01) for positions, zero biases,
-        unit LayerNorm gains."""
+        """Random weights from ``seed``, drawn on the CPU in the torch
+        parameter order: N(0, 0.02) for matrices and the embedding, N(0,
+        0.01) for positions, zero biases, unit LayerNorm gains."""
         g = torch.Generator().manual_seed(int(seed))
         for name, p in self.named_parameters():
             if name.endswith(("gamma",)):
@@ -107,6 +128,13 @@ class TransformerLM(nn.Module):
             else:
                 std = 0.01 if name == "pos_embed" else 0.02
                 p.copy_(torch.randn(p.shape, generator=g) * std)
+        for p in self.collect_params().values():
+            p._from_seed = True
+
+    def cast(self, dtype):
+        """Cast every parameter (LayerNorm gains included) to ``dtype``, a
+        ``torch.dtype`` or its name (``"bfloat16"``); returns the model."""
+        return super().cast(dtype_name(dtype))
 
     def forward(self, tokens):
         B, T = tokens.shape
@@ -361,7 +389,8 @@ _PRESETS = {
 def transformer_lm(preset: str = "small", vocab_size: int = 16384,
                    device=None, **kwargs):
     """Factory over the preset table; builds on ``device`` (None = the
-    card)."""
+    card). ``kwargs`` go to :class:`TransformerLM` (``seed``, ``dtype``,
+    ``dropout``, ``prefix``, ...)."""
     try:
         units, layers, heads, max_len = _PRESETS[preset]
     except KeyError:

@@ -18,6 +18,7 @@ from ..ops import elementwise as _elementwise  # noqa: F401
 from ..ops import init_ops as _init_ops  # noqa: F401
 from ..ops import matrix as _matrix  # noqa: F401
 from ..ops import nn as _nn  # noqa: F401
+from ..ops import optimizer_ops as _optimizer_ops  # noqa: F401
 from ..ops import random as _random_ops  # noqa: F401
 from ..ops import reduce as _reduce  # noqa: F401
 from .ndarray import (NDArray, array, concatenate, empty, from_dlpack,
@@ -64,6 +65,10 @@ for _ns in _reg.OP_NAMESPACES:
     globals()[_ns] = _mod
     sys.modules[_mod.__name__] = _mod
 del _ns, _mod
+
+
+from . import fused_optimizer as _fused_opt  # noqa: E402
+_fused_opt.install(_this)
 
 
 def moveaxis(a, source, destination):

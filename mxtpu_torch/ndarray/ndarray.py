@@ -17,14 +17,13 @@ the JAX package.
 
 from __future__ import annotations
 
-import os
-import tempfile
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..base import dtype_name, dtype_np, dtype_torch, narrow_np
+from ..checkpoint import atomic_io
 from ..context import Context, as_context
 from ..ops import registry as _reg
 
@@ -622,27 +621,6 @@ _SAVE_FORMAT_KEY = "__mxtpu_format__"  # reserved npz entry: b"list" | b"dict"
 _LEGACY_MAGIC = 0x112                  # dmlc list magic of the legacy binary
 
 
-def _atomic_write(fname: str, write_fn) -> None:
-    """Write through a same-directory temporary file, fsync, then
-    ``os.replace``: a crash mid-write leaves the previous file intact."""
-    fname = os.path.abspath(fname)
-    d = os.path.dirname(fname)
-    fd, tmp = tempfile.mkstemp(dir=d, prefix="." + os.path.basename(fname)
-                               + ".", suffix=".tmp")
-    try:
-        with os.fdopen(fd, "wb") as f:
-            write_fn(f)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, fname)
-    except BaseException:
-        try:
-            os.unlink(tmp)
-        except OSError:
-            pass
-        raise
-
-
 def save(fname: str, data, fmt: str = "npz"):
     """Save an NDArray, a list, or a dict of name -> NDArray (``mx.nd.save``)
     in the npz container, with an explicit list/dict marker."""
@@ -673,7 +651,7 @@ def save(fname: str, data, fmt: str = "npz"):
     else:
         raise TypeError(f"cannot save {type(data)}")
     payload[_SAVE_FORMAT_KEY] = np.frombuffer(kind.encode(), dtype=np.uint8)
-    _atomic_write(fname, lambda f: np.savez(f, **payload))
+    atomic_io.atomic_write(fname, lambda f: np.savez(f, **payload))
 
 
 def load(fname: str):

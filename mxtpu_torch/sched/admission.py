@@ -106,7 +106,8 @@ class PrefillGroup:
     """Host-side state of one in-flight batched prefill.
 
     ``members`` are the engine's per-request dicts (``req``, ``slot``,
-    ``t0``, ``start`` (prefix-match length), ``blocks`` (cached K/V rows,
+    ``t0`` (forced below), ``emit`` (the first position to deliver),
+    ``start`` (prefix-match length), ``blocks`` (cached K/V rows,
     consumed here), ``left``, ``done``, the sampling triple); row ``n``
     belongs to ``members[n]``, rows past ``len(members)`` are padding.
     ``page`` is the group page the engine's ``("batch", N, PB, csize)``
@@ -122,6 +123,7 @@ class PrefillGroup:
         dev = getattr(page, "data", page).device
         prompts = torch.zeros((N, PB), dtype=torch.long, device=dev)
         self.t0 = np.full(N, PB, np.int64)
+        self.emit = np.full(N, PB, np.int64)
         self.pb = np.full(N, PB, np.int64)
         self.temp = np.zeros(N, np.float32)
         self.topk = np.zeros(N, np.int64)
@@ -130,6 +132,7 @@ class PrefillGroup:
         for n, (mem, prompt) in enumerate(zip(members, staged)):
             prompts[n, :prompt.shape[0]] = prompt
             self.t0[n] = mem["t0"]
+            self.emit[n] = mem["emit"]
             self.pb[n] = prompt.shape[0]
             self.temp[n], self.topk[n], self.seed[n] = (
                 mem["temp"], mem["topk"], mem["seed"])
@@ -159,8 +162,10 @@ class PrefillGroup:
     def valid_range(self, n: int, csize: int):
         """Member ``n``'s emitted tokens of the chunk just run: ``(j_lo,
         j_hi)`` into ``outs[:, n]`` (empty when ``j_lo >= j_hi``), the
-        tokens with ``t0 - 1 <= cursor + j < pb``."""
-        j_lo = max(int(self.t0[n]) - 1 - self.cursor, 0)
+        tokens with ``emit - 1 <= cursor + j < pb`` (``emit``, the first
+        position to deliver, is ``t0`` unless the member replays forced
+        tokens)."""
+        j_lo = max(int(self.emit[n]) - 1 - self.cursor, 0)
         j_hi = min(csize, int(self.pb[n]) - self.cursor)
         return j_lo, j_hi
 

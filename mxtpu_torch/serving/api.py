@@ -122,18 +122,27 @@ class ServingRequest:
     ``prefix_cache=False`` to opt out of shared-prefix KV reuse both
     ways. ``tenant`` names the submitting tenant (the fair-share and
     per-tenant stats key) and ``priority`` its latency tier (one of
-    :data:`TIERS`); both are inert without the SLO scheduler."""
+    :data:`TIERS`); both are inert without the SLO scheduler.
+
+    ``forced`` are tokens the request already generated elsewhere (a
+    continuation that a router re-routed from a removed replica): the
+    engine feeds them after the prompt as if it had sampled them, through
+    the same prefill and decode steps that first computed them, so their
+    K/V rows come out bit for bit as they were, and delivers only the
+    ``max_new`` tokens after them."""
 
     def __init__(self, prompt, max_new: int,
                  deadline_s: Optional[float] = None,
                  sampling: Optional[SamplingParams] = None,
                  prefix_cache: bool = True,
-                 tenant: str = "default", priority: str = "standard"):
+                 tenant: str = "default", priority: str = "standard",
+                 forced=None):
         self.id = next(_ids)
         self.prompt = [int(t) for t in prompt]
         if not self.prompt:
             raise ValueError("empty prompt (give a BOS token for "
                              "unconditional generation)")
+        self.forced = [int(t) for t in forced or ()]
         if max_new < 1:
             raise ValueError("max_new must be >= 1")
         self.max_new = int(max_new)
@@ -159,8 +168,14 @@ class ServingRequest:
 
     # -- caller side --------------------------------------------------------
     @property
+    def first_new(self) -> int:
+        """The position of the first token still to deliver: after the
+        prompt and the forced tokens."""
+        return len(self.prompt) + len(self.forced)
+
+    @property
     def total(self) -> int:
-        return len(self.prompt) + self.max_new
+        return self.first_new + self.max_new
 
     def done(self) -> bool:
         with self._cond:

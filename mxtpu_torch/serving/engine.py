@@ -207,10 +207,22 @@ def _req_sampling(req: ServingRequest):
 
 
 def _bucket_prompt(req: ServingRequest, max_len: int) -> np.ndarray:
-    """The prompt zero-padded to its 32-token bucket."""
+    """The prompt zero-padded to its 32-token bucket, with the request's
+    forced tokens after it as far as the bucket reaches."""
     padded = np.zeros(kv.bucket32(len(req.prompt), max_len), np.int64)
-    padded[:len(req.prompt)] = req.prompt
+    fed = (req.prompt + req.forced)[:padded.shape[0]]
+    padded[:len(fed)] = fed
     return padded
+
+
+def _token_at(req: ServingRequest, pos: int, sampled: int) -> int:
+    """The token the request feeds at ``pos`` past its prompt: a forced one
+    while ``pos`` lies before :attr:`ServingRequest.first_new`, else
+    ``sampled`` (also inside the prompt, where the program forces its
+    own)."""
+    if len(req.prompt) <= pos < req.first_new:
+        return req.forced[pos - len(req.prompt)]
+    return int(sampled)
 
 
 class ServingEngine:
@@ -450,12 +462,13 @@ class ServingEngine:
     def submit(self, prompt, max_new_tokens: int,
                deadline_s: Optional[float] = None, sampling=None,
                prefix_cache: bool = True, tenant: str = "default",
-               priority: str = "standard") -> ServingRequest:
+               priority: str = "standard", forced=None) -> ServingRequest:
         """Enqueue one generation request; returns its handle at once.
         ``tenant`` and ``priority`` are the SLO scheduling keys (inert
-        without ``sched``). Raises :exc:`QueueFullError` when the admission
-        queue is full and ``ValueError`` for a request the model cannot
-        hold."""
+        without ``sched``); ``forced`` the tokens a re-routed continuation
+        already emitted (:class:`ServingRequest`). Raises
+        :exc:`QueueFullError` when the admission queue is full and
+        ``ValueError`` for a request the model cannot hold."""
         if self._draining.is_set():
             raise RuntimeError(
                 "ServingEngine is draining: submit to the adopting engine")
@@ -463,9 +476,9 @@ class ServingEngine:
             raise RuntimeError("ServingEngine is stopped")
         req = ServingRequest(prompt, max_new_tokens, deadline_s,
                              sampling=sampling, prefix_cache=prefix_cache,
-                             tenant=tenant, priority=priority)
+                             tenant=tenant, priority=priority, forced=forced)
         if req.total > self._model._max_len:
-            raise ValueError(f"prompt {len(req.prompt)} + {req.max_new} new "
+            raise ValueError(f"prompt {req.first_new} + {req.max_new} new "
                              f"exceeds max_len {self._model._max_len}")
         if self._thread is None:
             self.start()
@@ -1095,7 +1108,9 @@ class ServingEngine:
                 self._prefix.release(path)
                 self._note_prefix_probe(req, m)
             temp, topk, seed = _req_sampling(req)
-            members.append({"req": req, "slot": slot, "t0": t0,
+            members.append({"req": req, "slot": slot,
+                            "t0": min(req.first_new, int(staged.shape[0])),
+                            "emit": req.first_new,
                             "start": m, "blocks": blocks or None,
                             "left": req.max_new, "done": False,
                             "t_start": now, "temp": temp, "topk": topk,
@@ -1205,7 +1220,8 @@ class ServingEngine:
             self._insert_prefix(req, page, upto=mem["t0"] - 1)
             kv.merge_page(self._caches, page, slot)
             self._restore_slot(slot, {
-                "req": req, "tok": int(g.prev[n]), "p": int(g.pb[n]),
+                "req": req, "tok": _token_at(req, int(g.pb[n]), g.prev[n]),
+                "p": int(g.pb[n]),
                 "limit": req.total - 1, "left": mem["left"],
                 "temp": mem["temp"], "topk": mem["topk"],
                 "seed": mem["seed"]}, now)
@@ -1276,9 +1292,12 @@ class ServingEngine:
             self._note_prefix_probe(req, m)
         temp, topk, seed = _req_sampling(req)
         # resume from the last whole block: a partial-block hit re-feeds its
-        # tail as an identical rewrite (K/V at p depends on tokens 0..p)
+        # tail as an identical rewrite (K/V at p depends on tokens 0..p);
+        # the program forces the staged tokens (prompt, then any forced
+        # ones) below "t0"
         self._pf = {"req": req, "prompt": staged, "page": page,
-                    "t": m - m % kv.PrefixCache.BLOCK, "prev": 0, "t0": t0,
+                    "t": m - m % kv.PrefixCache.BLOCK, "prev": 0,
+                    "t0": min(req.first_new, PB),
                     "PB": PB, "left": req.max_new, "slot": slot,
                     "t_start": now, "temp": temp, "topk": topk,
                     "seed": seed}
@@ -1318,10 +1337,10 @@ class ServingEngine:
             self._sched.observe_prefill(csize, time.monotonic() - now)
         page = pf["page"]
         pf["t"] = start + csize
-        pf["prev"] = int(outs_np[-1])
+        pf["prev"] = _token_at(req, pf["t"], outs_np[-1])
         # outs[j] is the token FOR position start+j+1; generated tokens are
-        # positions >= t0, i.e. indices j >= t0-1-start
-        valid = outs_np[max(pf["t0"] - 1 - start, 0):]
+        # positions >= first_new, i.e. indices j >= first_new-1-start
+        valid = outs_np[max(req.first_new - 1 - start, 0):]
         if valid.size:
             done_t = time.monotonic()
             first = req.t_first_token is None
@@ -1412,6 +1431,26 @@ class ServingEngine:
                            for s in np.flatnonzero(self._active)]
         return args
 
+    def _forcing(self, slot: int) -> bool:
+        """Whether the slot still replays forced tokens (its next token
+        lies before its request's first new position)."""
+        return int(self._p[slot]) + 1 < self._reqs[slot].first_new
+
+    def _forced_steps(self) -> np.ndarray:
+        """The decode chunk's ``forced`` (chunk, S) argument: slot ``s``
+        at step ``j`` takes its request's forced token for position
+        ``p[s] + j + 1`` while there is one, else samples (-1)."""
+        forced = np.full((self.chunk, self.slots), -1, np.int64)
+        for slot in np.flatnonzero(self._active):
+            req = self._reqs[slot]
+            if not req.forced:
+                continue
+            pos = int(self._p[slot]) + 1 + np.arange(self.chunk)
+            sel = pos < req.first_new
+            forced[sel, slot] = np.asarray(req.forced)[
+                pos[sel] - len(req.prompt)]
+        return forced
+
     def _decode_chunk(self) -> None:
         t_dispatch = time.monotonic()
         n_active = int(self._active.sum())
@@ -1422,14 +1461,20 @@ class ServingEngine:
                 self._model, self._params, self._caches, *key,
                 quant=self._quant, pool=self._pool,
                 decode_kernel=self._decode_kernel))
+            p0 = self._p.copy()
             self._tok, self._p, toks_np, lives = self._run_program(
                 prog, "decode_replays", self._tok, self._p, self._active,
-                self._limit, self._temp, self._topk, self._seed)
+                self._limit, self._temp, self._topk, self._seed,
+                self._forced_steps())
         now = time.monotonic()
         self._record("decode_steps")
         metrics.record_serving_occupancy(n_active, self.slots)
-        emitted = sum(self._deliver(slot, toks_np[lives[:, slot], slot], now)
-                      for slot in np.flatnonzero(self._active))
+        emitted = 0
+        for slot in np.flatnonzero(self._active):
+            fresh = toks_np[lives[:, slot], slot]
+            # forced tokens were delivered before the request was re-routed
+            skip = self._reqs[slot].first_new - int(p0[slot]) - 1
+            emitted += self._deliver(slot, fresh[max(skip, 0):], now)
         self._record_decode(emitted, now - t_dispatch)
 
     def _deliver(self, slot: int, fresh: np.ndarray, now: float) -> int:
@@ -1476,7 +1521,8 @@ class ServingEngine:
         slot holds drafts (a slot without them takes a plain step inside
         it), the plain decode chunk when none does; then the next turn's
         drafts from each survivor's stream."""
-        if int(self._dlen.sum()) > 0:
+        if int(self._dlen.sum()) > 0 and not any(
+                self._forcing(s) for s in np.flatnonzero(self._active)):
             self._verify_chunk()
         else:
             self._decode_chunk()
@@ -1493,11 +1539,11 @@ class ServingEngine:
         for slot in np.flatnonzero(self._active):
             self._dlen[slot] = 0
             room = int(self._limit[slot] - self._p[slot]) - 1
-            if self._temp[slot] > 0 or room <= 0:
+            if self._temp[slot] > 0 or room <= 0 or self._forcing(slot):
                 continue
             req = self._reqs[slot]
-            prop = self._drafter.propose(req.prompt + req.tokens(),
-                                         min(k, room))
+            prop = self._drafter.propose(
+                req.prompt + req.forced + req.tokens(), min(k, room))
             n = min(len(prop), k, room)
             if n > 0:
                 self._draft[slot, :n] = prop[:n]

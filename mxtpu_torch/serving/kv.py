@@ -310,26 +310,32 @@ def build_decode(model, params, caches, S: int, TOT: int, chunk: int,
     the reference's scan. A ``temp == 0`` slot decodes greedy argmax
     whatever its neighbours sample.
 
-    Call: ``prog(tok, p, active, limit, temp, topk, seed)``, each an (S,)
-    host array, ``-> (tok, p, toks (chunk, S), lives (chunk, S) bool)``;
-    the host consumes ``toks[j, s]`` only where ``lives[j, s]``;
+    Call: ``prog(tok, p, active, limit, temp, topk, seed, forced=None)``,
+    each an (S,) host array and ``forced`` a (chunk, S) one, ``-> (tok, p,
+    toks (chunk, S), lives (chunk, S) bool)``; the host consumes ``toks[j,
+    s]`` only where ``lives[j, s]``. ``forced[j, s] >= 0`` replaces the
+    token slot ``s`` samples at step ``j`` (a re-routed continuation
+    replays the tokens it already emitted, so its K/V rows are the decode
+    step's own); -1 (the default everywhere) keeps the sample.
     ``decode_kernel`` as :func:`build_prefill_chunk`'s."""
     step = _step_fn(model, S, TOT, quant, decode_kernel)
     sample = model.serving_sample()
     dev = params["pos"].device
-    state = torch.zeros((7, S), dtype=torch.float64, device=dev)
+    state = torch.zeros((7 + chunk, S), dtype=torch.float64, device=dev)
     out = torch.zeros((2 * chunk + 2, S), dtype=torch.long, device=dev)
 
     def body(steps: int = chunk):
         ints = state.long()
         tok, p, active, limit, topk, seed = ints[:6].unbind(0)
         temp = state[6].float()
+        forced = ints[7:]
         active = active > 0
         toks, lives = [], []
-        for _ in range(steps):
+        for j in range(steps):
             live = active & (p < limit)
             _, logits = step(params, caches, tok, p)
             nxt = sample(logits, temp, topk, seed, p)
+            nxt = torch.where(forced[j] >= 0, forced[j], nxt)
             tok = torch.where(live, nxt, tok)
             p = torch.where(live, p + 1, p)
             toks.append(nxt)
@@ -339,10 +345,13 @@ def build_decode(model, params, caches, S: int, TOT: int, chunk: int,
         out[2 * chunk].copy_(tok)
         out[2 * chunk + 1].copy_(p)
 
-    def pack(tok, p, active, limit, temp, topk, seed):
-        return np.stack([tok, p, active, limit, topk,
-                         np.asarray(seed) & 0xFFFFFFFF, temp]).astype(
-                             np.float64)
+    def pack(tok, p, active, limit, temp, topk, seed, forced=None):
+        if forced is None:
+            forced = np.full((chunk, S), -1)
+        return np.concatenate([
+            np.stack([tok, p, active, limit, topk,
+                      np.asarray(seed) & 0xFFFFFFFF, temp]),
+            forced]).astype(np.float64)
 
     def unpack(o):
         return o[2 * chunk], o[2 * chunk + 1], o[:chunk], \

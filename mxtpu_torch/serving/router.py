@@ -38,21 +38,19 @@ Rebalancing rides the engines' drain/adopt handoff:
   :class:`ServingRequest` handles cross unchanged; callers blocked in
   ``result()`` never notice.
 * :meth:`Router.remove_replica` — drain a replica and RE-ROUTE its live
-  requests to survivors: each becomes a continuation (original prompt +
-  tokens already emitted, remaining ``max_new``, remaining deadline, same
-  tenant/priority/sampling) spliced behind the caller's
-  :class:`RouterRequest` handle — zero drops
+  requests to survivors: each becomes a continuation (original prompt,
+  tokens already emitted as forced tokens, remaining ``max_new``,
+  remaining deadline, same tenant/priority/sampling) spliced behind the
+  caller's :class:`RouterRequest` handle — zero drops
   (``get_router_stats()['requests_dropped'] == 0``): every request
-  finishes, with its full token budget. The reference also promises that
-  the spliced stream is bit-exact with an uninterrupted run; the port
-  does not. The survivor's B=1 prefill recomputes the emitted tokens' K/V
-  rows at one row where decode wrote them at ``slots`` rows (another
-  GEMM shape, another K5 chunk plan), so those rows may differ in their
-  last bits, and under an int8 cache a code at a half step may round the
-  other way (14-23 of ~700k codes on an H100 at ``base`` width,
-  ``PERF.md``). A greedy continuation may therefore leave the
-  uninterrupted stream; equal tokens in a run are a sample, not this
-  contract (``ROADMAP.md`` queue 3).
+  finishes, with its full token budget, and the spliced stream is
+  bit-exact with an uninterrupted run. The survivor prefills the
+  original prompt as the removed replica did and replays the emitted
+  tokens as forced tokens (``ServingEngine.submit(forced=...)``) through
+  the same prefill and decode steps that first computed them, so every
+  K/V row it holds for the continuation (int8 codes and scales, or float
+  values) is the removed replica's, bit for bit, when both replicas
+  share a geometry (the factory gives them one).
 
 With the SLO scheduler installed on the replicas, the router periodically
 merges the per-tenant fair-share passes across replicas (max per tenant),
@@ -417,9 +415,8 @@ class Router:
 
     def remove_replica(self, rid: str) -> int:
         """Drain replica ``rid`` and re-route every live request to a
-        survivor as a continuation (see module docstring: its tokens may
-        differ from an uninterrupted run's); returns how many requests
-        were re-routed. The zero-drop contract:
+        survivor as a continuation (see module docstring); returns how
+        many requests were re-routed. The zero-drop contract:
         ``requests_dropped`` stays 0 — a request is only lost if every
         survivor rejects its continuation, which the counter would expose."""
         with self._lock:
@@ -452,8 +449,8 @@ class Router:
 
     def _reroute(self, rr: RouterRequest, old: ServingRequest) -> None:
         """Re-submit one drained request to a survivor as a continuation:
-        prompt + emitted tokens, remaining budget, remaining deadline, same
-        tenant/priority/sampling. Splice-then-finish ordering matters — the
+        the prompt with the emitted tokens forced after it, remaining
+        budget, remaining deadline, same tenant/priority/sampling. Splice-then-finish ordering matters — the
         splice bumps the handle's generation BEFORE the old segment is
         finished, so a caller woken by the finish follows the splice."""
         now = time.monotonic()
@@ -469,18 +466,21 @@ class Router:
             old._finish(EXPIRED, now)
             return
         deadline_s = None if rr.deadline is None else rr.deadline - now
-        cont_prompt = rr.prompt + all_tokens
         err: Optional[BaseException] = None
-        for rid in self._route(cont_prompt, rr.use_prefix_cache):
+        for rid in self._route(rr.prompt + all_tokens, rr.use_prefix_cache):
             try:
                 with self._lock:
                     rep = self._replicas[rid]
                     if rep.draining:
                         continue
+                # the survivor prefills the original prompt and replays the
+                # emitted tokens as forced ones through its decode steps:
+                # their K/V rows are computed as the victim computed them
                 seg = rep.engine.submit(
-                    cont_prompt, remaining, deadline_s=deadline_s,
+                    rr.prompt, remaining, deadline_s=deadline_s,
                     sampling=rr.sampling, prefix_cache=rr.use_prefix_cache,
-                    tenant=rr.tenant, priority=rr.priority)
+                    tenant=rr.tenant, priority=rr.priority,
+                    forced=all_tokens)
             except (QueueFullError, RuntimeError) as e:
                 err = e
                 continue

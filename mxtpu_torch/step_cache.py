@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .optimizer import scaled
+from .optimizer import Optimizer, _as, scaled
 
 __all__ = ["CacheStats", "cache_stats", "snapshot", "reset_stats",
            "ProgramCache", "GraphProgram", "capture_stream", "on_side_stream",
@@ -315,12 +315,6 @@ def optimizer_fingerprint(opt) -> tuple:
     return (type(opt).__name__, opt.clip_gradient is not None, items)
 
 
-def _as(x: float, dtype) -> float:
-    """``x`` rounded to ``dtype``, as the reference casts its step scalars
-    to each parameter's dtype."""
-    return float(torch.tensor(x, dtype=dtype))
-
-
 def _opmath(dtype) -> torch.dtype:
     """The dtype that elementwise ops on ``dtype`` compute in: f32 for bf16,
     f16 and f32; f64 for f64."""
@@ -371,7 +365,12 @@ class MultiTensorUpdate:
             for i, v in zip(idx, buf.split(sizes)):
                 self.grads[i] = v.view(self.params[i].shape)
             self.buffers.append(buf)
-        self.n_values = self._FIXED + len(opt._step_values(1.0, 1))
+        # an optimizer without a multi-tensor kernel runs ``_kernel`` per
+        # tensor, with the update count among the step's values
+        self._per_tensor = type(opt)._foreach_kernel is \
+            Optimizer._foreach_kernel
+        self.n_values = self._FIXED + len(opt._step_values(1.0, 1)) \
+            + self._per_tensor
 
     def values(self, lr: float, wd: float, rescale: float, clip: float,
                t: int) -> List[float]:
@@ -382,6 +381,8 @@ class MultiTensorUpdate:
             out += [lr_g, _as(wd, dt) * wd_mult, _as(rescale, dt),
                     _as(clip, dt) if self._clipped else 0.0]
             out += self.opt._step_values(lr_g, t)
+            if self._per_tensor:
+                out.append(float(t))
         return out
 
     def __call__(self, values: torch.Tensor) -> None:
@@ -398,11 +399,25 @@ class MultiTensorUpdate:
                     g.clamp_(-c, c)
                 gs = [x.view(self.params[i].shape) for i, x in zip(
                     idx, g.split([self.params[i].numel() for i in idx]))]
+                if self._per_tensor:
+                    self._kernels(idx, gs, lr, wd, v[-1])
+                    continue
                 states = [list(s) for s in zip(*(self.states[i]
                                                  for i in idx))]
                 self.opt._foreach_kernel([self.params[i] for i in idx], gs,
                                          states, lr, wd,
                                          tuple(v[self._FIXED:].unbind()))
+
+    def _kernels(self, idx, gs, lr, wd, t) -> None:
+        """``opt._kernel`` on each tensor of a group, written back in
+        place (the step scalars as 0-d tensors)."""
+        for i, g in zip(idx, gs):
+            w = self.params[i]
+            out = self.opt._kernel(w, g, lr, wd, t, *self.states[i])
+            new_w, *new_st = out if isinstance(out, tuple) else (out,)
+            w.copy_(new_w)
+            for s, ns in zip(self.states[i], new_st):
+                s.copy_(ns)
 
 
 def build_update_all(opt, params: Sequence[torch.Tensor],

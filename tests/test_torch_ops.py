@@ -1,7 +1,9 @@
 """Every op of the port's registry against the JAX package's, on the CPU.
 
-The ops of ``ops/{elementwise,reduce,matrix,init_ops,random,nn}.py`` and
-the ``Custom`` op are registered in both packages under the same names.
+The ops of ``ops/{elementwise,reduce,matrix,init_ops,random,nn,
+optimizer_ops}.py`` and the ``Custom`` op are registered in both packages
+under the same names (the update ops' pure functions here; their in-place
+``nd`` wrappers in ``tests/test_torch_optimizers.py``).
 One parametrised test runs each registered name (aliases included) in
 both packages on the same numpy inputs and compares the outputs: float
 results within 1e-5 relative + 1e-6 absolute (f32 reassociation between
@@ -34,7 +36,7 @@ from mxtpu_torch.ops import registry as treg
 RTOL, ATOL = 1e-5, 1e-6
 
 SLICE_MODULES = ("elementwise", "reduce", "matrix", "init_ops", "random",
-                 "nn", "operator")
+                 "nn", "operator", "optimizer_ops")
 # ops of those modules that wait for a later slice (SyncBatchNorm needs
 # parallel/collectives)
 WAITING = {"contrib.SyncBatchNorm", "contrib._contrib_SyncBatchNorm"}
@@ -371,6 +373,40 @@ def _register_custom():
 
         mod.register("ops_parity_scale")(_Prop)
 
+
+def H(*shape):
+    return lambda rs: rs.uniform(-2.0, 2.0, shape).astype(np.float16)
+
+
+# the fused optimizer updates: pure, not differentiable, (weight, grad,
+# *states) with positive states where they sit under a square root
+_P = dict(lo=0.1, hi=1.0)
+_OPT = dict(lr=0.05, wd=0.01, rescale_grad=0.5)
+CASES.update({
+    "sgd_update": [case(U(3, 4), U(3, 4), grad=False, clip_gradient=0.3,
+                        **_OPT)],
+    "sgd_mom_update": [case(U(3, 4), U(3, 4), U(3, 4), grad=False,
+                            momentum=0.9, **_OPT)],
+    "mp_sgd_update": [case(H(3, 4), H(3, 4), U(3, 4), grad=False, **_OPT)],
+    "mp_sgd_mom_update": [case(H(3, 4), H(3, 4), U(3, 4), U(3, 4),
+                               grad=False, momentum=0.9, **_OPT)],
+    "signsgd_update": [case(U(3, 4), U(3, 4), grad=False, **_OPT)],
+    "signum_update": [case(U(3, 4), U(3, 4), U(3, 4), grad=False,
+                           momentum=0.9, wd_lh=0.01, **_OPT)],
+    "adam_update": [case(U(3, 4), U(3, 4), U(3, 4), U(3, 4, **_P),
+                         grad=False, clip_gradient=1.0, **_OPT)],
+    "ftml_update": [case(U(3, 4), U(3, 4), U(3, 4, **_P), U(3, 4, **_P),
+                         U(3, 4), grad=False, lr=0.05, t=3, wd=0.01)],
+    "rmsprop_update": [case(U(3, 4), U(3, 4), U(3, 4, **_P), grad=False,
+                            clip_weights=1.0, **_OPT)],
+    "rmspropalex_update": [case(U(3, 4), U(3, 4), U(3, 4, lo=2.0, hi=3.0),
+                                U(3, 4, lo=-0.1, hi=0.1), U(3, 4),
+                                grad=False, **_OPT)],
+    "ftrl_update": [case(U(3, 4), U(3, 4), U(3, 4), U(3, 4, **_P),
+                         grad=False, lamda1=0.1, **_OPT)],
+    "_sparse_adagrad_update": [case(U(3, 4), U(3, 4), U(3, 4, **_P),
+                                    grad=False, **_OPT)],
+})
 
 _register_custom()
 CASES["Custom"] = _custom_case()

@@ -5,8 +5,11 @@
   imports inside the port are its own).
 * Entry points run on the card unless the caller asks for the CPU: without
   CUDA, building a model, an engine or a ``DeviceFeed`` with no
-  ``device``, an ``nd`` array with no ``ctx``, or an ``rtc`` module raises
+  ``device``, an ``nd`` array with no ``ctx``, an ``rtc`` module, or a
+  Gluon ``initialize()`` of a block or a parameter with no ``ctx`` raises
   instead of running on the CPU.
+* Each ported module with a counterpart in the JAX package lies at the
+  counterpart's path.
 """
 
 import ast
@@ -49,7 +52,12 @@ def test_no_jax_or_mxtpu_imports(path):
 
 @pytest.mark.parametrize("module", [
     "serving/router.py", "observability/exporter.py",
-    "observability/flops.py"])
+    "observability/flops.py", "initializer.py", "gluon/parameter.py",
+    "gluon/block.py", "gluon/nn/basic_layers.py", "gluon/contrib/nn.py",
+    "gluon/model_zoo/transformer.py", "gluon/loss.py", "gluon/utils.py",
+    "engine.py", "checkpoint/atomic_io.py", "ops/optimizer_ops.py",
+    "ndarray/fused_optimizer.py", "optimizer.py", "kvstore.py",
+    "gluon/trainer.py", "metric.py"])
 def test_the_counterparts_are_checked(module):
     """Each module that has a counterpart in the JAX package lies where
     its counterpart does, and the import rule above reads it."""
@@ -85,3 +93,12 @@ def test_entry_points_refuse_the_cpu_without_cuda():
         nd.array([1.0])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         rtc.CudaModule("")
+    # Gluon: initialize() with no ctx is the card, also for a model built
+    # on the CPU (its seed draw gives way to the initializer)
+    from mxtpu_torch import gluon
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        net.initialize()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gluon.nn.Dense(3, in_units=2).initialize()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gluon.Parameter("w", shape=(2, 2)).initialize()

@@ -12,9 +12,12 @@ package's (``mxtpu.serving.router``, ``mxtpu.observability.exporter``).
   is removed mid-burst and the survivor is rebalanced (drain, a fresh
   engine, adopt) while requests are in flight. Every request's tokens
   equal the port's solo ``generate``, and the JAX router's run of the same
-  trace; ``requests_dropped == 0``. Equal tokens at this seed and width
-  are a sample: a continuation's recomputed K/V rows may differ from the
-  decode rows in their last bits (see ``mxtpu_torch/serving/router.py``).
+  trace; ``requests_dropped == 0``.
+* A continuation's K/V rows, over an int8 cache (codes and scales) and a
+  float one: the survivor's rows for the continuation's prompt and its
+  emitted tokens equal, bit for bit, the rows the removed replica held,
+  with batched prefill on both replicas and prompts whose last prefill
+  chunk is partial; its tokens equal a solo engine's.
 * ``rebalance`` behind a live handle, and ``RouterRequest`` across a
   splice that races ``result()``.
 * The exporter: Prometheus text with the ``engine`` label on the serving
@@ -365,6 +368,80 @@ def test_chaos_remove_and_rebalance_equal_solo_and_jax(nets):
     # every continuation keeps its tenant and priority
     for tr, seg in zip(trace.requests, segs):
         assert seg.tenant == tr.tenant and seg.priority == tr.priority
+
+
+def _rows(eng, req, n):
+    """The first ``n`` K/V positions of ``req``'s slot in ``eng``'s cache:
+    (int8 codes or float values, scales or None)."""
+    slot = next(i for i, r in enumerate(eng._reqs) if r is req)
+    c = eng._caches
+    if hasattr(c, "scale"):
+        return (c.data[:, :, slot, :, :n].clone(),
+                c.scale[:, :, slot, :, :n].clone())
+    return c[:, :, slot, :, :n].clone(), None
+
+
+@pytest.mark.parametrize("quant,spec", [(None, None), ("int8_kv", None),
+                                        ("int8_kv", 4)],
+                         ids=["float", "int8_kv", "int8_kv_spec"])
+def test_continuation_rows_equal_the_removed_replicas(nets, quant, spec):
+    """Remove a replica mid-decode: each continuation the survivor runs
+    holds the removed replica's K/V rows bit for bit (the prompt's, which
+    its prefill wrote, and the emitted tokens', which its decode or verify
+    steps wrote), and its tokens equal a solo engine's."""
+    _, tnet = nets
+    rs = np.random.RandomState(33)
+    # 9 and 20 fit one partial prefill chunk of 16; 37 ends in one
+    prompts = [rs.randint(1, VOCAB, size=n).tolist() for n in (9, 20, 37, 14)]
+    kw = dict(slots=4, queue_depth=8, chunk=4, prefill_chunk=16,
+              quant=quant, sched=True, prefill_batch=2, spec=spec)
+    with ServingEngine(tnet, device="cpu", **kw) as eng:
+        solo = [h.result(timeout=TIMEOUT)
+                for h in [eng.submit(p, 120) for p in prompts]]
+    router = Router.local(lambda rid: ServingEngine(
+        tnet, engine_id=rid, device="cpu", **kw), 2).start()
+    try:
+        hs = [router.submit(p, 120) for p in prompts]
+        _spin(lambda: all(len(h.tokens()) >= 40 for h in hs), "decode")
+        books = {rid: sum(0 if h.done() else 1 for h in book.values())
+                 for rid, book in router._inflight.items()}
+        victim = max(books, key=books.get)
+        veng = router._replicas[victim].engine
+        first = [h._segment()[0] for h in hs]
+        router.remove_replica(victim)
+        moved = [i for i, h in enumerate(hs)
+                 if h._segment()[0] is not first[i]]
+        assert moved
+        # the victim's rows: every position before its last emitted token
+        want = {i: _rows(veng, first[i], len(prompts[i])
+                         + len(first[i].tokens()) - 1) for i in moved}
+        seng = router._replicas[router.replica_ids[0]].engine
+        got = {}
+        for i in moved:
+            seg = hs[i]._segment()[0]
+            _spin(lambda: len(seg.tokens()) > 0 or seg.done(),
+                  "a continuation's first new token")
+            got[i] = _rows(seng, seg, want[i][0].shape[-2])
+        outs = [h.result(timeout=TIMEOUT) for h in hs]
+    finally:
+        router.stop()
+    assert outs == solo
+    for i in moved:
+        n0 = len(prompts[i])
+        assert want[i][0].shape[-2] > kv_bucket(n0)   # decode wrote rows
+        for name, a, b in (("values", got[i][0], want[i][0]),
+                           ("scales", got[i][1], want[i][1])):
+            if a is None:
+                continue
+            bad = a != b
+            assert not bad.any(), (
+                f"request {i}: {int(bad[..., :n0, :].sum())} prompt and "
+                f"{int(bad[..., n0:, :].sum())} emitted {name} differ")
+    assert profiler.get_router_stats()["requests_dropped"] == 0
+
+
+def kv_bucket(n):
+    return -(-n // 32) * 32
 
 
 def _rebalanced(router_cls, factory, prompt):

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke for mxtpu_torch: builds the port's CUDA kernels and drives its
-main paths on one NVIDIA GPU: serving, training, and the imperative
-``nd`` + ``autograd`` path with runtime-compiled kernels (``rtc``).
+main paths on one NVIDIA GPU: serving, training, the imperative ``nd`` +
+``autograd`` path with runtime-compiled kernels (``rtc``), the Gluon front
+end and the symbolic and Module front ends.
 
     python3 chip_smoke.py
 
@@ -211,13 +212,45 @@ Phases, in order; any failure exits non-zero without a result line:
     bit-equal to the uninterrupted run's; (e) ``DataParallelTrainer``
     (micro_batches 1) takes (b)'s Gluon-built net: its first loss within
     1e-5 of the Gluon path's.
+14. the symbolic and Module front ends: (a) ``Module(transformer_lm(
+    "flagship", vocab_size=16384))``, ``init_params(mx.init.Xavier())``,
+    ``cast("bfloat16")``, ``fit(NDArrayIter(one batch B=8, T=1024),
+    optimizer="adam", learning_rate 3e-4, num_epoch=12)`` through the fused
+    step (``step_cache.StepExecutor``): the loss must fall by 0.3,
+    ``module_step`` 1 trace and 11 hits, one program captured once and
+    replayed 11 times, K1, K2 and K3 96 launches each on sm90; ms a step
+    (median of the last 10), capture ms and peak memory beside phases 13's
+    and 8's; (d) ``predict(chain=4)`` over 9 batches of B=2 bit-equal to
+    ``predict(chain=1)``, one program a key, K1 = 8 x 9 + the warm-ups;
+    (f) ``save_checkpoint`` -> ``load_checkpoint`` into a new Module:
+    bit-equal predictions; (b) at full width, 2 layers, f32, B=2, T=256,
+    3 fused Adam steps on the card against the CPU and against the same
+    steps eagerly (``engine.bulk(0)``) on the card: losses within 1e-5,
+    weights within 5e-5 of each tensor's largest entry or 1 (bit-equality
+    printed); (c) a graph built with ``mx.sym`` (Embedding,
+    FullyConnected, ``contrib.flash_attention`` causal, FullyConnected,
+    SoftmaxOutput; d1024 H16 V16384) ``simple_bind`` on the card in f32:
+    one forward and backward at B=8, T=1024 launches K1, K2 and K3 once
+    each (simt); ``tojson`` -> ``load_json`` -> a new bind gives the same
+    bits; at B=1, T=256 outputs within 1e-5 and gradients within 5e-5 of
+    each tensor's largest entry of the same executor on the CPU; a
+    ``Module`` over the graph learns (> 0.3) in 10 eager steps, and its
+    checkpoint through ``SymbolBlock.imports`` gives the same bits; (e)
+    ``BucketingModule`` over one flagship weight set, buckets T=512 and
+    T=1024 interleaved, 3 steps each: one captured program a bucket, one
+    Trainer and one optimizer state a weight shared by both.
+
+``python3 chip_smoke.py --phase 14`` builds the kernels and runs phase 14
+alone (no kernels line, no result line).
 
 Launch counts are set to 0 just before phases 4, 5, 5c (its first
 burst), 5e (its SLO burst), 5f, 8, 9 (each fused run), 10, saxpy's drive in
-11, the 10 steps of 12 and the 12 steps of 13 (a), and read just after.
+11, the 10 steps of 12, the 12 steps of 13 (a), phase 14 (a)'s fit, (c)'s
+forward and backward and (d)'s chained predict, and read just after.
 The line before the last is the kernels' JSON record, with one K1, K2, K3
 and K4 record for each route and the path it runs on (the sm90 records of
-K1-K3 count phases 8 and 13 (a)), and four K5 records (plain serving, phase
+K1-K3 count phases 8, 13 (a) and 14 (a), the simt records of K1-K3 phase
+14 (c) besides their own), and four K5 records (plain serving, phase
 5; speculative verify, phase 5c with the times of phase 6b; the SLO
 batched prefill, phase 5e; the router's two replicas, phase 5f), each
 with its launches inside graph replays;
@@ -2639,10 +2672,10 @@ def count_cost_ms(torch, dpt):
           f"+{counted - alone:.1f} ms once a program key", flush=True)
 
 
-def profile_step(torch, dpt, x, y):
+def profile_step(torch, dpt, x, y, label="train"):
     """One training step (a replay) under ``torch.profiler`` (device
     activity): its device-busy share of the wall and its top device
-    operations."""
+    operations. ``dpt`` is anything with ``step(x, y)``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2657,10 +2690,10 @@ def profile_step(torch, dpt, x, y):
                 + e.time_range.elapsed_us()
     busy = sum(by_name.values())
     if not busy:
-        print("profile train: the profiler recorded no device time",
+        print(f"profile {label}: the profiler recorded no device time",
               flush=True)
         return
-    print(f"profile train (1 step, profiler on): wall {wall_us / 1e3:.1f} "
+    print(f"profile {label} (1 step, profiler on): wall {wall_us / 1e3:.1f} "
           f"ms, device busy {busy / 1e3:.1f} ms = {busy / wall_us:.3f} of "
           f"wall, idle {1 - busy / wall_us:.3f}", flush=True)
     # the top 10, and every attention kernel wherever it ranks
@@ -3186,7 +3219,400 @@ def phase_gluon(torch, mx, lm, attention, parallel, loss_mod, step_cache,
               f"save_states -> a fresh Trainer's load_states: the next "
               f"step's loss {lb[0]} and weights equal the uninterrupted "
               f"run's bit for bit", flush=True)
-    return launches
+    return launches, med
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the symbolic and Module front ends
+# ---------------------------------------------------------------------------
+
+MODULE = dict(B=8, T=1024, vocab=16384, epochs=12, chain=4, chain_B=2,
+              chain_batches=9, sym_steps=10)
+
+
+def module_loss(mx, torch, mod):
+    """``Module.fit``'s metric here: the step's mean loss (per-sample losses
+    of a Block module; the cross-entropy of a symbolic module's
+    probabilities), read back each step, so a step's time is the device's;
+    the probabilities themselves are not copied to the host."""
+
+    class ModuleLoss(mx.metric.EvalMetric):
+        def __init__(self):
+            self.losses = []
+            super().__init__("loss")
+
+        def update(self, labels, preds):
+            if mod._loss_val is not None:
+                v = mod._loss_val.data.detach().float().mean()
+            else:
+                p = preds[0].data.detach().float()
+                y = labels[0].data.to(p.device).long().unsqueeze(-1)
+                v = -torch.log(p.gather(-1, y).clamp_min(1e-30)).mean()
+            self.losses.append(float(v))
+            self.sum_metric += self.losses[-1]
+            self.num_inst += 1
+
+    return ModuleLoss()
+
+
+def module_fit(torch, mx, mod, it, epochs, optimizer, params, **kw):
+    """``mod.fit`` with :func:`module_loss`; returns the losses and each
+    step's ms (host clock, the loss read back closing each step)."""
+    metric = module_loss(mx, torch, mod)
+    times = []
+
+    def tick(_=None):
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+
+    tick()
+    mod.fit(it, num_epoch=epochs, optimizer=optimizer,
+            optimizer_params=dict(params), eval_metric=metric,
+            batch_end_callback=tick, **kw)
+    return metric.losses, [(b - a) * 1e3 for a, b in zip(times, times[1:])]
+
+
+def lm_symbol(s, units, heads, vocab, T):
+    """Embedding -> FullyConnected(3 units) -> q, k, v (B, H, T, D) ->
+    ``contrib.flash_attention(causal)`` -> FullyConnected(vocab) ->
+    SoftmaxOutput, built with ``mx.sym``."""
+    D = units // heads
+    data = s.Variable("data")
+    e = s.Embedding(data, input_dim=vocab, output_dim=units, name="embed")
+    qkv = s.FullyConnected(e, num_hidden=3 * units, flatten=False,
+                           name="qkv")
+    qkv = s.transpose(s.reshape(qkv, shape=(-1, T, 3, heads, D)),
+                      axes=(2, 0, 3, 1, 4))
+    q, k, v = s.split(qkv, num_outputs=3, axis=0, squeeze_axis=True)
+    att = s.contrib.flash_attention(q, k, v, causal=True)
+    o = s.reshape(s.transpose(att, axes=(0, 2, 1, 3)), shape=(-1, T, units))
+    logits = s.FullyConnected(o, num_hidden=vocab, flatten=False, name="out")
+    return s.SoftmaxOutput(logits, name="softmax")
+
+
+def bind_lm_symbol(torch, mx, net, ctx, B, T, vocab, seed):
+    """``simple_bind`` of :func:`lm_symbol` on ``ctx`` with seeded weights
+    (N(0, 0.02), drawn on the CPU) and a seeded batch."""
+    import numpy as np
+    ex = net.simple_bind(ctx, data=(B, T))
+    g = torch.Generator().manual_seed(seed)
+    for n, a in ex.arg_dict.items():
+        if n not in ("data", "softmax_label"):
+            a._set_data((torch.randn(a.shape, generator=g) * 0.02)
+                        .to(a.data.device))
+    rs = np.random.RandomState(seed)
+    batch = dict(data=mx.nd.array(rs.randint(0, vocab, (B, T))
+                                  .astype(np.int32), ctx=ctx),
+                 softmax_label=mx.nd.array(rs.randint(0, vocab, (B, T))
+                                           .astype(np.float32), ctx=ctx))
+    return ex, batch
+
+
+def ms_or(ms, per=1):
+    """``ms / per`` as text, or "not run" when that phase did not run."""
+    return "not run" if ms is None else f"{ms / per:.2f} ms"
+
+
+def phase_module(torch, mx, lm, attention, step_cache, counts, smi,
+                 phase8_ms, phase13_ms):
+    """Phase 14: the Module and symbolic front ends on the card (see the
+    module docstring). Returns (a)'s and (c)'s attention launch counts."""
+    import tempfile
+    import numpy as np
+    from mxtpu_torch import engine, io, sym
+    from mxtpu_torch.gluon import SymbolBlock
+    gpu = mx.gpu(0)
+    B, T, V = MODULE["B"], MODULE["T"], MODULE["vocab"]
+    epochs = MODULE["epochs"]
+    tmp = tempfile.mkdtemp(prefix="phase14_")
+    rs = np.random.RandomState(0)
+    x = rs.randint(0, V, (B, T)).astype(np.int32)
+    y = rs.randint(0, V, (B, T)).astype(np.float32)
+
+    # (a) Module.fit on the flagship, bf16, through the fused step
+    net = lm.transformer_lm("flagship", vocab_size=V)
+    L = len(net.blocks)
+    mod = mx.mod.Module(net)
+    it = io.NDArrayIter(x, y, batch_size=B)
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(mx.init.Xavier())
+    net.cast("bfloat16")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_cache.reset_stats("module_step")
+    counts(0)
+    losses, step_ms = module_fit(torch, mx, mod, it, epochs, "adam",
+                                 {"learning_rate": 3e-4})
+    launches = attention_launches(attention)
+    peak = torch.cuda.max_memory_allocated()
+    cache = step_cache.snapshot()["module_step"]
+    st = mod._step_exec.stats()
+    want = L * epochs
+    check(all(math.isfinite(v) for v in losses), f"module losses {losses}")
+    check(all(launches[k] == want for k in ("K1", "K2", "K3", "K1_sm90",
+                                            "K2_sm90", "K3_sm90"))
+          and launches["K4"] == 0,
+          f"module (a) launches {launches}: want K1 = K2 = K3 = their sm90 "
+          f"counts = {want} ({L} layers x {epochs} steps), K4 = 0")
+    check(cache == {"hits": epochs - 1, "traces": 1, "retraces": 0}
+          and st["programs"] == 1 and st["captured"] == 1
+          and st["replays"] == epochs - 1,
+          f"module (a) step program: module_step {cache}, {st}: want one "
+          f"program, captured once, {epochs - 1} replays")
+    check(losses[-1] < losses[0] - 0.3,
+          f"module learning gate: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"(must fall by 0.3)")
+    med = float(np.median(step_ms[2:]))
+    flops = mod._program_flops()
+    print(f"module (a): Module(flagship bf16 d{net._units} L{L}).fit("
+          f"NDArrayIter B{B} T{T}, adam 3e-4, {epochs} epochs): loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; step 1 (body on a side "
+          f"stream) {step_ms[0]:.1f} ms, step 2 (capture + replay) "
+          f"{step_ms[1]:.1f} ms (capture {st['capture_ms']:.1f} ms), median "
+          f"of the last 10 {med:.2f} ms/step = {B * T / med * 1e3:.1f} "
+          f"tokens/s; phase 13's eager Gluon step {ms_or(phase13_ms)} and "
+          f"phase 8's captured step {ms_or(phase8_ms, 4)} for the same "
+          f"{B}x{T} tokens; program FLOPs {flops:.4e}; max_memory_allocated "
+          f"{peak} bytes; module_step {cache}; launches {launches}; {smi}",
+          flush=True)
+    print(f"  losses {[round(v, 4) for v in losses]}; ms/step "
+          f"{[round(v, 2) for v in step_ms]}", flush=True)
+    batch = next(iter(io.NDArrayIter(x, y, batch_size=B)))
+
+    class FitStep:
+        """One step of the fit loop (a replay), its loss read back."""
+
+        def step(self, *_):
+            mod.forward_backward(batch)
+            mod.update()
+            float(mod._loss_val.data.float().mean())
+
+    profile_step(torch, FitStep(), None, None, label="module step")
+
+    # (d) predict(chain=4) against predict(chain=1), bit for bit
+    cb, nb, chain = MODULE["chain_B"], MODULE["chain_batches"], \
+        MODULE["chain"]
+    xp = np.random.RandomState(1).randint(0, V, (cb * nb, T)).astype(
+        np.int32)
+    pit = io.NDArrayIter(xp, None, batch_size=cb)
+    per = mod.predict(pit)
+    step_cache.reset_stats("serving_chained")
+    counts(0)
+    chained = mod.predict(pit, chain=chain)
+    torch.cuda.synchronize()
+    k1 = attention.flash_fwd.launches
+    cstats = step_cache.snapshot()["serving_chained"]
+    n_tail = nb % chain
+    want_k1 = L * nb + L * (chain + n_tail)
+    same = torch.equal(per.data, chained.data)
+    check(same and k1 == want_k1 and cstats["traces"] == 2,
+          f"module (d): chained equals per-batch {same}; K1 launches {k1} "
+          f"(want {L} x {nb} + the warm-ups {L} x ({chain} + {n_tail}) = "
+          f"{want_k1}); serving_chained {cstats} (want 2 traces)")
+    print(f"module (d): predict(chain={chain}) over {nb} batches of B{cb} "
+          f"T{T} ({nb // chain} chains of {chain} and a tail of {n_tail}): "
+          f"bit-equal to predict(chain=1); serving_chained {cstats}; K1 "
+          f"launches {k1} = {L} x {nb} + the captures' warm-ups", flush=True)
+    del per, chained
+
+    # (f) save_checkpoint -> load_checkpoint into a new Module: bit-equal
+    prefix = os.path.join(tmp, "flagship")
+    mod.save_checkpoint(prefix, epochs)
+    _, arg, aux = mx.model.load_checkpoint(prefix, epochs)
+    net2 = lm.transformer_lm("flagship", vocab_size=V).cast("bfloat16")
+    mod2 = mx.mod.Module(net2)
+    fit2 = io.NDArrayIter(xp[:2 * cb], None, batch_size=cb)
+    mod2.bind(fit2.provide_data, None, for_training=False)
+    mod2.init_params(arg_params=arg, aux_params=aux)
+    same = torch.equal(mod.predict(fit2).data, mod2.predict(fit2).data)
+    check(same, "module (f): a Module loaded from save_checkpoint predicts "
+          "other bits than the saved one")
+    print(f"module (f): save_checkpoint({epochs}) -> load_checkpoint -> a "
+          f"new Module: bit-equal predictions", flush=True)
+    del mod, mod2, net, net2, arg, aux
+    torch.cuda.empty_cache()
+
+    # (b) card against CPU: full width, 2 layers, f32, B2 T256, 3 steps
+    rs = np.random.RandomState(14)
+    xb = rs.randint(0, V, (6, 256)).astype(np.int32)
+    yb = rs.randint(0, V, (6, 256)).astype(np.float32)
+    f = os.path.join(tmp, "b.params")
+    card = lm.transformer_lm("flagship", vocab_size=V, num_layers=2)
+    card.initialize(mx.init.Xavier(), ctx=gpu)
+    card.save_parameters(f)
+    host = lm.transformer_lm("flagship", vocab_size=V, num_layers=2,
+                             device="cpu")
+    host.load_parameters(f)
+    eager = lm.transformer_lm("flagship", vocab_size=V, num_layers=2)
+    eager.load_parameters(f)
+    res = {}
+    for name, net, ctx, bulk in (("card", card, gpu, None),
+                                 ("cpu", host, mx.cpu(), None),
+                                 ("eager", eager, gpu, 0)):
+        m = mx.mod.Module(net, context=ctx)
+        it = io.NDArrayIter(xb, yb, batch_size=2)
+        if bulk is None:
+            res[name] = module_fit(torch, mx, m, it, 1, "adam",
+                                   {"learning_rate": 1e-3})[0]
+        else:
+            with engine.bulk(bulk):
+                res[name] = module_fit(torch, mx, m, it, 1, "adam",
+                                       {"learning_rate": 1e-3})[0]
+        if name == "card":
+            check(m._step_exec.stats()["replays"] == 2,
+                  f"module (b): card steps {m._step_exec.stats()}")
+        if name == "eager":
+            check(m._step_exec is None, "module (b): bulk(0) fused a step")
+    for other in ("cpu", "eager"):
+        ref = host if other == "cpu" else eager
+        ldiff = max(abs(a - b) for a, b in zip(res["card"], res[other]))
+        wdiffs = weight_diffs(torch, card, ref)
+        check(ldiff <= 1e-5 and wdiffs[0][0] <= 5e-5,
+              f"module (b): fused card vs {other}: losses {res['card']} vs "
+              f"{res[other]} differ by {ldiff} (tol 1e-5); weights by "
+              f"{wdiffs[:3]} of each tensor's largest entry or 1 (tol 5e-5)")
+        bits = res["card"] == res[other] and all(
+            torch.equal(a.data().data.cpu(), b.data().data.cpu())
+            for a, b in zip(card.collect_params().values(),
+                            ref.collect_params().values()))
+        print(f"module (b): fused on the card vs {other} (flagship width, 2 "
+              f"layers, f32, B2 T256, 3 Adam steps): losses "
+              f"{res['card']} vs {res[other]}, max diff {ldiff:.3e} (tol "
+              f"1e-5); weights max diff of each tensor's largest entry or 1 "
+              + ", ".join(f"{d:.3e} in {n}" for d, n in wdiffs[:3])
+              + f" (tol 5e-5); bit-equal: {bits}", flush=True)
+    del card, host, eager
+    torch.cuda.empty_cache()
+
+    # (c) a graph built with mx.sym at full width, f32: K1-K3 once each
+    net = lm_symbol(sym, 1024, 16, V, T)
+    ex, batch = bind_lm_symbol(torch, mx, net, gpu, B, T, V, seed=3)
+    counts(0)
+    ex.forward(is_train=True, **batch)
+    ex.backward()
+    torch.cuda.synchronize()
+    sym_launches = attention_launches(attention)
+    check(sym_launches["K1"] == sym_launches["K2"] == sym_launches["K3"] == 1
+          and sym_launches["K1_sm90"] == sym_launches["K2_sm90"] == 0,
+          f"module (c): one forward and backward of the graph launched "
+          f"{sym_launches}: want K1 = K2 = K3 = 1, on the simt route (f32)")
+    # tojson -> load_json -> a new bind: bit-equal outputs
+    out1 = ex.forward(is_train=False)[0].data.clone()
+    ex2 = sym.load_json(net.tojson()).bind(
+        gpu, dict(ex.arg_dict), aux_states=dict(ex.aux_dict),
+        grad_req="null")
+    same = torch.equal(ex2.forward(is_train=False)[0].data, out1)
+    check(same, "module (c): tojson -> load_json -> bind gives other bits")
+    del ex, ex2, out1
+    # B1 T256: the card's outputs and gradients against the CPU's
+    small = lm_symbol(sym, 1024, 16, V, 256)
+    outs, grads = {}, {}
+    for name, ctx in (("card", gpu), ("cpu", mx.cpu())):
+        e, b = bind_lm_symbol(torch, mx, small, ctx, 1, 256, V, seed=4)
+        outs[name] = e.forward(is_train=True, **b)[0].data.float().cpu()
+        e.backward()
+        grads[name] = {n: g.data.float().cpu()
+                       for n, g in e.grad_dict.items()
+                       if n not in ("data", "softmax_label")}
+    odiff = (outs["card"] - outs["cpu"]).abs().max().item()
+    floor = 1e-3 * max(g.abs().max().item() for g in grads["cpu"].values())
+    gdiff, gname = max(((grads["card"][n] - g).abs().max().item()
+                        / max(g.abs().max().item(), floor), n)
+                       for n, g in grads["cpu"].items())
+    check(odiff <= 1e-5 and gdiff <= 5e-5,
+          f"module (c): card vs CPU at B1 T256: outputs differ by {odiff} "
+          f"(tol 1e-5), gradients by {gdiff} in {gname} of the tensor's "
+          f"largest entry (tol 5e-5)")
+    # Module over the symbol: 10 eager steps memorise one batch
+    smod = mx.mod.Module(net)
+    sit = io.NDArrayIter(x, y, batch_size=B)
+    # lr 1e-2: the one-layer graph has no norm or residual, and at 1e-3
+    # its loss fell 0.25 in 10 steps (PR 14's second card run)
+    slosses, sms = module_fit(torch, mx, smod, sit, MODULE["sym_steps"],
+                              "adam", {"learning_rate": 1e-2},
+                              initializer=mx.init.Xavier())
+    check(smod._step_exec is None and slosses[-1] < slosses[0] - 0.3,
+          f"module (c): the symbolic Module's loss {slosses[0]:.4f} -> "
+          f"{slosses[-1]:.4f} (must fall by 0.3, eagerly)")
+    print(f"module (c): lm_symbol (embed, qkv, contrib.flash_attention "
+          f"causal, out, SoftmaxOutput; d1024 H16 V{V}) simple_bind on the "
+          f"card, f32 (K1-K3 take the simt route): forward + backward at "
+          f"B{B} T{T} launched {sym_launches}; tojson -> load_json -> bind "
+          f"bit-equal; card vs CPU at B1 T256: outputs max diff "
+          f"{odiff:.3e} (tol 1e-5), gradients {gdiff:.3e} of each tensor's "
+          f"largest entry in {gname} (tol 5e-5); Module(symbol).fit "
+          f"{MODULE['sym_steps']} eager Adam(1e-2) steps: loss "
+          f"{slosses[0]:.4f} "
+          f"-> {slosses[-1]:.4f}, median {float(np.median(sms[2:])):.2f} "
+          f"ms/step", flush=True)
+    # (f) the symbol's checkpoint through SymbolBlock.imports: bit-equal
+    sprefix = os.path.join(tmp, "lm_symbol")
+    smod.save_checkpoint(sprefix, MODULE["sym_steps"])
+    blk = SymbolBlock.imports(f"{sprefix}-symbol.json", ["data"],
+                              f"{sprefix}-{MODULE['sym_steps']:04d}.params")
+    xs = mx.nd.array(x, ctx=gpu)
+    with mx.autograd.predict_mode():
+        got = blk(xs).data
+    want_out = smod.predict(io.NDArrayIter(x, None, batch_size=B)).data
+    check(torch.equal(got, want_out),
+          "module (f): SymbolBlock.imports of the symbolic Module's "
+          "checkpoint gives other bits")
+    print("module (f): the symbolic Module's save_checkpoint -> "
+          "SymbolBlock.imports(prefix-symbol.json, ['data'], "
+          "prefix-####.params): bit-equal outputs", flush=True)
+    del smod, blk, got, want_out
+    torch.cuda.empty_cache()
+
+    # (e) BucketingModule: T 512 and 1024 over one flagship weight set
+    net = lm.transformer_lm("flagship", vocab_size=V)
+    net.initialize(mx.init.Xavier(), ctx=gpu)
+    net.cast("bfloat16")
+    bm = mx.mod.BucketingModule(
+        lambda key: (net, ("data",), ("softmax_label",)),
+        default_bucket_key=T)
+    bm.bind([io.DataDesc("data", (B, T))],
+            [io.DataDesc("softmax_label", (B, T))])
+    bm.init_params()
+    bm.init_optimizer(optimizer="adam",
+                      optimizer_params={"learning_rate": 3e-4})
+    step_cache.reset_stats("module_step")
+    rs = np.random.RandomState(5)
+    blosses = []
+    for key in (512, T) * 3:
+        b = io.DataBatch(
+            [mx.nd.array(rs.randint(0, V, (B, key)).astype(np.int32),
+                         ctx=gpu)],
+            [mx.nd.array(rs.randint(0, V, (B, key)).astype(np.float32),
+                         ctx=gpu)],
+            bucket_key=key,
+            provide_data=[io.DataDesc("data", (B, key))],
+            provide_label=[io.DataDesc("softmax_label", (B, key))])
+        bm.forward_backward(b)
+        bm.update()
+        blosses.append(float(
+            bm._curr._loss_val.data.detach().float().mean()))
+    mods = [bm._modules[512], bm._modules[T]]
+    stats = [m._step_exec.stats() for m in mods]
+    progs = [next(iter(m._step_exec._cache.values())) for m in mods]
+    shared = mods[0]._trainer is mods[1]._trainer and all(
+        a is b for a, b in zip(progs[0].upd.states, progs[1].upd.states))
+    n_params = len(net.collect_params())
+    cache = step_cache.snapshot()["module_step"]
+    check(all(s["programs"] == 1 and s["captured"] == 1 and s["replays"] == 2
+              for s in stats) and shared
+          and len(mods[0]._trainer._states) == n_params
+          and cache["traces"] == 2 and all(map(math.isfinite, blosses)),
+          f"module (e): per-bucket programs {stats}, one trainer and one "
+          f"state a weight {shared}, module_step {cache}, losses {blosses}")
+    print(f"module (e): BucketingModule over one flagship bf16 weight set, "
+          f"buckets T512 and T{T} interleaved, 3 steps each: one program a "
+          f"bucket, each captured once and replayed twice {stats}; one "
+          f"Trainer and one optimizer state tuple for each of the "
+          f"{n_params} weights, shared by both programs; module_step "
+          f"{cache}; losses {[round(v, 4) for v in blosses]}", flush=True)
+    del bm, mods, progs, net
+    torch.cuda.empty_cache()
+    return launches, sym_launches
 
 
 # ---------------------------------------------------------------------------
@@ -3748,25 +4174,31 @@ def run():
     saxpy = timed_phase("K6 checks", phase_k6, torch, mx)
     head = timed_phase("imperative head", phase_head, torch, mx)
     torch.cuda.empty_cache()
-    glu = timed_phase("gluon", phase_gluon, torch, mx, lm, attention,
-                      parallel, loss_mod, step_cache, counts, smi[0],
-                      train_ms)
+    glu, glu_ms = timed_phase("gluon", phase_gluon, torch, mx, lm,
+                              attention, parallel, loss_mod, step_cache,
+                              counts, smi[0], train_ms)
+    torch.cuda.empty_cache()
+    mod_l, sym_l = timed_phase("module", phase_module, torch, mx, lm,
+                               attention, step_cache, counts, smi[0],
+                               train_ms, glu_ms)
     print(f"K1 launches: forward {k1_launches}, training "
-          f"{train_launches['K1']}, gluon {glu['K1']}", flush=True)
-    sm90 = {k: train_launches[k] + glu[k]
+          f"{train_launches['K1']}, gluon {glu['K1']}, module {mod_l['K1']}, "
+          f"symbolic graph {sym_l['K1']}", flush=True)
+    sm90 = {k: train_launches[k] + glu[k] + mod_l[k]
             for k in ("K1_sm90", "K2_sm90", "K3_sm90")}
-    gl_path = "train (bf16) + gluon (a) (bf16)"
+    gl_path = "train (bf16) + gluon (a) (bf16) + module (a) (bf16)"
 
     bwd_src = "mxtpu_torch/csrc/flash_bwd.cu"
     sm90_src = "mxtpu_torch/csrc/flash_bwd_sm90.cu"
-    f32_path = "train card vs CPU (f32)"
+    f32_path = "train card vs CPU (f32) + module (c) symbolic graph (f32)"
     # K1 to K4 run on two routes, each on its own path, shape and dtype:
     # one record each
     kernels = [
         dict(name="flash_fwd", route="cuda",
              source="mxtpu_torch/csrc/flash_fwd.cu",
-             replaces="mxtpu/ops/attention.py:133", path="forward (f32)",
-             launches=k1_launches, **k1["forward"]),
+             replaces="mxtpu/ops/attention.py:133",
+             path="forward (f32) + module (c) symbolic graph (f32)",
+             launches=k1_launches + sym_l["K1"], **k1["forward"]),
         dict(name="flash_fwd_sm90", route="cuda",
              source="mxtpu_torch/csrc/flash_fwd_sm90.cu",
              replaces="mxtpu/ops/attention.py:133", path=gl_path,
@@ -3776,13 +4208,13 @@ def run():
              launches=sm90["K2_sm90"], **bwd["bf16"]["K2"]),
         dict(name="flash_bwd_dq", route="cuda", source=bwd_src,
              replaces="mxtpu/ops/attention.py:182", path=f32_path,
-             launches=f32_launches["K2"], **bwd["f32"]["K2"]),
+             launches=f32_launches["K2"] + sym_l["K2"], **bwd["f32"]["K2"]),
         dict(name="flash_bwd_dkv_sm90", route="cuda", source=sm90_src,
              replaces="mxtpu/ops/attention.py:220", path=gl_path,
              launches=sm90["K3_sm90"], **bwd["bf16"]["K3"]),
         dict(name="flash_bwd_dkv", route="cuda", source=bwd_src,
              replaces="mxtpu/ops/attention.py:220", path=f32_path,
-             launches=f32_launches["K3"], **bwd["f32"]["K3"]),
+             launches=f32_launches["K3"] + sym_l["K3"], **bwd["f32"]["K3"]),
         dict(name="flash_bwd_fused_sm90", route="cuda", source=sm90_src,
              replaces="mxtpu/ops/attention.py:262",
              path="train (bf16), MXTPU_FLASH_BWD=fused",
@@ -3822,8 +4254,40 @@ def run():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def run_module_only():
+    """Phase 14 alone, after the build (``python3 chip_smoke.py --phase
+    14``): for working on the front ends; no kernels line, no result
+    line."""
+    import torch
+    if not torch.cuda.is_available():
+        raise SmokeFailure("no CUDA device: this smoke runs on the card only")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mxtpu_torch import _build, step_cache
+    from mxtpu_torch.gluon.model_zoo import transformer as lm
+    from mxtpu_torch.ops import attention, quant_attention
+    import mxtpu_torch as mx
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    print(smi[0], flush=True)
+    t0 = time.monotonic()
+    _build.build_all()
+    check_build(_build)
+    print(f"[build: {time.monotonic() - t0:.1f} s]", flush=True)
+    t0 = time.monotonic()
+    phase_module(torch, mx, lm, attention, step_cache,
+                 launch_counter(attention, quant_attention), smi[0], None,
+                 None)
+    print(f"[module: {time.monotonic() - t0:.1f} s] phase 14 passed",
+          flush=True)
+
+
 def main() -> int:
     try:
+        if sys.argv[1:] == ["--phase", "14"]:
+            run_module_only()
+            return 0
         run()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)

@@ -10,8 +10,12 @@ end is here too: ``nd`` (NDArray and the op registry), ``autograd``,
 ``random``, ``operator`` (``CustomOp``) and ``rtc`` (CUDA C compiled at
 runtime by NVRTC), and the Gluon training front end: ``gluon`` (``Block``,
 ``Parameter``, ``Trainer``, layers, losses), ``init``, ``optimizer``,
-``kvstore``, ``metric`` and ``engine``. Module paths mirror ``mxtpu/`` so each module's
-counterpart is easy to find.
+``kvstore``, ``metric`` and ``engine``; and the symbolic and Module front
+end: ``sym``/``symbol`` (graphs, ``Executor``), ``mod``/``module``
+(``Module.fit``, ``BucketingModule``, the fused ``StepExecutor`` step),
+``io`` (``NDArrayIter``), ``model``, ``callback``, ``monitor`` and
+``AttrScope``. Module paths mirror ``mxtpu/`` so each module's counterpart
+is easy to find.
 
 The package imports ``torch`` and never JAX or ``mxtpu``. Entry points run
 on the card unless the caller passes ``device="cpu"`` (or, for ``nd``,
@@ -39,8 +43,23 @@ from . import optimizer  # noqa: E402
 from . import kvstore  # noqa: E402
 from . import metric  # noqa: E402
 from . import gluon  # noqa: E402
+from . import io  # noqa: E402
+from . import attribute  # noqa: E402
+from .attribute import AttrScope  # noqa: E402
+from . import symbol  # noqa: E402
+from . import symbol as sym  # noqa: E402
+from .symbol import Symbol  # noqa: E402
+from . import callback  # noqa: E402
+from . import model  # noqa: E402
+from .model import load_checkpoint, save_checkpoint  # noqa: E402
+from . import monitor  # noqa: E402
+from . import module  # noqa: E402
+from . import module as mod  # noqa: E402
+from .module import Module  # noqa: E402
 
-__all__ = ["Context", "NDArray", "autograd", "cpu", "current_context",
-           "engine", "gluon", "gpu", "init", "initializer", "kvstore",
-           "metric", "nd", "num_gpus", "operator", "optimizer", "random",
-           "resolve_device", "rtc"]
+__all__ = ["AttrScope", "Context", "Module", "NDArray", "Symbol",
+           "attribute", "autograd", "callback", "cpu", "current_context",
+           "engine", "gluon", "gpu", "init", "initializer", "io", "kvstore",
+           "load_checkpoint", "metric", "mod", "model", "module", "monitor",
+           "nd", "num_gpus", "operator", "optimizer", "random",
+           "resolve_device", "rtc", "save_checkpoint", "sym", "symbol"]

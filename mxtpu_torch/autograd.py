@@ -32,7 +32,7 @@ import torch
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "set_recording", "set_training", "backward", "grad",
-           "mark_variables", "record_custom_node", "Function"]
+           "mark_variables", "retain_grad", "record_custom_node", "Function"]
 
 _state = threading.local()
 
@@ -44,6 +44,7 @@ def _st():
         _state.epoch = 0      # id of the live recorded graph
         _state.n_nodes = 0    # ops recorded into it
         _state.vars = {}      # id(leaf) -> (handle, leaf) read by it
+        _state.retained = []  # outputs of it whose gradient is asked for
     return _state
 
 
@@ -134,6 +135,25 @@ def mark_variables(variables, gradients=None, grad_reqs="write"):
         _mark_variable(v, req)
         if gradients is not None:
             v._grad = gradients[i]
+
+
+def retain_grad(handle):
+    """Ask for the gradient of an output of the live recorded graph (a
+    non-leaf): the next backward writes it into ``handle.grad`` without
+    detaching the handle from the graph, as torch's ``retain_grad`` does
+    (``attach_grad`` would cut the edge to its producer). A handle that is
+    no such output is marked as a variable instead. ``Module.bind(
+    inputs_need_grad=True)`` uses it when a data input is another module's
+    live output."""
+    from .ndarray.ndarray import NDArray
+    st = _st()
+    if handle._grad_req is not None or handle._epoch != st.epoch \
+            or handle.data.grad_fn is None:
+        _mark_variable(handle)
+        return
+    if handle._grad is None:
+        handle._grad = NDArray(torch.zeros_like(handle.data.detach()))
+    st.retained.append(handle)
 
 
 def _input(handle, record: bool) -> torch.Tensor:
@@ -235,6 +255,7 @@ def _free_graph():
     st.epoch += 1
     st.n_nodes = 0
     st.vars = {}
+    st.retained = []
 
 
 def _heads(heads, head_grads):
@@ -284,6 +305,8 @@ def _run_backward(heads, head_grads, retain_graph: bool):
             targets[id(h._data)] = (h, h._data)
     pairs = [(h, leaf) for h, leaf in targets.values()
              if h._grad_req != "null"]
+    pairs += [(h, h._data) for h in st.retained
+              if id(h._data) not in targets]
     if outs and pairs:
         grads = torch.autograd.grad(
             outs, [leaf for _, leaf in pairs], grad_outputs=cots,

@@ -170,3 +170,16 @@ class Registry:
 
     def keys(self):
         return sorted(self._registry)
+
+
+class NotImplementedForSymbol(MXTPUError):
+    """Raised when an NDArray-only dunder is used on a Symbol (``bool(sym)``:
+    comparisons of symbols build graph nodes, so truthiness fails loudly)."""
+
+    def __init__(self, function, alias=None, *args):
+        name = getattr(function, "__name__", str(function))
+        msg = f"Function {name}"
+        if alias:
+            msg += f" (namely operator '{alias}')"
+        msg += " is not implemented for Symbol and only available in NDArray."
+        super().__init__(msg)

@@ -139,8 +139,9 @@ class DeviceFeed(DataIter):
 
     ``data_iter`` may be a ``DataIter`` (resettable, so usable across
     epochs) or any iterable of arrays, tuples or lists of arrays, or
-    ``DataBatch``es (one pass). Dense leaves (numpy arrays and CPU tensors)
-    are staged on ``device``; tensors already there are handed through
+    ``DataBatch``es (one pass). Dense leaves (numpy arrays, CPU tensors
+    and NDArrays over them) are staged on ``device``, an NDArray as a new
+    NDArray; tensors already there are handed through
     (counted as ``resident_skips``); anything else (a request handle, a
     scalar) passes through untouched."""
 
@@ -153,6 +154,10 @@ class DeviceFeed(DataIter):
 
     # -- staging (producer thread) ----------------------------------------
     def _place_arr(self, arr, staging: _Staging, events: list):
+        from .ndarray.ndarray import NDArray
+        if isinstance(arr, NDArray):     # a host batch's array handle
+            placed = self._place_arr(arr.data, staging, events)
+            return arr if placed is arr.data else NDArray(placed)
         if isinstance(arr, torch.Tensor) and arr.device == self.device:
             profiler.record_feed_resident()
             return arr
@@ -247,6 +252,7 @@ class DeviceFeed(DataIter):
         else:
             leaves = [batch]
         for t in leaves:
+            t = getattr(t, "_data", t)          # an NDArray's tensor
             if isinstance(t, torch.Tensor) and t.is_cuda:
                 t.record_stream(stream)
         return batch

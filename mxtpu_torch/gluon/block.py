@@ -22,9 +22,11 @@ and parameters to its outputs, so ``loss.backward()`` fills every
 parameter's ``grad()``.
 
 ``hybridize()`` keeps its flag and the block runs eagerly: the port's
-training step is captured as a CUDA graph by ``DataParallelTrainer`` and
-the Trainer's update by ``gluon.Trainer``, not per block. ``export`` and
-``SymbolBlock`` need ``symbol/symbol.py``, which is not ported.
+training step is captured as a CUDA graph by ``DataParallelTrainer``,
+``step_cache.StepExecutor`` (``Module.fit``) and the Trainer's update by
+``gluon.Trainer``, not per block. :class:`SymbolBlock` runs a Symbol
+graph as a block. ``HybridBlock.export`` raises: the JAX package writes
+StableHLO there, which has no torch counterpart.
 """
 
 from __future__ import annotations
@@ -50,10 +52,6 @@ _nd_call = threading.local()      # depth of NDArray calls on this thread
 def in_nd_call() -> bool:
     """Whether a layer runs inside a Gluon call made with NDArrays."""
     return getattr(_nd_call, "depth", 0) > 0
-
-
-_NO_SYMBOL = ("needs symbol/symbol.py (the symbolic API), which is not "
-              "ported yet")
 
 
 class _BlockScope:
@@ -373,7 +371,11 @@ class HybridBlock(Block):
             "hybrid_forward")
 
     def export(self, path: str, epoch: int = 0):
-        raise NotImplementedError(f"HybridBlock.export {_NO_SYMBOL}")
+        raise NotImplementedError(
+            "HybridBlock.export: the JAX package writes the traced graph as "
+            "StableHLO (mxtpu/gluon/block.py:309), which has no torch "
+            "counterpart; save the weights with save_parameters, or build "
+            "the graph with mx.sym and save it with Symbol.save")
 
     def infer_shape(self, *args):
         """Complete deferred shapes by one forward, without recording."""
@@ -383,11 +385,90 @@ class HybridBlock(Block):
 
 
 class SymbolBlock(HybridBlock):
-    """A block over a Symbol graph: not ported (see ``_NO_SYMBOL``)."""
+    """A Gluon block over a Symbol graph (``mxtpu/gluon/block.py:334``).
+
+    ``outputs`` is a Symbol (or a list, grouped); ``inputs`` names the free
+    variables ``forward(*args)`` feeds; every other argument and auxiliary
+    state becomes a Parameter under its symbol name (aux states with
+    ``grad_req='null'``), its shape deferred until the first forward
+    completes it through ``Symbol.infer_shape``. The forward evaluates the
+    graph on tensors (``symbol.eval_graph``); called with NDArrays under
+    ``autograd.record()`` it is one recorded node, as every layer of the
+    port is, and in training the BatchNorm family's moving statistics are
+    written back into their parameters."""
+
+    _tensor_forward = True
 
     def __init__(self, outputs, inputs, params=None, prefix=None):
-        raise NotImplementedError(f"SymbolBlock {_NO_SYMBOL}")
+        super().__init__(prefix=prefix)
+        from ..symbol import Group
+        if isinstance(outputs, (list, tuple)):
+            outputs = Group(list(outputs))
+        self._sym = outputs
+        inputs = inputs if isinstance(inputs, (list, tuple)) else [inputs]
+        self._input_names = [i if isinstance(i, str) else i.name
+                             for i in inputs]
+        arg_names = outputs.list_arguments()
+        aux_names = outputs.list_auxiliary_states()
+        self._sym_param_names = [n for n in arg_names
+                                 if n not in self._input_names] + aux_names
+        given = dict(params.items()) if params is not None else {}
+        for n in self._sym_param_names:
+            p = given.get(n)
+            if p is None:
+                p = Parameter(n, shape=None, allow_deferred_init=True,
+                              grad_req="null" if n in aux_names else "write")
+            self._params._params[n] = p
+            self._gattrs[n] = p
+            p._register(self, "p_" + re.sub(r"\W", "_", n))
+        self._shapes_done = False
 
     @staticmethod
     def imports(symbol_file: str, input_names, param_file=None, ctx=None):
-        raise NotImplementedError(f"SymbolBlock.imports {_NO_SYMBOL}")
+        """A block from a ``prefix-symbol.json`` and, when given, its
+        ``.params`` file (``arg:``/``aux:`` keys or plain names), on
+        ``ctx`` (None: the card)."""
+        from .. import symbol as sym_mod
+        net = SymbolBlock(sym_mod.load(symbol_file), input_names)
+        if param_file is not None:
+            with Context("cpu"):
+                loaded = nd_mod.load(param_file)
+            for name, arr in loaded.items():
+                short = name.split(":", 1)[1] if ":" in name else name
+                p = net._params._params.get(short)
+                if p is not None:
+                    _load_into(p, arr, ctx)
+        return net
+
+    def _complete_shapes(self, args):
+        shapes = {n: tuple(a.shape) for n, a in zip(self._input_names, args)}
+        arg_shapes, _, aux_shapes = self._sym.infer_shape(**shapes)
+        names = self._sym.list_arguments() + \
+            self._sym.list_auxiliary_states()
+        device = args[0].device if args else None
+        for n, s in zip(names, list(arg_shapes) + list(aux_shapes)):
+            p = self._params._params.get(n)
+            if p is None or s is None or p._data is not None:
+                continue
+            p._finish_deferred_init(s)
+            if p._data is None:          # initialize() was never called
+                p.initialize(ctx=device)
+        self._shapes_done = True
+
+    def forward(self, *args):
+        from ..symbol.symbol import eval_graph
+        if not self._shapes_done:
+            self._complete_shapes(args)
+        feed = dict(zip(self._input_names, args))
+        for n in self._sym_param_names:
+            feed[n] = self._params._params[n]._tensor()
+        is_train = self.training
+        aux_updates: dict = {}
+        outs = eval_graph(self._sym._heads, feed, is_train,
+                          aux_updates=aux_updates)
+        with torch.no_grad():
+            for name, new in aux_updates.items():
+                p = self._params._params.get(name)
+                if p is not None:
+                    p._tensor().copy_(new)
+        return outs[0] if len(outs) == 1 else tuple(outs)

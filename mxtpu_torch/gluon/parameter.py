@@ -286,7 +286,8 @@ class Parameter:
 
     def var(self):
         raise NotImplementedError(
-            "symbolic var() needs symbol/symbol.py, which is not ported")
+            "symbolic var() has no equivalent, as in the JAX package: a "
+            "hybridized block keeps its Python forward")
 
     def __repr__(self):
         return f"Parameter {self.name} (shape={self.shape}, " \

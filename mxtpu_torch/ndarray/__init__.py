@@ -14,6 +14,7 @@ import types
 from ..context import Context
 from ..ops import registry as _reg
 # registration side effects: the ops of this slice
+from ..ops import attention as _attention  # noqa: F401
 from ..ops import elementwise as _elementwise  # noqa: F401
 from ..ops import init_ops as _init_ops  # noqa: F401
 from ..ops import matrix as _matrix  # noqa: F401

@@ -654,6 +654,14 @@ def save(fname: str, data, fmt: str = "npz"):
     atomic_io.atomic_write(fname, lambda f: np.savez(f, **payload))
 
 
+def _from_npz(arr: np.ndarray) -> np.ndarray:
+    """An npz entry as saved: npz keeps a bfloat16 array (an ml_dtypes
+    type) as 2-byte void, which is read back as bfloat16."""
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        return arr.view(dtype_np("bfloat16"))
+    return arr
+
+
 def load(fname: str):
     """Load a file written by ``save`` (or by ``mxtpu.nd.save``): a dict if
     it was named, else a list."""
@@ -677,7 +685,7 @@ def load(fname: str):
                     raise NotImplementedError(
                         f"{fname}: entry {k!r} is sparse; sparse storage is "
                         "not ported yet (ndarray/sparse.py)")
-            entries = {k: NDArray(z[k]) for k in keys}
+            entries = {k: NDArray(_from_npz(z[k])) for k in keys}
     if kind == "list":
         return [entries[f"arr_{i}"] for i in range(len(entries))]
     return entries

@@ -40,6 +40,7 @@ from .._build import count_launch as _count_launch
 from .._build import kernel as _kernel
 from ..context import check_device
 from ..observability.flops import note_kernel
+from .registry import register
 
 __all__ = ["attention_reference", "flash_attention", "flash_bwd",
            "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_fused", "flash_chunk",
@@ -427,4 +428,18 @@ def flash_attention(q, k, v, causal: bool = False,
     ``device`` (None = the card). Returns the output in q's dtype."""
     check_device(device, q, k, v)
     s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    return flash_chunk(q, k, v, causal, s)[0]
+
+
+@register("flash_attention", namespace="contrib", aliases=("attention",))
+def _flash_attention_op(q, k, v, causal: bool = False,
+                        scale: Optional[float] = None):
+    """``nd.contrib.flash_attention`` (alias ``attention``), the op of
+    ``mxtpu/ops/attention.py:557``: :func:`flash_attention` on the device
+    its inputs lie on, K1 forward and K2/K3 (or K4) backward on CUDA
+    tensors, the plain versions on CPU tensors. Inputs of any layout (a
+    graph's transposes) are made contiguous first, as the kernels read
+    them."""
+    s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    q, k, v = (t.contiguous() for t in (q, k, v))
     return flash_chunk(q, k, v, causal, s)[0]

@@ -10,6 +10,10 @@ engine and ``DataParallelTrainer`` keep their programs in,
 plus, on the card, its capture as a CUDA graph (:class:`GraphProgram`: the
 one capture path of serving's chunks and of the training step, as the
 reference compiles every whole step through one path); a hit replays it.
+
+:class:`StepExecutor` is ``Module``'s fused training step: forward, loss,
+backward and the multi-tensor update as one program per signature,
+captured as a CUDA graph on the card (see its docstring).
 """
 
 from __future__ import annotations
@@ -29,8 +33,8 @@ from .optimizer import Optimizer, _as, scaled
 
 __all__ = ["CacheStats", "cache_stats", "snapshot", "reset_stats",
            "ProgramCache", "GraphProgram", "capture_stream", "on_side_stream",
-           "HostStaging", "optimizer_fingerprint", "MultiTensorUpdate", "build_update_all",
-           "build_update_all_plain"]
+           "HostStaging", "optimizer_fingerprint", "MultiTensorUpdate",
+           "build_update_all", "build_update_all_plain", "StepExecutor"]
 
 
 # ---------------------------------------------------------------------------
@@ -460,3 +464,291 @@ def build_update_all_plain(opt, lr_mults: Sequence[float],
         return new_params, new_states
 
     return update_all
+
+
+# ---------------------------------------------------------------------------
+# StepExecutor
+# ---------------------------------------------------------------------------
+
+
+def _tensor_sig(t: torch.Tensor) -> tuple:
+    return tuple(t.shape), t.dtype, t.device
+
+
+class _StepProgram(GraphProgram):
+    """One signature's fused step: its body, its static batch buffers,
+    its multi-tensor update and step-values buffer, the gradient tensors
+    it writes, what its last run produced (``out``: on the card, after the
+    capture, the static tensors every replay rewrites), whether its first
+    (warm-up) step has run, and its cost, counted on that first run."""
+
+    def __init__(self, body, counted, xs, y, upd, values, grads, out):
+        super().__init__(body, counted)
+        self.xs, self.y = xs, y
+        self.upd, self.values, self.grads, self.out = upd, values, grads, out
+        self.staging = HostStaging(values) if values.is_cuda else None
+        self.warm = False
+        self.cost: Optional[dict] = None
+
+    def run_body(self) -> None:
+        if self.cost is not None:
+            self.body()
+            return
+        from .observability import flops
+        self.cost = flops.estimate_step_cost(self.body)
+        flops.set_step_flops(self.cost["flops"])
+
+
+class StepExecutor:
+    """Forward, loss, backward and the optimizer update as one program
+    (``mxtpu/step_cache.py:StepExecutor``), over a Gluon ``block``, a
+    ``loss_fn`` (per-sample losses of ``(outputs[0], label)``) and a
+    ``gluon.Trainer`` whose optimizer, parameters and state it drives.
+
+    Each :meth:`step` looks its signature up (the batch's, the
+    parameters', the auxiliary states' and the optimizer states' shapes,
+    dtypes and devices, ``grad_req``, ``optimizer_fingerprint`` and the lr
+    and wd multipliers); a new signature builds a program (a trace in the
+    ``module_step`` entry of :func:`snapshot`), a known one is a hit. The
+    program's body copies nothing from the host: it reads the batch from
+    static buffers and ``t``, lr, wd, rescale and clip from a float64
+    device buffer, runs the block and the loss inside ``autograd.record()``
+    (the block's ``Dropout`` layers draw from device seeds derived from
+    ``t``), takes the gradient of the summed per-sample loss with
+    ``torch.autograd.grad`` and updates every parameter in place through
+    :class:`MultiTensorUpdate`. On the card the first step of a signature
+    runs the body on a side stream (a real step, which builds the kernels
+    and cuBLAS's workspaces), the second captures it as a CUDA graph
+    (:class:`GraphProgram`, the attention kernels' launches counted through
+    the capture) and every later step replays it, its values staged through
+    :class:`HostStaging`; on the CPU every step runs the body. A capture or
+    launch that fails raises; nothing falls back.
+
+    The program writes into the tensors the ``Trainer`` itself uses: the
+    parameters, the optimizer states (``trainer._states``; a state that the
+    eager path or a load replaced is copied in before the step) and each
+    parameter's gradient buffer, which holds the unscaled sum-gradient
+    after a step, as an eager backward leaves it. Eager and fused steps
+    interleave. ``program_flops()`` is the FLOPs of the last program,
+    counted on its first run (``observability.flops``). The ZeRO path of
+    the JAX package (``parallel/zero.py``) is not ported."""
+
+    def __init__(self, block, loss_fn, trainer,
+                 cache_name: str = "module_step"):
+        if trainer.zero_requested():
+            raise _no_zero("a ZeRO-sharded fused step")
+        self.block = block
+        self.loss_fn = loss_fn
+        self.trainer = trainer
+        self._cache: Dict[tuple, _StepProgram] = {}
+        self._cache_name = cache_name
+        self._last_sig: Optional[tuple] = None
+        self._stats = cache_stats(cache_name)
+        self._param_handles = list(trainer._params)
+        self._aux_handles = [p for p in trainer._all_params
+                             if p.grad_req == "null" and p._data is not None]
+        from .gluon.nn.basic_layers import Dropout
+        self._dropouts = [m for m in block.modules()
+                          if isinstance(m, Dropout)]
+
+    def adopt_mesh(self, mesh) -> None:
+        raise _no_zero("StepExecutor.adopt_mesh")
+
+    def _mults(self):
+        opt = self.trainer._optimizer
+        lr = [getattr(p, "lr_mult", 1.0) * opt.lr_mult.get(i, 1.0)
+              for i, p in enumerate(self._param_handles)]
+        wd = [getattr(p, "wd_mult", 1.0) * opt.wd_mult.get(i, 1.0)
+              for i, p in enumerate(self._param_handles)]
+        return lr, wd
+
+    def _ensure_states(self):
+        tr = self.trainer
+        opt = tr._optimizer
+        for i, p in enumerate(self._param_handles):
+            if tr._states[i] is None:
+                tr._states[i] = tuple(opt.create_state_multi_precision(
+                    i, p.data()))
+
+    def _sig(self, data, label) -> tuple:
+        tr = self.trainer
+        return (tuple(_tensor_sig(d) for d in data),
+                _tensor_sig(label),
+                tuple(_tensor_sig(p._tensor()) for p in self._param_handles),
+                tuple(_tensor_sig(p._tensor()) for p in self._aux_handles),
+                tuple(tuple(_tensor_sig(s) for s in st)
+                      for st in tr._states),
+                tuple(p.grad_req for p in self._param_handles),
+                optimizer_fingerprint(tr._optimizer),
+                tuple(map(tuple, self._mults())))
+
+    def _build(self, data, label) -> _StepProgram:
+        """The signature's program over static copies of the batch. The
+        body holds what it runs and not the executor, so an executor and
+        its graphs are freed when the last reference goes."""
+        from . import autograd
+        from .gluon.loss import SoftmaxCrossEntropyLoss
+        from .ndarray.ndarray import NDArray
+        from .ops import attention
+        from .rng import sample_bits
+        tr = self.trainer
+        handles = self._param_handles
+        params = [p._tensor() for p in handles]
+        lr_mults, wd_mults = self._mults()
+        upd = build_update_all(tr._optimizer, params,
+                               [tuple(st) for st in tr._states],
+                               lr_mults, wd_mults)
+        dev = params[0].device
+        values = torch.zeros(1 + len(upd.groups) * upd.n_values,
+                             dtype=torch.float64, device=dev)
+        xs = [torch.empty_like(d) for d in data]
+        y = torch.empty_like(label)
+        grads = []
+        for p, w in zip(handles, params):
+            h = p._data
+            g = h._grad._data if h._grad is not None else None
+            if g is None or _tensor_sig(g) != _tensor_sig(w):
+                g = torch.zeros_like(w.detach())
+            grads.append(g)
+        block, loss_fn, dropouts = self.block, self.loss_fn, self._dropouts
+        expose = isinstance(loss_fn, SoftmaxCrossEntropyLoss)
+        out: dict = {}
+
+        def body():
+            seed = values[0].long()
+            for j, d in enumerate(dropouts):
+                d.seed = sample_bits(seed, j)
+            try:
+                with autograd.record(train_mode=True):
+                    o = block(*[NDArray(x) for x in xs])
+                    outs = list(o) if isinstance(o, (tuple, list)) else [o]
+                    loss = loss_fn(outs[0], NDArray(y)).data
+                g = torch.autograd.grad(loss, params,
+                                        grad_outputs=torch.ones_like(loss),
+                                        allow_unused=True,
+                                        materialize_grads=True)
+            finally:
+                for d in dropouts:
+                    d.seed = None
+                autograd._free_graph()
+            with torch.no_grad():
+                torch._foreach_copy_(grads, list(g))
+                torch._foreach_copy_(upd.grads, list(g))
+                upd(values[1:])
+                out["single"] = not isinstance(o, (tuple, list))
+                out["loss"] = loss.detach()
+                out["outputs"] = [r.data.detach() for r in outs]
+                # the eager path's ``get_outputs()``: the ``softmax`` op
+                out["exposed"] = NDArray(outs[0].data.detach()).softmax() \
+                    .data if expose else None
+
+        counted = (attention.flash_fwd, attention.flash_bwd_dq,
+                   attention.flash_bwd_dkv, attention.flash_bwd_fused)
+        return _StepProgram(body, counted, xs, y, upd, values, grads, out)
+
+    def program_flops(self) -> Optional[float]:
+        """FLOPs of one run of the last step's program (counted on its
+        first run); None before a step."""
+        entry = self._cache.get(self._last_sig)
+        if entry is None or entry.cost is None:
+            return None
+        return entry.cost["flops"]
+
+    def stats(self) -> dict:
+        """The executor's programs: how many, how many captured, their
+        capture ms and replays."""
+        progs = list(self._cache.values())
+        return dict(programs=len(progs),
+                    captured=sum(p.graph is not None for p in progs),
+                    capture_ms=sum(p.capture_ms for p in progs),
+                    replays=sum(p.replays for p in progs))
+
+    def step(self, data: Sequence, label, batch_size: Optional[int] = None):
+        """One fused training step on ``data`` (NDArrays or tensors on the
+        parameters' device) and ``label``. Returns ``{"loss", "outputs",
+        "outputs_list", "exposed"}`` as NDArrays of their own (``exposed``:
+        the softmax of the first output when the loss is
+        ``SoftmaxCrossEntropyLoss``, else None)."""
+        from .ndarray.ndarray import NDArray
+        from .observability import tracer
+        from .resilience.faults import fault_point
+        from .resilience.watchdog import heartbeat
+        fault_point("step")
+        heartbeat("step")
+        tr = self.trainer
+        tr._init_kvstore()
+        opt = tr._optimizer
+        self._ensure_states()
+        data = [d.data if isinstance(d, NDArray) else d for d in data]
+        label = label.data if isinstance(label, NDArray) else label
+        batch_size = batch_size if batch_size is not None \
+            else data[0].shape[0]
+        sig = self._sig(data, label)
+        entry = self._cache.get(sig)
+        traced_now = entry is None
+        if traced_now:
+            self._stats.miss()
+            entry = self._cache[sig] = self._build(data, label)
+        else:
+            self._stats.hit()
+        self._last_sig = sig
+        t = max([opt._index_update_count.get(i, 0)
+                 for i in range(len(self._param_handles))] or [0]) + 1
+        lr = opt.lr_scheduler(max(opt.num_update, t)) \
+            if opt.lr_scheduler else opt.lr
+        clip = opt.clip_gradient if opt.clip_gradient is not None else 0.0
+        vals = np.asarray([t] + entry.upd.values(
+            lr, opt.wd, tr._scale / batch_size, clip, t), np.float64)
+        with torch.no_grad():
+            # states that the eager path or a load replaced are copied
+            # into the tensors the program updates
+            for i, own in enumerate(entry.upd.states):
+                if tr._states[i] is not own:
+                    for dst, src in zip(own, tr._states[i]):
+                        dst.copy_(src)
+                    tr._states[i] = own
+            if entry.staging is not None:
+                entry.staging(vals)
+            else:
+                entry.values.copy_(torch.from_numpy(vals))
+            for buf, d in zip(entry.xs, data):
+                buf.copy_(d)
+            entry.y.copy_(label)
+        with tracer.span("step/compile" if traced_now else "step/execute",
+                         cat="step", args={"cache": self._cache_name}):
+            if not entry.y.is_cuda:
+                entry.run_body()
+            elif not entry.warm:
+                on_side_stream(entry.run_body)
+                entry.warm = True
+            else:
+                if entry.graph is None:
+                    entry.capture()
+                entry.replay()
+        # the gradient buffers the program wrote are the parameters'
+        for p, g in zip(self._param_handles, entry.grads):
+            h = p._data
+            if h._grad is None:
+                h._grad = NDArray(g)
+            elif h._grad._data is not g:
+                h._grad._set_data(g)
+        for i in range(len(self._param_handles)):
+            opt._index_update_count[i] = t
+        opt.num_update = max(opt.num_update, t)
+        res = entry.out
+        outputs = [NDArray(o.clone()) for o in res["outputs"]]
+        exposed = res["exposed"]
+        return {
+            "loss": NDArray(res["loss"].clone()),
+            "outputs": outputs[0] if res["single"] and len(outputs) == 1
+            else outputs,
+            "outputs_list": outputs,
+            "exposed": ([NDArray(exposed.clone())] + outputs[1:]
+                        if exposed is not None else None),
+        }
+
+
+def _no_zero(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} needs parallel/zero.py (mxtpu/parallel/zero.py), which is "
+        f"not ported; the fused step runs on one card")

@@ -339,9 +339,9 @@ def test_gluon_refusals_and_deferred_init():
     assert d.weight.shape == (3, 5)          # the torch attribute
     d.hybridize()
     assert d(nd.ones((2, 5))).shape == (2, 3)
-    with pytest.raises(NotImplementedError, match="symbol"):
+    with pytest.raises(NotImplementedError, match="StableHLO"):
         d.export("x")
-    with pytest.raises(NotImplementedError, match="symbol"):
-        gluon.SymbolBlock(None, None)
+    twice = gluon.SymbolBlock(mx.sym.Variable("x") * 2, ["x"])
+    assert twice(nd.ones((2,))).asnumpy().tolist() == [2.0, 2.0]
     with pytest.raises(NotImplementedError, match="collectives"):
         gluon.Trainer(d.collect_params(), "sgd", kvstore="dist_sync").step(1)

@@ -36,7 +36,7 @@ from mxtpu_torch.ops import registry as treg
 RTOL, ATOL = 1e-5, 1e-6
 
 SLICE_MODULES = ("elementwise", "reduce", "matrix", "init_ops", "random",
-                 "nn", "operator", "optimizer_ops")
+                 "nn", "operator", "optimizer_ops", "attention")
 # ops of those modules that wait for a later slice (SyncBatchNorm needs
 # parallel/collectives)
 WAITING = {"contrib.SyncBatchNorm", "contrib._contrib_SyncBatchNorm"}
@@ -410,6 +410,11 @@ CASES.update({
 
 _register_custom()
 CASES["Custom"] = _custom_case()
+# contrib.flash_attention (registered from ops/attention.py): causal and
+# cross-length, against the JAX op's XLA path on the CPU
+CASES["flash_attention"] = [
+    case(U(1, 2, 8, 4), U(1, 2, 8, 4), U(1, 2, 8, 4), causal=True),
+    case(U(2, 1, 5, 8), U(2, 1, 7, 8), U(2, 1, 7, 8), scale=0.5)]
 
 
 def _slice_names():

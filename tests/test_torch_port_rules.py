@@ -5,9 +5,10 @@
   imports inside the port are its own).
 * Entry points run on the card unless the caller asks for the CPU: without
   CUDA, building a model, an engine or a ``DeviceFeed`` with no
-  ``device``, an ``nd`` array with no ``ctx``, an ``rtc`` module, or a
-  Gluon ``initialize()`` of a block or a parameter with no ``ctx`` raises
-  instead of running on the CPU.
+  ``device``, an ``nd`` array with no ``ctx``, an ``rtc`` module, a
+  Gluon ``initialize()`` of a block or a parameter with no ``ctx``, a
+  ``Symbol.simple_bind`` with no ``ctx`` or a ``Module`` with no
+  ``context`` raises instead of running on the CPU.
 * Each ported module with a counterpart in the JAX package lies at the
   counterpart's path.
 """
@@ -57,7 +58,10 @@ def test_no_jax_or_mxtpu_imports(path):
     "gluon/model_zoo/transformer.py", "gluon/loss.py", "gluon/utils.py",
     "engine.py", "checkpoint/atomic_io.py", "ops/optimizer_ops.py",
     "ndarray/fused_optimizer.py", "optimizer.py", "kvstore.py",
-    "gluon/trainer.py", "metric.py"])
+    "gluon/trainer.py", "metric.py", "attribute.py", "symbol/symbol.py",
+    "symbol/executor.py", "symbol/__init__.py", "io.py", "callback.py",
+    "checkpoint/manager.py", "model.py", "monitor.py", "step_cache.py",
+    "module.py", "serving/chained.py", "autograd.py", "ops/attention.py"])
 def test_the_counterparts_are_checked(module):
     """Each module that has a counterpart in the JAX package lies where
     its counterpart does, and the import rule above reads it."""
@@ -102,3 +106,12 @@ def test_entry_points_refuse_the_cpu_without_cuda():
         gluon.nn.Dense(3, in_units=2).initialize()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         gluon.Parameter("w", shape=(2, 2)).initialize()
+    # the symbolic and Module front ends
+    import mxtpu_torch as mx
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mx.sym.FullyConnected(mx.sym.Variable("data"), num_hidden=2) \
+            .simple_bind(data=(1, 3))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mx.mod.Module(net)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mx.mod.Module(mx.sym.Variable("data"))

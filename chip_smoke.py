@@ -2,7 +2,8 @@
 """Chip smoke for mxtpu_torch: builds the port's CUDA kernels and drives its
 main paths on one NVIDIA GPU: serving, training, the imperative ``nd`` +
 ``autograd`` path with runtime-compiled kernels (``rtc``), the Gluon front
-end and the symbolic and Module front ends.
+end, the symbolic and Module front ends, and the vision path (ResNet-50
+training and the zoo's scoring).
 
     python3 chip_smoke.py
 
@@ -240,13 +241,43 @@ Phases, in order; any failure exits non-zero without a result line:
     T=1024 interleaved, 3 steps each: one captured program a bucket, one
     Trainer and one optimizer state a weight shared by both.
 
+15. the vision path (the JAX package's headline workload, ``bench.py``'s
+    ``bench_train`` and ``bench_inference``; no TPU kernel lies on it, the
+    convolutions, pooling and BatchNorm are PyTorch's own ops): (a)
+    ``resnet50_v1(classes=1000)``, its shapes deferred, through
+    ``DataParallelTrainer`` with ``SGD(0.05, momentum 0.9, wd 1e-4)`` and
+    softmax cross-entropy on one resident batch from seed 0, legs
+    ``fp32_b32`` (f32 without TF32) and ``bf16_b128``, each 1 + 1 + 20
+    steps with the step captured once: the loss must fall by 0.3; ms a
+    step, img/s, capture ms, captures and replays, the device's busy share
+    over 3 replays, peak memory and the FLOP share of the type's peak
+    (``cost_analysis``); then one replayed step against the body run
+    eagerly from the same state: bit-equal, or each tensor within 5e-5 of
+    its largest entry with the ops whose gradients two identical passes
+    do not reproduce named; (b) ``bf16_b512x4``: B=512 as 4
+    micro-batches, the running statistics after the captured step equal
+    an eager step's over the same micro-batches from the same state, 3
+    replays timed, peak memory; (c) ``resnet18_v1`` (f32, B2, 64x64, 10
+    classes) card against CPU: predict- and train-mode logits within 1e-3,
+    one SGD-momentum step's loss within 1e-5 and weights and running
+    statistics within 5e-5; (d) ``alexnet``, ``resnet50_v1``,
+    ``mobilenet1.0`` and ``inceptionv3`` (299) f32 at B1 and B32, chained
+    through ``ChainedPredictor`` (n = 50, 20) and per call after
+    ``hybridize(static_alloc=True)``: img/s of both, outputs bit-equal or
+    the differing layer named; (e) every other ``get_model`` name at B1 at
+    its published size: output (1, 1000), finite, ms; (f) one profiled
+    replay of ``bf16_b128``: busy share and its top device operations. K1
+    to K5 must not launch in it.
+
 ``python3 chip_smoke.py --phase 14`` builds the kernels and runs phase 14
-alone (no kernels line, no result line).
+alone; ``--phase 15`` runs phase 15 alone, building nothing (no kernels
+line, no result line).
 
 Launch counts are set to 0 just before phases 4, 5, 5c (its first
 burst), 5e (its SLO burst), 5f, 8, 9 (each fused run), 10, saxpy's drive in
 11, the 10 steps of 12, the 12 steps of 13 (a), phase 14 (a)'s fit, (c)'s
-forward and backward and (d)'s chained predict, and read just after.
+forward and backward and (d)'s chained predict, and phase 15 (all
+zero: no kernel of the port on the vision path), and read just after.
 The line before the last is the kernels' JSON record, with one K1, K2, K3
 and K4 record for each route and the path it runs on (the sm90 records of
 K1-K3 count phases 8, 13 (a) and 14 (a), the simt records of K1-K3 phase
@@ -4074,6 +4105,487 @@ def phase_head(torch, mx):
                  **common)]
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the vision path
+# ---------------------------------------------------------------------------
+
+# (tag, dtype, batch, micro-batches, replays): the JAX package's benchmark
+# configurations (bench.py:TRAIN_CONFIGS)
+VISION_LEGS = [("fp32_b32", "float32", 32, 1, 20),
+               ("bf16_b128", "bfloat16", 128, 1, 20)]
+# (name, image size): bench.py:SCORE_MODELS, each at B1 and B32
+SCORE_MODELS = [("alexnet", 224), ("resnet50_v1", 224), ("mobilenet1.0", 224),
+                ("inceptionv3", 299)]
+# a pair that cuDNN does not make bit-equal: each tensor within this share
+# of its largest entry
+CUDNN_TOL = 5e-5
+
+
+def vision_batch(torch, B, dtype, size=224, classes=1000, seed=0):
+    """A resident synthetic batch on the card from ``seed``: images uniform
+    in [0, 1) (the JAX package's benchmark draws ``rand``) and labels."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand((B, 3, size, size), generator=g, device="cuda")
+    y = torch.randint(0, classes, (B,), generator=g, device="cuda")
+    return x.to(getattr(torch, dtype)), y.float()
+
+
+def resnet50_trainer(mx, vision, parallel, optimizer, loss_mod, dtype, k):
+    """``bench_train``'s set-up: ``resnet50_v1(classes=1000)``, the default
+    initializer on the card, ``cast``, ``SGD(0.05, momentum 0.9, wd 1e-4)``
+    and softmax cross-entropy through ``DataParallelTrainer``; the net's
+    shapes stay deferred until the first step. Weights are drawn from seed
+    0 at that step, so two trainers built alike start alike."""
+    mx.random.seed(0)
+    net = vision.resnet50_v1(classes=1000)
+    net.initialize()
+    if dtype != "float32":
+        net.cast(dtype)
+    dpt = parallel.DataParallelTrainer(
+        net, loss_mod.SoftmaxCrossEntropyLoss(),
+        optimizer.SGD(learning_rate=0.05, momentum=0.9, wd=1e-4),
+        micro_batches=k)
+    return net, dpt
+
+
+def device_busy(torch, fn, n):
+    """``fn`` ``n`` times under ``torch.profiler`` (device activity): the
+    device's busy share of the wall, busy µs by device operation and the
+    wall µs."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us()
+    return sum(by_name.values()) / wall_us, by_name, wall_us
+
+
+def _param_kind(name):
+    """The op whose backward writes a zoo parameter's gradient."""
+    if "conv" in name:
+        return "convolution backward (weight gradient)"
+    if "batchnorm" in name:
+        return "BatchNorm backward (gamma/beta reductions)"
+    return "linear backward (weight gradient)"
+
+
+def unreproducible_grads(torch, loss_mod, net, x, y):
+    """The parameters whose gradients differ between two identical
+    training-mode forward and backward passes of ``net`` on ``(x, y)``,
+    with the op that computes each."""
+    loss = loss_mod.SoftmaxCrossEntropyLoss()
+    named = [(n, p._tensor()) for n, p in net.collect_params().items()
+             if p.grad_req != "null"]
+    net.train()
+    grads = []
+    try:
+        for _ in range(2):
+            lv = loss(net(x), y).float().mean()
+            grads.append(torch.autograd.grad(lv, [t for _, t in named]))
+    finally:
+        net.eval()
+    return [(n, _param_kind(n)) for (n, _), a, b in zip(named, *grads)
+            if not torch.equal(a, b)]
+
+
+def tensor_diffs(torch, a, b, names):
+    """Each pair's largest difference over ``b``'s largest entry, largest
+    first, with the name."""
+    return sorted((((x.float() - y.float()).abs().max().item()
+                    / max(y.float().abs().max().item(), 1e-30), n)
+                   for n, x, y in zip(names, a, b)), reverse=True)
+
+
+def replay_vs_eager(torch, net, dpt, x, y):
+    """One step of ``dpt``'s captured program (a replay) and, from the
+    same weights, running statistics, optimizer states and step count,
+    one step of its body run eagerly (``eager_step``). Returns the two
+    losses, the parameter names and each side's parameters after its step
+    (the trainer is left as the eager step leaves it)."""
+    params = net.collect_params()
+    names = list(params)
+    live = [p._tensor() for p in params.values()] \
+        + [s for st in dpt._states for s in st]
+
+    def snap():
+        return [t.detach().clone() for t in live]
+
+    def restore(saved):
+        with torch.no_grad():
+            for t, v in zip(live, saved):
+                t.copy_(v)
+
+    before, t = snap(), dpt._t
+    replayed_loss = float(dpt.step_async(x, y))
+    replayed = snap()[:len(names)]
+    restore(before)
+    dpt._t = t
+    eager_loss = float(dpt.eager_step(x, y))
+    eager = snap()[:len(names)]
+    return (replayed_loss, eager_loss), names, replayed, eager
+
+
+def vision_train_leg(torch, mx, vision, parallel, optimizer, loss_mod, tag,
+                     dtype, B, k, steps, profile_top):
+    """One ``bench_train`` leg (see the module docstring, phase 15 (a));
+    with ``profile_top`` also (f), one profiled replay's top operations."""
+    x, y = vision_batch(torch, B, dtype)
+    net, dpt = resnet50_trainer(mx, vision, parallel, optimizer, loss_mod,
+                                dtype, k)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    loss_start = float(dpt.step_async(x, y))
+    first_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    float(dpt.step_async(x, y))           # captures, then replays
+    second_s = time.monotonic() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss = dpt.step_async(x, y)
+    loss_end = float(loss)
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    stats = dpt.stats()
+    cost = dpt.cost_analysis()
+    busy, _, _ = device_busy(torch, lambda: dpt.step_async(x, y), 3)
+    check(math.isfinite(loss_start) and math.isfinite(loss_end),
+          f"{tag}: losses {loss_start}, {loss_end}")
+    check(stats["captured"] == 1 and stats["replays"] == steps + 1,
+          f"{tag}: trainer {stats}: want 1 capture and {steps + 1} replays")
+    check(loss_end < loss_start - 0.3,
+          f"{tag} learning gate: loss {loss_start:.4f} -> {loss_end:.4f} "
+          f"(must fall by 0.3)")
+    share = cost["flops"] / (step_ms / 1e3) / PEAK_FLOPS[dtype]
+    label = "f32 without TF32" if dtype == "float32" else dtype
+    print(f"vision (a) {tag}: ResNet-50 v1 {label} B{B} x{k} SGD(0.05, "
+          f"momentum 0.9, wd 1e-4), captured: loss {loss_start:.4f} -> "
+          f"{loss_end:.4f} over 2 + {steps} steps (gate: fall by 0.3); first "
+          f"step (shapes, body, cost count) {first_s:.2f} s; second (capture "
+          f"{stats['capture_ms']:.1f} ms, then a replay) {second_s * 1e3:.1f} "
+          f"ms; {steps} replays {step_ms:.2f} ms/step = {B / step_ms * 1e3:.1f}"
+          f" img/s; captures {stats['captured']}, replays "
+          f"{stats['replays']}; device busy {busy:.3f} of 3 replays' wall; "
+          f"max_memory_allocated {peak} bytes; cost_analysis flops "
+          f"{cost['flops']:.4e} a step ({cost['flops'] / (3 * 4.1e9 * B):.3f}"
+          f" x the JAX benchmark's 3 x 4.1 GFLOP an image) = "
+          f"{cost['flops'] / (step_ms / 1e3) / 1e12:.1f} TFLOP/s = "
+          f"{share:.4f} of the {PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s "
+          f"{label} peak", flush=True)
+    if profile_top:
+        profile_step(torch, dpt, x, y, label=f"vision (f) {tag}")
+    (lr_, le), names, replayed, eager = replay_vs_eager(torch, net, dpt, x,
+                                                         y)
+    if lr_ == le and all(torch.equal(a, b) for a, b in zip(replayed, eager)):
+        verdict = f"bit-equal (loss {lr_:.6f})"
+    else:
+        diffs = tensor_diffs(torch, replayed, eager, names)
+        differ = unreproducible_grads(torch, loss_mod, net, x, y)
+        kinds = sorted({k for _, k in differ})
+        verdict = (
+            f"not bit-equal: loss {lr_:.6f} vs {le:.6f}; "
+            + ", ".join(f"{d:.3e} in {n}" for d, n in diffs[:3])
+            + f" of each tensor's largest entry (tol {CUDNN_TOL:g}); two "
+            f"identical eager passes differ in {len(differ)} of "
+            f"{len(dpt._params)} gradients, by {kinds}; nearest the loss "
+            f"{[n for n, _ in differ[-3:]]}")
+        check(diffs[0][0] <= CUDNN_TOL and abs(lr_ - le) <= CUDNN_TOL
+              * abs(le) and differ, f"{tag} replay vs body {verdict}")
+    print(f"vision (a) {tag}: one replayed step against the body run eagerly "
+          f"from the same state: {verdict}", flush=True)
+    del net, dpt
+    torch.cuda.empty_cache()
+    return dict(step_ms=step_ms, img_s=B / step_ms * 1e3, busy=busy,
+                peak=peak, share=share)
+
+
+def vision_b512(torch, mx, vision, parallel, optimizer, loss_mod, replays=3):
+    """(b) ``bf16_b512x4``: B=512 as 4 micro-batches of 128. The running
+    statistics after the captured step (its first replay) equal those of
+    an eager step over the same micro-batches from the same state."""
+    B, k = 512, 4
+    x, y = vision_batch(torch, B, "bfloat16")
+    net, dpt = resnet50_trainer(mx, vision, parallel, optimizer, loss_mod,
+                                "bfloat16", k)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    loss0 = float(dpt.step_async(x, y))
+    first_s = time.monotonic() - t0
+    before = {n: p._tensor().detach().clone()
+              for n, p in net.collect_params().items()
+              if p.grad_req == "null"}
+    # the first replay (capture included) against the body eagerly
+    _, names, replayed, eager = replay_vs_eager(torch, net, dpt, x, y)
+    pick = [i for i, n in enumerate(names) if n in before]
+    aux = [names[i] for i in pick]
+    replayed, eager = [replayed[i] for i in pick], [eager[i] for i in pick]
+    moved = sum(not torch.equal(a, before[n]) for a, n in zip(replayed, aux))
+    if all(torch.equal(a, b) for a, b in zip(replayed, eager)):
+        verdict = "bit-equal"
+    else:
+        diffs = tensor_diffs(torch, replayed, eager, aux)
+        verdict = (f"not bit-equal: "
+                   + ", ".join(f"{d:.3e} in {n}" for d, n in diffs[:3])
+                   + f" of each one's largest entry (tol {CUDNN_TOL:g}; the "
+                   f"forward convolutions and BatchNorm reductions)")
+        check(diffs[0][0] <= CUDNN_TOL, f"(b) running statistics {verdict}")
+    check(moved == len(aux) == 106,
+          f"(b): {moved} of {len(aux)} running statistics moved (want all "
+          f"106 of ResNet-50's 53 BatchNorms)")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(replays):
+        loss = dpt.step_async(x, y)
+    loss_end = float(loss)
+    step_ms = (time.perf_counter() - t0) / replays * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    stats = dpt.stats()
+    cost = dpt.cost_analysis()
+    share = cost["flops"] / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"]
+    check(math.isfinite(loss0) and math.isfinite(loss_end)
+          and stats["captured"] == 1 and stats["replays"] == replays + 1,
+          f"(b): losses {loss0}, {loss_end}, trainer {stats}")
+    print(f"vision (b) bf16_b512x4: ResNet-50 v1 bf16 B512 as 4 micro-batches"
+          f" of 128: first step {first_s:.2f} s; running statistics after "
+          f"the captured step vs an eager step over the same micro-batches "
+          f"from the same state: {verdict} ({moved} tensors moved); "
+          f"{replays} replays {step_ms:.2f} ms/step = "
+          f"{B / step_ms * 1e3:.1f} img/s; loss {loss0:.4f} -> "
+          f"{loss_end:.4f}; capture {stats['capture_ms']:.1f} ms; "
+          f"max_memory_allocated {peak} bytes; cost_analysis flops "
+          f"{cost['flops']:.4e} = {share:.4f} of the 989 TFLOP/s bf16 peak",
+          flush=True)
+    del net, dpt
+    torch.cuda.empty_cache()
+    return dict(step_ms=step_ms, img_s=B / step_ms * 1e3, peak=peak,
+                share=share)
+
+
+def vision_card_vs_cpu(torch, mx, vision, parallel, optimizer, loss_mod):
+    """(c) ``resnet18_v1`` (f32, B=2, 64x64, 10 classes), the same weights
+    on the card and on the CPU: predict- and train-mode logits within
+    1e-3; one SGD-momentum step: losses within 1e-5, weights and running
+    statistics within 5e-5 of each tensor's largest entry or 1 (phase 10's
+    bounds)."""
+    from mxtpu_torch import convert
+    mx.random.seed(3)
+    cpu = vision.resnet18_v1(classes=10)
+    cpu.initialize(ctx=mx.cpu())
+    g = torch.Generator().manual_seed(3)
+    x = torch.rand((2, 3, 64, 64), generator=g)
+    y = torch.randint(0, 10, (2,), generator=g).float()
+    with torch.no_grad():
+        cpu(x)                             # completes the shapes
+    arrays = convert.gluon_arrays(cpu)
+    gpu = vision.resnet18_v1(classes=10)
+    gpu.initialize()
+    convert.load_gluon_arrays(gpu, arrays)
+    errs = {}
+    with torch.no_grad():
+        for mode in ("predict", "train"):
+            cpu.train(mode == "train")
+            gpu.train(mode == "train")
+            errs[mode] = (cpu(x) - gpu(x.cuda()).cpu()).abs().max().item()
+    cpu.eval()
+    gpu.eval()
+    check(max(errs.values()) <= 1e-3, f"(c) logits card vs CPU {errs}")
+    losses = {}
+    for net, dev in ((cpu, "cpu"), (gpu, None)):
+        convert.load_gluon_arrays(net, arrays, ctx=mx.cpu() if dev else None)
+        dpt = parallel.DataParallelTrainer(
+            net, loss_mod.SoftmaxCrossEntropyLoss(),
+            optimizer.SGD(learning_rate=0.05, momentum=0.9, wd=1e-4),
+            device=dev)
+        losses[dev or "cuda"] = dpt.step(x.to(dpt.device), y.to(dpt.device))
+    ldiff = abs(losses["cuda"] - losses["cpu"])
+    names = list(cpu.collect_params())
+    wd = sorted(((_max_diff(torch, [a._tensor()], [b._tensor()])
+                  / max(b._tensor().abs().max().item(), 1.0), n)
+                 for n, a, b in zip(names, gpu.collect_params().values(),
+                                    cpu.collect_params().values())),
+                reverse=True)
+    check(ldiff <= 1e-5 and wd[0][0] <= 5e-5,
+          f"(c) one step card vs CPU: losses {losses} (tol 1e-5), weights "
+          f"and running statistics {wd[:3]} (tol 5e-5)")
+    print(f"vision (c) card vs CPU, resnet18_v1 f32 B2 64x64 10 classes: "
+          f"logits predict {errs['predict']:.3e}, train {errs['train']:.3e} "
+          f"(tol 1e-3); one DataParallelTrainer SGD-momentum step: loss card "
+          f"{losses['cuda']:.6f} CPU {losses['cpu']:.6f}, diff {ldiff:.3e} "
+          f"(tol 1e-5); weights and running statistics max diff "
+          + ", ".join(f"{d:.3e} in {n}" for d, n in wd[:3])
+          + " of each tensor's largest entry or 1 (tol 5e-5)", flush=True)
+
+
+def first_differing_layer(torch, net, NDArray, autograd, xb, prog):
+    """Where a chained output differs from the per-call one: leaf-layer
+    outputs of one per-call forward of ``xb`` against those of the chained
+    program's body run eagerly (its first batch); the first layer that
+    differs, or None when the eager body equals the per-call forward (the
+    graph replay alone differs)."""
+    seen = []
+    leaves = [m for m in net.modules() if not list(m.children())]
+    hooks = [torch.nn.Module.register_forward_hook(
+        m, lambda mod, i, o: seen.append((mod.name, o.detach().clone())))
+        for m in leaves]
+    try:
+        with autograd.predict_mode():
+            net(NDArray(xb))
+        per, seen[:] = list(seen), []
+        prog.body()
+        body = seen[:len(per)]
+    finally:
+        for h in hooks:
+            h.remove()
+    for (name, a), (_, b) in zip(per, body):
+        if not torch.equal(a, b):
+            return name
+    return None
+
+
+def vision_scoring(torch, mx, vision, serving):
+    """(d) ``bench_inference``: each score model, f32, chained through
+    ``ChainedPredictor`` (n forwards one captured program) at B1 (n=50)
+    and B32 (n=20), then per call after ``hybridize(static_alloc=True)``;
+    chained and per-call outputs bit-equal, or the op that differs named
+    and the pair within ``CUDNN_TOL``."""
+    from mxtpu_torch import autograd
+    from mxtpu_torch.ndarray.ndarray import NDArray
+    rows = {}
+    for name, size in SCORE_MODELS:
+        mx.random.seed(0)
+        net = vision.get_model(name, classes=1000)
+        net.initialize()
+        g = torch.Generator(device="cuda").manual_seed(1)
+        with autograd.predict_mode():
+            net(NDArray(torch.rand((1, 3, size, size), generator=g,
+                                   device="cuda")))
+        chained = {}
+        for B in (1, 32):
+            n = 50 if B == 1 else 20
+            stack = torch.rand((n, B, 3, size, size), generator=g,
+                               device="cuda")
+            cp = serving.ChainedPredictor(net, chain=n)
+            t0 = time.monotonic()
+            cp.predict_stack(stack)          # warm-up, capture, replay
+            torch.cuda.synchronize()
+            capture_s = time.monotonic() - t0
+            t0 = time.perf_counter()
+            out = cp.predict_stack(stack)[0].data
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            chained[B] = (stack, out, cp, n, capture_s, n * B / dt)
+        net.hybridize(static_alloc=True)
+        for B, (stack, out, cp, n, capture_s, chain_img_s) in chained.items():
+            with autograd.predict_mode():
+                net(NDArray(stack[0]))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                per = [net(NDArray(stack[i])).data for i in range(n)]
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            per = torch.stack(per)
+            check(tuple(out.shape) == (n, B, 1000)
+                  and bool(torch.isfinite(out).all()),
+                  f"(d) {name} B{B}: chained output {tuple(out.shape)}")
+            if torch.equal(out, per):
+                verdict = "bit-equal"
+            else:
+                d = (out - per).abs().max().item() / per.abs().max().item()
+                layer = first_differing_layer(
+                    torch, net, NDArray, autograd, stack[0],
+                    cp._program(n, tuple(stack.shape[1:]), stack.dtype))
+                verdict = (f"not bit-equal: {d:.3e} of the largest output; "
+                           + (f"first differing layer {layer}" if layer else
+                              "the eager body equals the per-call forward, "
+                              "the graph replay differs"))
+                check(d <= CUDNN_TOL, f"(d) {name} B{B}: chained {verdict}")
+            rows[f"{name}_b{B}"] = (chain_img_s, n * B / dt)
+            print(f"vision (d) {name} f32 B{B} at {size}: chained (n={n}) "
+                  f"{chain_img_s:.1f} img/s (first call, capture included, "
+                  f"{capture_s:.2f} s), per call after hybridize("
+                  f"static_alloc=True) {n * B / dt:.1f} img/s; chained vs "
+                  f"per call {verdict}", flush=True)
+        del net, chained
+        torch.cuda.empty_cache()
+    return rows
+
+
+def vision_zoo_forward(torch, mx, vision):
+    """(e) every other ``get_model`` name: built, initialized on the card,
+    one predict-mode forward at B1 at its published input size (LeNet:
+    28x28x1), output (1, 1000) and finite; ms of that first forward (it
+    completes the deferred shapes) and of a second."""
+    from mxtpu_torch import autograd
+    from mxtpu_torch.ndarray.ndarray import NDArray
+    scored = {n for n, _ in SCORE_MODELS}
+    ms = []
+    for name in sorted(vision._models):
+        if name in scored:
+            continue
+        size = 299 if name.startswith("inception") else \
+            28 if name == "lenet" else 224
+        mx.random.seed(0)
+        net = vision.get_model(name, classes=1000)
+        net.initialize()
+        x = NDArray(torch.rand((1, 1 if name == "lenet" else 3, size, size),
+                               device="cuda"))
+        times = []
+        with autograd.predict_mode():
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = net(x).data
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        check(tuple(out.shape) == (1, 1000) and bool(torch.isfinite(out)
+                                                     .all()),
+              f"(e) {name}: output {tuple(out.shape)}")
+        ms.append(f"{name} {times[0]:.1f}/{times[1]:.2f}")
+        del net, out
+    torch.cuda.empty_cache()
+    print(f"vision (e) {len(ms)} more zoo nets, f32 B1, output (1, 1000) "
+          f"finite; ms of the first forward (deferred shapes) / a second: "
+          + ", ".join(ms), flush=True)
+
+
+def phase_vision(torch, mx, counts):
+    """Phase 15: the vision path on the card (see the module docstring).
+    Returns the legs' numbers."""
+    from mxtpu_torch import optimizer, parallel, serving
+    from mxtpu_torch.gluon import loss as loss_mod
+    from mxtpu_torch.gluon.model_zoo import vision
+    from mxtpu_torch.ops import attention, quant_attention
+    out = {}
+    counts(0)
+    for tag, dtype, B, k, steps in VISION_LEGS:
+        out[tag] = vision_train_leg(torch, mx, vision, parallel, optimizer,
+                                    loss_mod, tag, dtype, B, k, steps,
+                                    profile_top=dtype == "bfloat16")
+    out["bf16_b512x4"] = vision_b512(torch, mx, vision, parallel, optimizer,
+                                     loss_mod)
+    vision_card_vs_cpu(torch, mx, vision, parallel, optimizer, loss_mod)
+    out["score"] = vision_scoring(torch, mx, vision, serving)
+    vision_zoo_forward(torch, mx, vision)
+    launches = dict(attention_launches(attention),
+                    K5=quant_attention.dequant_decode.launches)
+    check(not any(launches.values()),
+          f"phase 15 launched a TPU kernel's port: {launches} (the vision "
+          f"path runs none of K1-K5)")
+    print(f"vision: no TPU kernel lies on this path: K1-K5 launches "
+          f"{launches}", flush=True)
+    return out
+
+
 def launch_counter(attention, quant_attention):
     """``counts(n)``: every kernel wrapper's launch counts (and the sm90
     route's) set to ``n``."""
@@ -4181,6 +4693,8 @@ def run():
     mod_l, sym_l = timed_phase("module", phase_module, torch, mx, lm,
                                attention, step_cache, counts, smi[0],
                                train_ms, glu_ms)
+    torch.cuda.empty_cache()
+    timed_phase("vision", phase_vision, torch, mx, counts)
     print(f"K1 launches: forward {k1_launches}, training "
           f"{train_launches['K1']}, gluon {glu['K1']}, module {mod_l['K1']}, "
           f"symbolic graph {sym_l['K1']}", flush=True)
@@ -4283,10 +4797,36 @@ def run_module_only():
           flush=True)
 
 
+def run_vision_only():
+    """Phase 15 alone (``python3 chip_smoke.py --phase 15``): no kernel of
+    the port lies on the vision path, so nothing is built; no kernels
+    line, no result line."""
+    import torch
+    if not torch.cuda.is_available():
+        raise SmokeFailure("no CUDA device: this smoke runs on the card only")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mxtpu_torch.ops import attention, quant_attention
+    import mxtpu_torch as mx
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    print(smi[0], flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    t0 = time.monotonic()
+    phase_vision(torch, mx, launch_counter(attention, quant_attention))
+    print(f"[vision: {time.monotonic() - t0:.1f} s] phase 15 passed",
+          flush=True)
+
+
 def main() -> int:
     try:
         if sys.argv[1:] == ["--phase", "14"]:
             run_module_only()
+            return 0
+        if sys.argv[1:] == ["--phase", "15"]:
+            run_vision_only()
             return 0
         run()
     except SmokeFailure as e:

@@ -1,12 +1,16 @@
 """Weights across the packages: the JAX model's parameters, as numpy
-arrays, into a state dict of the port's ``TransformerLM``, and back."""
+arrays, into a state dict of the port's ``TransformerLM``, and back; and
+any Gluon block's parameters (a vision zoo net, say) as numpy arrays by
+their names, the block prefix stripped, as its ``.params`` file keys them
+in both packages."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["params_from_mxtpu", "params_to_mxtpu"]
+__all__ = ["params_from_mxtpu", "params_to_mxtpu", "gluon_arrays",
+           "load_gluon_arrays"]
 
 # _gen_params() layer key -> port module path
 _LAYER_KEYS = {
@@ -61,3 +65,34 @@ def params_to_mxtpu(state_dict) -> dict:
         tree["head_w"] = n("head.weight")
         tree["head_b"] = n("head.bias")
     return tree
+
+
+def gluon_arrays(block) -> dict:
+    """``block``'s initialized parameters as numpy arrays (bf16 as f32) by
+    name, the block prefix stripped: the keys of its ``.params`` file. The
+    arrays are copies: a later step does not move them."""
+    out = {}
+    for name, p in block.collect_params().items():
+        if p._data is None:
+            continue
+        key = name[len(block.prefix):] if name.startswith(block.prefix) \
+            else name
+        x = p._tensor().detach().to("cpu", copy=True)
+        out[key] = (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    return out
+
+
+def load_gluon_arrays(block, arrays: dict, ctx=None) -> None:
+    """Write numpy ``arrays`` (names with or without ``block``'s prefix)
+    into its parameters in place, as ``load_parameters`` does; a parameter
+    that holds nothing yet is created with the array's shape on its
+    deferred device, else ``ctx`` (None: the card)."""
+    from .gluon.parameter import _load_into
+    from .ndarray.ndarray import NDArray
+    params = block.collect_params()
+    for key, arr in arrays.items():
+        name = key if key in params else block.prefix + key
+        if name not in params:
+            raise KeyError(f"{key}: no such parameter in {block.prefix!r}")
+        _load_into(params[name], NDArray(torch.tensor(np.asarray(arr))),
+                   ctx)

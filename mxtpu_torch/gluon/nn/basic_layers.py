@@ -19,10 +19,17 @@ captured step draws new masks on every replay), else from the explicit
 ``torch.Generator`` in its ``generator`` attribute, else, in a Gluon call
 with NDArrays, from the port's generator for the input's device, as
 ``nd.Dropout`` does.
+
+BatchNorm leaves its running statistics as they are inside
+:func:`frozen_running_stats`, which ``DataParallelTrainer`` enters where
+``remat`` recomputes a forward: the statistics move once per forward, as
+the reference takes them from the primal forward only.
 """
 
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager
 from typing import Callable, Optional
 
 import torch
@@ -36,7 +43,21 @@ from ..block import Block, HybridBlock, in_nd_call
 __all__ = ["Sequential", "HybridSequential", "Dense", "Activation",
            "LeakyReLU", "PReLU", "ELU", "SELU", "GELU", "Swish", "Dropout",
            "Flatten", "Lambda", "HybridLambda", "Embedding", "BatchNorm",
-           "LayerNorm", "InstanceNorm"]
+           "LayerNorm", "InstanceNorm", "frozen_running_stats"]
+
+_stats = threading.local()
+
+
+@contextmanager
+def frozen_running_stats():
+    """BatchNorm layers run on this thread without moving their running
+    statistics (a recomputed forward)."""
+    prev = getattr(_stats, "frozen", False)
+    _stats.frozen = True
+    try:
+        yield
+    finally:
+        _stats.frozen = prev
 
 
 class _Layer(HybridBlock):
@@ -319,10 +340,11 @@ class BatchNorm(_Layer):
             out, mean, var = _ops._batch_norm_train(
                 x, gamma, beta, eps=self._eps, fix_gamma=not self._scale,
                 axis=self._axis)
-            m = self._momentum
-            with torch.no_grad():
-                rmean.copy_(m * rmean + (1 - m) * mean.detach())
-                rvar.copy_(m * rvar + (1 - m) * var.detach())
+            if not getattr(_stats, "frozen", False):
+                m = self._momentum
+                with torch.no_grad():
+                    rmean.copy_(m * rmean + (1 - m) * mean.detach())
+                    rvar.copy_(m * rvar + (1 - m) * var.detach())
             return out
         return _ops._batch_norm(x, gamma, beta, rmean, rvar, eps=self._eps,
                                 fix_gamma=not self._scale,

@@ -34,6 +34,19 @@ the steps (``mxtpu_torch.device_feed.DeviceFeed``), and
 counted once per program key on its first run
 (``observability.flops.estimate_step_cost``), never on a replay.
 
+The parameters are collected on the first step, as the reference's
+``_collect`` does: where a parameter of a Gluon block still waits for its
+shape (every zoo net defers its input widths), one predict-mode forward
+of the first micro-batch completes it first. The trained parameters are
+those that take a gradient (``grad_req != "null"``), each with its Gluon
+``lr_mult`` and ``wd_mult``; the others (BatchNorm's running statistics)
+are the step's aux state, which the training forward updates in place
+inside the program, once per micro-batch and in micro-batch order, as the
+reference threads them through its scan. Under ``remat`` the recomputed
+forward leaves them as they are
+(``gluon.nn.basic_layers.frozen_running_stats``): they come from the
+primal forward only, as the reference's ``jax.checkpoint`` gives them.
+
 The multi-device half of the reference (a mesh of more than one device,
 ``param_shardings``, ZeRO and gradient compression) is not ported (it
 needs ``parallel/mesh``, ``zero`` and ``collectives``) and raises
@@ -43,6 +56,7 @@ it out changes no number.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Optional
 
 import numpy as np
@@ -50,7 +64,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..context import check_device, resolve_device
-from ..gluon.nn.basic_layers import Dropout
+from ..gluon.nn.basic_layers import Dropout, frozen_running_stats
 from ..observability import exporter, flops
 from ..ops import attention
 from ..rng import sample_bits
@@ -63,6 +77,12 @@ __all__ = ["DataParallelTrainer"]
 # kernel wrappers whose launch counts a replay adds back
 _COUNTED = (attention.flash_fwd, attention.flash_bwd_dq,
             attention.flash_bwd_dkv, attention.flash_bwd_fused)
+
+
+def _recompute_contexts():
+    """``checkpoint``'s contexts: the forward as it is, its recomputation
+    with BatchNorm's running statistics frozen."""
+    return nullcontext(), frozen_running_stats()
 
 
 def _queue8(what: str) -> NotImplementedError:
@@ -130,26 +150,48 @@ class DataParallelTrainer:
         self.micro_batches = int(micro_batches)
         if self.micro_batches < 1:
             raise ValueError(f"micro_batches={micro_batches} must be >= 1")
-        self._params = [p for p in block.parameters() if p.requires_grad]
         self._dropouts = [m for m in block.modules()
                           if isinstance(m, Dropout)]
-        check_device(self.device, *self._params)
-        self._states = [optimizer.create_state(i, p)
-                        for i, p in enumerate(self._params)]
-        self._update = build_update_all(
-            optimizer, self._params, self._states,
-            [getattr(p, "lr_mult", 1.0) for p in self._params],
-            [getattr(p, "wd_mult", 1.0) for p in self._params])
+        # collected on the first step (_collect)
+        self._params: Optional[list] = None
+        self._states: Optional[list] = None
+        self._programs = ProgramCache("data_parallel_step", capacity=4)
+        self._last: Optional[_StepProgram] = None
+        exporter.start_from_env()
+        self._t = 0
+
+    def _collect(self, x) -> None:
+        """Complete deferred shapes and split the parameters (see the
+        module docstring), then build the optimizer's states and the
+        update."""
+        block = self.block
+        gluon = list(block.collect_params().values()) \
+            if hasattr(block, "collect_params") else []
+        if any(p._data is None for p in gluon):
+            was_training = block.training
+            block.eval()
+            try:
+                with torch.no_grad():
+                    block(x[::self.micro_batches])
+            finally:
+                block.train(was_training)
+        mults = {id(p._tensor()): (p.lr_mult, p.wd_mult) for p in gluon
+                 if p._data is not None}
+        params = [p for p in block.parameters() if p.requires_grad]
+        check_device(self.device, *block.parameters(), *block.buffers())
+        lr_mults, wd_mults = zip(*[mults.get(id(p), (1.0, 1.0))
+                                   for p in params]) if params else ((), ())
+        self._states = [self.optimizer.create_state(i, p)
+                        for i, p in enumerate(params)]
+        self._update = build_update_all(self.optimizer, params, self._states,
+                                        list(lr_mults), list(wd_mults))
         # t, then each parameter group's values
         self._values = torch.zeros(
             1 + len(self._update.groups) * self._update.n_values,
             dtype=torch.float64, device=self.device)
         self._staging = HostStaging(self._values) \
             if self.device.type == "cuda" else None
-        self._programs = ProgramCache("data_parallel_step", capacity=4)
-        self._last: Optional[_StepProgram] = None
-        exporter.start_from_env()
-        self._t = 0
+        self._params = params
 
     def _as_tensor(self, a) -> torch.Tensor:
         if isinstance(a, torch.Tensor):
@@ -193,7 +235,8 @@ class DataParallelTrainer:
                     if remat:
                         lv = checkpoint(loss_on, xs[m], ys[m], seed,
                                         use_reentrant=False,
-                                        preserve_rng_state=False)
+                                        preserve_rng_state=False,
+                                        context_fn=_recompute_contexts)
                     else:
                         lv = loss_on(xs[m], ys[m], seed)
                     g = torch.autograd.grad(lv, params, allow_unused=True,
@@ -226,6 +269,8 @@ class DataParallelTrainer:
             raise ValueError(
                 f"batch size {x.shape[0]} is not divisible by "
                 f"micro_batches={k}; pad or drop the tail batch")
+        if self._params is None:
+            self._collect(x)
         prog = self._last = self._program(x, y)
         t = self._t + 1
         opt = self.optimizer
@@ -310,6 +355,7 @@ class DataParallelTrainer:
 
     def optimizer_state_bytes(self) -> int:
         """Optimizer-slot bytes resident on the card (the reference's
-        per-device count; one device holds every slot)."""
+        per-device count; one device holds every slot); 0 before the
+        first step, which creates the slots."""
         return sum(s.numel() * s.element_size()
-                   for st in self._states for s in st)
+                   for st in self._states or () for s in st)

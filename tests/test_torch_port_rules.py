@@ -6,9 +6,10 @@
 * Entry points run on the card unless the caller asks for the CPU: without
   CUDA, building a model, an engine or a ``DeviceFeed`` with no
   ``device``, an ``nd`` array with no ``ctx``, an ``rtc`` module, a
-  Gluon ``initialize()`` of a block or a parameter with no ``ctx``, a
-  ``Symbol.simple_bind`` with no ``ctx`` or a ``Module`` with no
-  ``context`` raises instead of running on the CPU.
+  Gluon ``initialize()`` of a block (a vision zoo net too) or a parameter
+  with no ``ctx``, a ``Symbol.simple_bind`` with no ``ctx``, a ``Module``
+  with no ``context`` or a ``DataParallelTrainer`` with no ``device`` over
+  a ``get_model`` net raises instead of running on the CPU.
 * Each ported module with a counterpart in the JAX package lies at the
   counterpart's path.
 """
@@ -61,7 +62,10 @@ def test_no_jax_or_mxtpu_imports(path):
     "gluon/trainer.py", "metric.py", "attribute.py", "symbol/symbol.py",
     "symbol/executor.py", "symbol/__init__.py", "io.py", "callback.py",
     "checkpoint/manager.py", "model.py", "monitor.py", "step_cache.py",
-    "module.py", "serving/chained.py", "autograd.py", "ops/attention.py"])
+    "module.py", "serving/chained.py", "autograd.py", "ops/attention.py",
+    "gluon/nn/conv_layers.py", "gluon/model_zoo/vision.py",
+    "gluon/model_zoo/model_store.py", "gluon/model_zoo/__init__.py",
+    "parallel/data_parallel.py"])
 def test_the_counterparts_are_checked(module):
     """Each module that has a counterpart in the JAX package lies where
     its counterpart does, and the import rule above reads it."""
@@ -115,3 +119,11 @@ def test_entry_points_refuse_the_cpu_without_cuda():
         mx.mod.Module(net)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mx.mod.Module(mx.sym.Variable("data"))
+    # a vision zoo net: initialize() with no ctx, and a DataParallelTrainer
+    # with no device over a net from get_model
+    from mxtpu_torch.gluon.model_zoo import get_model
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_model("resnet18_v1", classes=10).initialize()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DataParallelTrainer(get_model("resnet50_v1"),
+                            gluon.loss.SoftmaxCrossEntropyLoss(), Adam())

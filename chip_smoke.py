@@ -2,8 +2,9 @@
 """Chip smoke for mxtpu_torch: builds the port's CUDA kernels and drives its
 main paths on one NVIDIA GPU: serving, training, the imperative ``nd`` +
 ``autograd`` path with runtime-compiled kernels (``rtc``), the Gluon front
-end, the symbolic and Module front ends, and the vision path (ResNet-50
-training and the zoo's scoring).
+end, the symbolic and Module front ends, the vision path (ResNet-50
+training and the zoo's scoring) and int8 quantization (an int8 ResNet-50,
+the quantized fused training step).
 
     python3 chip_smoke.py
 
@@ -268,21 +269,62 @@ Phases, in order; any failure exits non-zero without a result line:
     its published size: output (1, 1000), finite, ms; (f) one profiled
     replay of ``bf16_b128``: busy share and its top device operations. K1
     to K5 must not launch in it.
+16. int8 quantization (``ops/quantization.py``, ``contrib.quantization``,
+    ``quant.calibrate``, ``quant.train``; no TPU kernel lies on it: the
+    int8 products are ``torch._int_mm``, exact int32 sums, and a
+    convolution is im2col of the codes times the weight codes through it):
+    (a) ``bench.py``'s ``bench_int8`` body: 60 chained n = 8192 int8
+    products (``// 1024`` back to int8) against the chain in bf16, TOP/s
+    beside the dense peaks, one product equal to int64 arithmetic on a
+    slice; (b) ``resnet50_v1(classes=1000)`` with phase 15 (d)'s weights
+    (seed 0), ``quantize_net(quantized_dtype="auto",
+    calib_mode="entropy")`` over 4 seeded B32 batches at 224, nothing
+    excluded: the calibration seconds (histograms on the device, counts
+    equal to ``np.histogram`` on one site's input), held-out B32 logits
+    within the reference's ``0.1 x max(1, max|f32|)`` of the float net's,
+    top-1 agreement; the int32 accumulators of the stem (uint8, K = 147),
+    a strided 1x1, a 3x3 and the dense head, and of a strided 3x3 and a
+    depthwise 3x3 (the tap loop) on random codes at a stage's shape, equal
+    to int64 arithmetic; scoring at B1 (n = 20) and B32 (n = 10), chained
+    through ``ChainedPredictor`` and per call, bit-equal, img/s beside
+    phase 15 (d)'s f32 net; (c) ``resnet18_v1`` (B2, 64x64) quantized on
+    the card and on the CPU from the same weights and calibration data
+    (``int8``/``naive``, ``auto``/``entropy``): thresholds within one
+    histogram bin, logits within ``QCARD_TOL``, differing activation
+    codes counted, each one step; (d) phase 14 (a)'s ``Module.fit`` under
+    ``MXTPU_QUANT_STEP=int8``: one capture then 11 replays, 48 staged
+    quantized sites, K1-K3 96 launches each on sm90, the loss falls by 0.3
+    and ends within 5e-2 relative of the float fit's from the same seed
+    (run here); the first Dense site's output in the last replay
+    bit-equal to int64 arithmetic of its int8 codes, rescaled; a flip to
+    ``fp8`` and back builds one program and then hits; (e) card against
+    CPU under the quantized step: the flagship at 2 layers (f32, B2 T256)
+    3 SGD-momentum steps under ``int8`` and ``fp8``, and one ``int8`` step
+    of a small conv net (``quant_conv``): losses, weights and the product
+    of the card step's first quantized site of each kind (against the
+    mode's product of the same operands on the CPU) within 5e-5 x
+    max(largest entry, 1) (fp8's losses 2e-4: an e4m3 code that rounds
+    the other way moves its value by 1/16 to 1/8 of itself); controls:
+    the card's runs in the other mode and with the mode off fail that
+    check against each CPU run.
 
 ``python3 chip_smoke.py --phase 14`` builds the kernels and runs phase 14
-alone; ``--phase 15`` runs phase 15 alone, building nothing (no kernels
-line, no result line).
+alone; ``--phase 15`` runs phase 15 alone, building nothing; ``--phase
+16`` builds the kernels and runs phase 16 alone (no kernels line, no
+result line).
 
 Launch counts are set to 0 just before phases 4, 5, 5c (its first
 burst), 5e (its SLO burst), 5f, 8, 9 (each fused run), 10, saxpy's drive in
 11, the 10 steps of 12, the 12 steps of 13 (a), phase 14 (a)'s fit, (c)'s
-forward and backward and (d)'s chained predict, and phase 15 (all
-zero: no kernel of the port on the vision path), and read just after.
+forward and backward and (d)'s chained predict, phase 15 (all
+zero: no kernel of the port on the vision path) and phase 16 (d)'s
+quantized fit, and read just after.
 The line before the last is the kernels' JSON record, with one K1, K2, K3
 and K4 record for each route and the path it runs on (the sm90 records of
-K1-K3 count phases 8, 13 (a) and 14 (a), the simt records of K1-K3 phase
-14 (c) besides their own), and four K5 records (plain serving, phase
-5; speculative verify, phase 5c with the times of phase 6b; the SLO
+K1-K3 count phases 8, 13 (a), 14 (a) and 16 (d), the simt records of
+K1-K3 phase 14 (c) besides their own), and four K5 records (plain
+serving, phase 5; speculative verify, phase 5c with the times of phase
+6b; the SLO
 batched prefill, phase 5e; the router's two replicas, phase 5f), each
 with its launches inside graph replays;
 the whole smoke's time is printed before it; the last line is
@@ -292,6 +334,7 @@ Weights and data are random, from fixed seeds.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -4586,6 +4629,739 @@ def phase_vision(torch, mx, counts):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: int8 quantization
+# ---------------------------------------------------------------------------
+
+PEAK_INT8_OPS = 1979e12       # H100 SXM data sheet, dense int8
+QUANT = dict(n=8192, chain=60, B=32, calib_batches=4, score={1: 20, 32: 10},
+             slice_rows=8, slice_cols=512)
+# the reference's bound of a quantized net against its float source
+# (tests/test_quantization.py:144): 0.1 x max(1, max |f32|)
+QNET_BOUND = 0.1
+# (c): card against CPU logits of the quantized resnet18_v1, as a share
+# of max(1, max |CPU|)
+QCARD_TOL = 2e-2
+# (c): a layer's f32 inputs on the two devices that differ by at most this
+# share of the input's largest entry differ by rounding (1/39 of a uint8
+# step): their codes may differ by one step, never more (the root rule of
+# phase 6b); larger input differences lie behind a code that differed in
+# an earlier layer
+QCODE_ROUND = 1e-4
+# (d): the quantized fit's final loss against the float fit's from the
+# same seed, relative (mxtpu/quant/train.py:10-11,
+# tests/test_quant.py:380-386); it cannot tell int8 products from float
+# ones, so (d) also holds one Dense site of the step to int64 arithmetic
+QTRAIN_RTOL = 5e-2
+# (e): card against CPU, losses, weights and a site's product, as phase 14
+# (b)'s weights; SGD-momentum's lr: an activation code that rounds the
+# other way on the card moves the gradients, and the weights move with lr
+# (at 0.1 the flagship's position table differed by 8.3e-5 after 3 steps)
+QSTEP_TOL = 5e-5
+QSTEP_LR = 1e-2
+# (e): fp8's losses, relative: an e4m3 code that rounds the other way on
+# the card moves its value by 1/16 to 1/8 of itself, ~10x an int8 step at
+# a row's largest entries (the first step's losses, from equal weights,
+# differed by 3.2e-5 and the third's by 1.04e-4 at lr 1e-2). This bound
+# alone does not tell fp8 from int8 steps (their losses differ by ~1.4e-4):
+# the weights and the site's product do, and the controls show it
+QSTEP_FP8_LOSS = 2e-4
+
+
+def quant_product_pair(torch, smi):
+    """(a) ``bench.py``'s ``bench_int8`` body: 60 chained n = 8192 products
+    of int8 codes through ``torch._int_mm`` (int32 sums, ``// 1024`` back to
+    int8) against the same chain in bf16; TOP/s beside the dense peaks; one
+    int8 product equal to int64 arithmetic on a slice."""
+    n, iters = QUANT["n"], QUANT["chain"]
+    g = torch.Generator(device="cuda").manual_seed(16)
+    a8 = torch.randint(-127, 127, (n, n), generator=g, device="cuda",
+                       dtype=torch.int8)
+    b8 = torch.randint(-127, 127, (n, n), generator=g, device="cuda",
+                       dtype=torch.int8)
+    # the card's product takes its right operand column-major
+    b_cols = b8.t().contiguous().t()
+    abf, bbf = a8.to(torch.bfloat16), b8.to(torch.bfloat16)
+
+    def chain_int8():
+        acc = a8
+        for _ in range(iters):
+            acc = torch.floor_divide(torch._int_mm(acc, b_cols), 1024) \
+                .to(torch.int8)
+        return acc
+
+    def chain_bf16():
+        acc = abf
+        for _ in range(iters):
+            acc = (torch.matmul(acc, bbf) * 1e-3).to(torch.bfloat16)
+        return acc
+
+    tops = {}
+    for name, fn in (("int8", chain_int8), ("bf16", chain_bf16)):
+        ms = timed_ms(torch, fn, 1, warmup=1)
+        tops[name] = iters * 2 * n ** 3 / (ms * 1e-3) / 1e12
+    r, c = QUANT["slice_rows"], QUANT["slice_cols"]
+    got = torch._int_mm(a8, b_cols)[:r, :c].long()
+    want = (a8[:r].long()[:, :, None] * b8[:, :c].long()[None]).sum(1)
+    check(torch.equal(got, want), "(a) torch._int_mm is not the int64 "
+          "product of the codes")
+    print(f"quant (a) bench_int8's chain, {iters} x {n}^3: int8 (_int_mm, "
+          f"int32 sums, // 1024) {tops['int8']:.1f} TOP/s = "
+          f"{tops['int8'] * 1e12 / PEAK_INT8_OPS:.3f} of the 1979 TOP/s "
+          f"int8 peak; bf16 {tops['bf16']:.1f} TFLOP/s = "
+          f"{tops['bf16'] * 1e12 / PEAK_FLOPS['bfloat16']:.3f} of 989; int8 "
+          f"/ bf16 {tops['int8'] / tops['bf16']:.2f}x; rows 0-{r - 1} x "
+          f"columns 0-{c - 1} of one product equal int64 arithmetic; {smi}",
+          flush=True)
+    return tops
+
+
+def int64_conv(torch, codes, w_q, stride, pad, dilate, groups=1):
+    """int64 arithmetic of the convolution of integer ``codes`` (N, C, H, W)
+    by ``w_q`` (O, C/g, KH, KW) over zero padding: im2col in int64 and a
+    multiply-sum over K in chunks, one group at a time."""
+    from mxtpu_torch.ops.quantization import _patches
+    O, Cg, kh, kw = w_q.shape
+    pt = _patches(codes.long(), (kh, kw), tuple(stride), tuple(pad),
+                  tuple(dilate))
+    N, C, OH, OW = pt.shape[:4]
+    M, Og = N * OH * OW, O // groups
+    outs = []
+    for gi in range(groups):
+        cols = pt[:, gi * Cg:(gi + 1) * Cg].permute(0, 2, 3, 1, 4, 5) \
+            .reshape(M, Cg * kh * kw)
+        w = w_q[gi * Og:(gi + 1) * Og].reshape(Og, -1).long().t()
+        acc = torch.zeros((M, Og), dtype=torch.int64, device=codes.device)
+        step = max(1, int(1e9 // (M * Og * 8)))
+        for k in range(0, cols.shape[1], step):
+            acc += (cols[:, k:k + step, None] * w[None, k:k + step]).sum(1)
+        outs.append(acc)
+    return torch.cat(outs, 1).reshape(N, OH, OW, O).permute(0, 3, 1, 2)
+
+
+def _act_codes(torch, x, scale, unsigned):
+    """The unshifted activation codes of ``x`` (uint8 in [0, 255] or int8
+    in [-127, 127]) as int64."""
+    lo, hi = (0, 255) if unsigned else (-127, 127)
+    return torch.clamp(torch.round(x * scale), lo, hi).long()
+
+
+def layer_inputs(torch, net, layers, fn):
+    """Each of ``layers``' input on one run of ``fn`` (Gluon pre-hooks)."""
+    seen = {}
+    hooks = []
+    for name, layer in layers.items():
+        def hook(block, args, name=name):
+            seen[name] = args[0].detach().clone()
+        layer.register_forward_pre_hook(hook)
+        hooks.append((layer, hook))
+    try:
+        fn()
+    finally:
+        for layer, hook in hooks:
+            layer._gluon_pre_hooks.remove(hook)
+    return seen
+
+
+def quant_accumulators(torch, qz, q, layers, seen):
+    """(b) each chosen layer's int32 accumulator (the call its forward
+    makes) against int64 arithmetic of the same codes on the card."""
+    out = []
+    for name, layer in layers.items():
+        x = seen[name]
+        s = layer._x_scale(x)
+        if isinstance(layer, qz.QuantizedConv2D):
+            acc = q.int8_conv_acc(x, layer._w_q, s, layer._stride,
+                                  layer._pad, layer._dilate, layer._groups,
+                                  layer._unsigned,
+                                  layer._zp_corr(tuple(x.shape)))
+            want = int64_conv(torch, _act_codes(torch, x, s, layer._unsigned),
+                              layer._w_q, layer._stride, layer._pad,
+                              layer._dilate, layer._groups)
+        else:
+            x = x.reshape(x.shape[0], -1)
+            acc = q.int8_dense_acc(x, layer._w_q, s, layer._unsigned,
+                                   layer._zp_corr)
+            codes = _act_codes(torch, x, s, layer._unsigned)
+            want = (codes[:, :, None] * layer._w_q.long().t()[None]).sum(1)
+        check(acc.dtype == torch.int32 and torch.equal(acc.long(), want),
+              f"(b) {name}: the int32 accumulator is not int64 arithmetic "
+              f"of the codes")
+        out.append(f"{name} {tuple(x.shape)} -> {tuple(acc.shape)} "
+                   f"({'uint8' if layer._unsigned else 'int8'})")
+    return out
+
+
+def quant_resnet50(torch, mx, vision, serving, smi, score15):
+    """(b) ``resnet50_v1`` at full size with phase 15 (d)'s weights,
+    ``quantize_net(quantized_dtype="auto", calib_mode="entropy")`` over 4
+    seeded B32 batches, nothing excluded: calibration seconds; int8 logits
+    against the float net's on a held-out B32 batch (the reference's
+    bound), top-1 agreement; the accumulators of the stem, a strided 1x1,
+    a 3x3 and the dense head, and of a strided 3x3 and a depthwise 3x3 at
+    a stage's shape, equal int64 arithmetic; the device histogram equal to
+    numpy's on one site's input; scoring at B1 and B32, chained and per
+    call, bit-equal."""
+    from mxtpu_torch import autograd
+    from mxtpu_torch.contrib import quantization as qz
+    from mxtpu_torch.ndarray.ndarray import NDArray
+    from mxtpu_torch.ops import quantization as q
+    from mxtpu_torch.quant import calibrate as cal
+    import numpy as np
+    B = QUANT["B"]
+    mx.random.seed(0)
+    net = vision.get_model("resnet50_v1", classes=1000)
+    net.initialize()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    with autograd.predict_mode():
+        net(NDArray(torch.rand((1, 3, 224, 224), generator=g,
+                               device="cuda")))
+    calib = [NDArray(vision_batch(torch, B, "float32", seed=s)[0])
+             for s in range(1, 1 + QUANT["calib_batches"])]
+    held = vision_batch(torch, B, "float32", seed=100)[0]
+    with autograd.predict_mode():
+        ref = net(NDArray(held)).data.clone()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    qz.quantize_net(net, quantized_dtype="auto", calib_mode="entropy",
+                    calib_data=calib, num_calib_batches=len(calib))
+    torch.cuda.synchronize()
+    calib_s = time.monotonic() - t0
+    twins = [m for m in net.modules() if isinstance(m, qz._QuantizedLayer)]
+    convs = [m for m in twins if isinstance(m, qz.QuantizedConv2D)]
+    layers = {
+        "stem 7x7/2": convs[0],
+        "1x1/2": next(m for m in convs if m._w_q.shape[2:] == (1, 1)
+                      and tuple(m._stride) == (2, 2)),
+        "3x3/1": next(m for m in convs if m._w_q.shape[2:] == (3, 3)),
+        "dense head": next(m for m in twins
+                           if isinstance(m, qz.QuantizedDense))}
+
+    def held_forward():
+        with autograd.predict_mode():
+            out["logits"] = net(NDArray(held)).data.clone()
+    out = {}
+    seen = layer_inputs(torch, net, layers, held_forward)
+    qout = out["logits"]
+    scale = max(1.0, ref.abs().max().item())
+    err = (qout - ref).abs().max().item()
+    top1 = (qout.argmax(1) == ref.argmax(1)).float().mean().item()
+    check(bool(torch.isfinite(qout).all()) and err <= QNET_BOUND * scale,
+          f"(b) int8 resnet50_v1 logits differ from the float net's by "
+          f"{err} (bound {QNET_BOUND} x {scale})")
+    acc_lines = quant_accumulators(torch, qz, q, layers, seen)
+    xq = torch.randint(-127, 128, (B, 64, 56, 56), generator=g,
+                       device="cuda", dtype=torch.int8)
+    for what, w, stride, groups in (
+            ("3x3/2, 64 -> 128", (128, 64, 3, 3), (2, 2), 1),
+            ("depthwise 3x3, 64 groups", (64, 1, 3, 3), (1, 1), 64)):
+        wq = torch.randint(-127, 128, w, generator=g, device="cuda",
+                           dtype=torch.int8)
+        got = q.int_conv(xq, wq, stride, (1, 1), (1, 1), groups)
+        check(torch.equal(got.long(), int64_conv(torch, xq, wq, stride,
+                                                 (1, 1), (1, 1), groups)),
+              f"(b) int_conv {what}: not int64 arithmetic")
+        acc_lines.append(f"codes {tuple(xq.shape)} {what}")
+    x0 = seen["3x3/1"]
+    th = x0.abs().max().item()
+    same_hist = np.array_equal(
+        cal.histogram_like_numpy(x0, 2001, -th, th),
+        np.histogram(x0.double().cpu().numpy(), bins=2001,
+                     range=(-th, th))[0])
+    check(same_hist, "(b) the device histogram differs from np.histogram")
+    print(f"quant (b) resnet50_v1 f32 -> quantize_net(auto, entropy) over "
+          f"{len(calib)} B{B} batches at 224: {len(twins)} sites "
+          f"({sum(t._unsigned for t in twins)} uint8), calibration "
+          f"{calib_s:.2f} s (histograms and extremes on the device, counts "
+          f"equal to np.histogram on one site's input); held-out B{B} "
+          f"logits vs the float net: max diff {err:.4e} = {err / scale:.4e}"
+          f" of max(1, max|f32|) = {scale:.4f} (bound {QNET_BOUND}), top-1 "
+          f"agreement {top1:.4f}; int32 accumulators equal int64 "
+          f"arithmetic: " + "; ".join(acc_lines) + f"; {smi}", flush=True)
+    del seen, calib, ref, qout
+    rows = {}
+    for Bs, n in QUANT["score"].items():
+        stack = torch.rand((n, Bs, 3, 224, 224), generator=g, device="cuda")
+        cp = serving.ChainedPredictor(net, chain=n)
+        t0 = time.monotonic()
+        cp.predict_stack(stack)          # warm-up, capture, replay
+        torch.cuda.synchronize()
+        capture_s = time.monotonic() - t0
+        t0 = time.perf_counter()
+        chained = cp.predict_stack(stack)[0].data
+        torch.cuda.synchronize()
+        chain_img_s = n * Bs / (time.perf_counter() - t0)
+        with autograd.predict_mode():
+            net(NDArray(stack[0]))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            per = [net(NDArray(stack[i])).data for i in range(n)]
+            torch.cuda.synchronize()
+            per_img_s = n * Bs / (time.perf_counter() - t0)
+        per = torch.stack(per)
+        check(tuple(chained.shape) == (n, Bs, 1000)
+              and bool(torch.isfinite(chained).all())
+              and torch.equal(chained, per),
+              f"(b) int8 resnet50_v1 B{Bs}: chained scoring is not bit-equal "
+              f"to per-call scoring")
+        f32 = (score15 or {}).get(f"resnet50_v1_b{Bs}")
+        rows[Bs] = (chain_img_s, per_img_s)
+        print(f"quant (b) int8 resnet50_v1 B{Bs}: chained (n={n}) "
+              f"{chain_img_s:.1f} img/s (first call, capture included, "
+              f"{capture_s:.2f} s), per call {per_img_s:.1f} img/s; chained "
+              f"bit-equal to per call; phase 15 (d)'s f32 resnet50_v1 "
+              + (f"{f32[0]:.1f} / {f32[1]:.1f} img/s" if f32 else "not run")
+              + f"; {smi}", flush=True)
+        del stack, cp, chained, per
+    del net
+    torch.cuda.empty_cache()
+    return dict(calib_s=calib_s, err=err / scale, top1=top1, score=rows)
+
+
+def quant_card_vs_cpu(torch, mx, vision, smi):
+    """(c) ``resnet18_v1`` (B2, 64x64, 10 classes) quantized on the card
+    and on the CPU from the same weights and calibration data, ``int8`` /
+    ``naive`` and ``auto`` / ``entropy``: each site's threshold within one
+    histogram bin, logits within ``QCARD_TOL``; the activation codes each
+    device's layers compute from their own inputs, counted where they
+    differ: one step at most where the inputs differ by rounding
+    (``QCODE_ROUND``), the others behind such a code counted apart."""
+    from mxtpu_torch import autograd, convert
+    from mxtpu_torch.contrib import quantization as qz
+    from mxtpu_torch.ndarray.ndarray import NDArray
+    from mxtpu_torch.ops import quantization as q
+    from mxtpu_torch.quant import calibrate as cal
+    mx.random.seed(3)
+    base = vision.resnet18_v1(classes=10)
+    base.initialize(ctx=mx.cpu())
+    g = torch.Generator().manual_seed(16)
+    x = torch.rand((2, 3, 64, 64), generator=g)
+    calib = [torch.rand((2, 3, 64, 64), generator=g) for _ in range(2)]
+    with autograd.predict_mode():
+        base(NDArray(x))                   # completes the shapes
+    arrays = convert.gluon_arrays(base)
+    for dtype, mode in (("int8", "naive"), ("auto", "entropy")):
+        th, logits, codes, inputs = {}, {}, {}, {}
+        for dev in ("cpu", "cuda"):
+            ctx = mx.cpu() if dev == "cpu" else None
+            net = vision.resnet18_v1(classes=10)
+            net.initialize(ctx=ctx)
+            convert.load_gluon_arrays(net, arrays, ctx=ctx)
+            batches = [NDArray(c.to(dev)) for c in calib]
+            cb = cal.collect_stats(net, qz._walk(net), batches)
+            th[dev] = {n: (cb.absmax(n) if mode == "naive"
+                           else cb.threshold(n), cb.histogram(n)[1])
+                       for n in cb.names()}
+            qz.quantize_net(net, quantized_dtype=dtype, calib_mode=mode,
+                            calib_data=batches)
+            twins = {n: m for n, m in net.named_modules()
+                     if isinstance(m, qz._QuantizedLayer)}
+
+            def fwd():
+                with autograd.predict_mode():
+                    logits[dev] = net(NDArray(x.to(dev))).data.float().cpu()
+            seen = layer_inputs(torch, net, twins, fwd)
+            codes[dev], inputs[dev] = {}, {}
+            for n, m in twins.items():
+                xi = seen[n]
+                if isinstance(m, qz.QuantizedDense):
+                    xi = xi.reshape(xi.shape[0], -1)
+                codes[dev][n] = q._quantize_act(
+                    xi, m._x_scale(xi), m._unsigned).to(torch.int32).cpu()
+                inputs[dev][n] = xi.float().cpu()
+        bins = max(abs(th["cuda"][n][0] - t) / (2 * hw / 2001)
+                   for n, (t, hw) in th["cpu"].items())
+        check(bins <= 1.0, f"(c) {dtype}/{mode}: a threshold differs by "
+              f"{bins:.3f} histogram bins between the card and the CPU")
+        scale = max(1.0, logits["cpu"].abs().max().item())
+        err = (logits["cuda"] - logits["cpu"]).abs().max().item() / scale
+        n_codes = sum(c.numel() for c in codes["cpu"].values())
+        roots = behind = worst_root = worst_behind = 0
+        for n, c in codes["cpu"].items():
+            d = (codes["cuda"][n] - c).abs()
+            xc = inputs["cpu"][n]
+            near = (inputs["cuda"][n] - xc).abs() \
+                <= QCODE_ROUND * xc.abs().max()
+            roots += int(((d > 0) & near).sum())
+            behind += int(((d > 0) & ~near).sum())
+            if bool(near.any()):
+                worst_root = max(worst_root, int(d[near].max()))
+            worst_behind = max(worst_behind, int(d.max()))
+        check(worst_root <= 1 and err <= QCARD_TOL,
+              f"(c) {dtype}/{mode}: logits card vs CPU {err:.3e} of max(1, "
+              f"max|CPU|) (tol {QCARD_TOL}); {roots} activation codes "
+              f"differ where the inputs differ by rounding, the largest by "
+              f"{worst_root} steps (at most 1)")
+        print(f"quant (c) resnet18_v1 B2 64x64, quantize_net({dtype}, {mode})"
+              f" card vs CPU: {len(codes['cpu'])} sites, thresholds within "
+              f"{bins:.4f} of a histogram bin; logits {err:.4e} of max(1, "
+              f"max|CPU|) (tol {QCARD_TOL}); of {n_codes} activation codes "
+              f"{roots} differ where the inputs differ by rounding (each by "
+              f"one step) and {behind} behind them (up to {worst_behind} "
+              f"steps); {smi}", flush=True)
+
+
+@contextlib.contextmanager
+def quant_site_probe():
+    """The first quantized Dense and the first quantized Conv site of the
+    step body, as the last eager run and the capture of the body saw them:
+    ``{(kind, captured): (x, w, y, kw)}``, the operands and the product of
+    ``quant.train``'s ``quant_dense``/``quant_conv`` (wrapped for the
+    block; ``quant_scope`` looks them up on each run of the body). A site
+    is known by its weight's address, which a captured program keeps. A
+    capture runs nothing: the clones it makes live in its pool, and each
+    replay writes them, so they hold the last replay's values."""
+    import torch
+    from mxtpu_torch.quant import train as qt
+    seen, first = {}, {}
+    orig = {"dense": qt.quant_dense, "conv": qt.quant_conv}
+
+    def wrap(kind):
+        def probe(x, w, **kw):
+            y = orig[kind](x, w, **kw)
+            if first.setdefault(kind, w.data_ptr()) == w.data_ptr():
+                cap = x.is_cuda and torch.cuda.is_current_stream_capturing()
+                seen[kind, cap] = (x.detach().clone(), w.detach().clone(),
+                                   y.detach().clone(), kw)
+            return y
+        return probe
+    qt.quant_dense, qt.quant_conv = wrap("dense"), wrap("conv")
+    try:
+        yield seen
+    finally:
+        qt.quant_dense, qt.quant_conv = orig["dense"], orig["conv"]
+
+
+def int8_site_exact(torch, site, rows=64):
+    """(d) a quantized Dense site of the step against int64 arithmetic:
+    ``rows`` rows of its input quantized per row (``kv_quant``), their
+    int8 products with the weight's per-channel codes summed in int64 on
+    the host, rescaled as ``_int8_matmul`` does. Returns whether that
+    equals the site's output bit for bit, the rows, and the float product
+    of the same operands' largest difference from the output and whether
+    it too is bit-equal (the control: a float step fails this check)."""
+    from mxtpu_torch.quant import kv_quant
+    x, w, y, _ = site
+    x2, y2 = x.reshape(-1, x.shape[-1]), y.reshape(-1, y.shape[-1])
+    pick = torch.arange(0, x2.shape[0], max(1, x2.shape[0] // rows),
+                        device=x.device)
+    h_q, h_s = kv_quant.quantize_rows(x2[pick], "int8")
+    w_q, w_s = kv_quant.quantize_rows(w, "int8")
+    acc = h_q.long().cpu() @ w_q.long().cpu().t()
+    want = (acc.to(x.device).float() * h_s[:, None] * w_s[None, :]) \
+        .to(y.dtype)
+    got = y2[pick]
+    fl = torch.matmul(x2[pick], w.t()).to(y.dtype)
+    float_gap = (fl.float() - got.float()).abs().max().item()
+    exact = torch.equal(got, want) and acc.abs().max().item() < 2 ** 31
+    return exact, len(pick), float_gap, torch.equal(fl, got)
+
+
+def flagship_module(torch, mx, lm, io, x, y):
+    """Phase 14 (a)'s set-up from a seed: ``Module(flagship)``, Xavier,
+    bf16, over one batch."""
+    B = MODULE["B"]
+    mx.random.seed(16)
+    net = lm.transformer_lm("flagship", vocab_size=MODULE["vocab"])
+    mod = mx.mod.Module(net)
+    it = io.NDArrayIter(x, y, batch_size=B)
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(mx.init.Xavier())
+    net.cast("bfloat16")
+    return net, mod, it
+
+
+def quant_train_flagship(torch, mx, lm, attention, step_cache, counts, smi):
+    """(d) phase 14 (a)'s ``Module.fit`` (flagship, bf16, Adam 3e-4, B8
+    T1024, 12 steps) under ``MXTPU_QUANT_STEP=int8``: one capture then
+    replays, 48 staged sites, the learning gate, the final loss within
+    ``QTRAIN_RTOL`` of the float fit's from the same seed (run here); the
+    first Dense site's output in the last replay bit-equal to int64
+    arithmetic of its codes (:func:`int8_site_exact`); then a flip to fp8
+    and back builds one program and hits. Returns the attention kernels'
+    launches in the int8 fit."""
+    import numpy as np
+    from mxtpu_torch import io, profiler
+    B, T, V = MODULE["B"], MODULE["T"], MODULE["vocab"]
+    epochs = MODULE["epochs"]
+    rs = np.random.RandomState(0)
+    x = rs.randint(0, V, (B, T)).astype(np.int32)
+    y = rs.randint(0, V, (B, T)).astype(np.float32)
+    net, mod, it = flagship_module(torch, mx, lm, io, x, y)
+    ref_losses, ref_ms = module_fit(torch, mx, mod, it, epochs, "adam",
+                                    {"learning_rate": 3e-4})
+    ref_med = float(np.median(ref_ms[2:]))
+    del net, mod
+    torch.cuda.empty_cache()
+    net, mod, it = flagship_module(torch, mx, lm, io, x, y)
+    L = len(net.blocks)
+    os.environ["MXTPU_QUANT_STEP"] = "int8"
+    try:
+        step_cache.reset_stats("module_step")
+        profiler.reset_quant_stats()
+        counts(0)
+        with quant_site_probe() as seen:
+            losses, step_ms = module_fit(torch, mx, mod, it, epochs, "adam",
+                                         {"learning_rate": 3e-4})
+        launches = attention_launches(attention)
+        sites = profiler.get_quant_stats()["matmuls"]
+        cache = step_cache.snapshot()["module_step"]
+        st = mod._step_exec.stats()
+        want = L * epochs
+        check(all(math.isfinite(v) for v in losses),
+              f"(d) quantized losses {losses}")
+        check(cache == {"hits": epochs - 1, "traces": 1, "retraces": 0}
+              and st["programs"] == 1 and st["captured"] == 1
+              and st["replays"] == epochs - 1,
+              f"(d) step program: module_step {cache}, {st}: want one "
+              f"program, captured once, {epochs - 1} replays")
+        check(sites == 6 * L,
+              f"(d) {sites} quantized sites staged, want 6 x {L} (the JAX "
+              f"package's count: tests/test_torch_quant_train.py)")
+        check(all(launches[k] == want for k in ("K1_sm90", "K2_sm90",
+                                                "K3_sm90")),
+              f"(d) launches {launches}: want K1-K3 {want} each on sm90")
+        check(losses[-1] < losses[0] - 0.3,
+              f"(d) learning gate: loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f} (must fall by 0.3)")
+        rel = abs(losses[-1] - ref_losses[-1]) / ref_losses[-1]
+        check(rel <= QTRAIN_RTOL,
+              f"(d) final loss {losses[-1]:.4f} vs the float fit's "
+              f"{ref_losses[-1]:.4f}: {rel:.4f} relative (tol "
+              f"{QTRAIN_RTOL})")
+        check(("dense", True) in seen,
+              "(d) no quantized Dense site ran in the captured step")
+        site = seen["dense", True]
+        exact, n_rows, float_gap, float_same = int8_site_exact(torch, site)
+        check(exact and not float_same,
+              f"(d) the first Dense site's output in the last replay is not "
+              f"int64 arithmetic of its int8 codes (or the float product "
+              f"gives the same bits: {float_same})")
+        site_shape = tuple(site[0].shape), tuple(site[1].shape)
+        med = float(np.median(step_ms[2:]))
+        batch = next(iter(io.NDArrayIter(x, y, batch_size=B)))
+        for mode in ("fp8", "int8"):
+            os.environ["MXTPU_QUANT_STEP"] = mode
+            mod.forward_backward(batch)
+            mod.update()
+        torch.cuda.synchronize()
+        flip = step_cache.snapshot()["module_step"]
+        check(flip["traces"] == 2 and flip["hits"] == epochs
+              and mod._step_exec.stats()["programs"] == 2,
+              f"(d) fp8 and back: module_step {flip}, "
+              f"{mod._step_exec.stats()}: want one more program, then a hit")
+    finally:
+        os.environ.pop("MXTPU_QUANT_STEP", None)
+    print(f"quant (d) Module(flagship bf16 d{net._units} L{L}).fit(B{B} "
+          f"T{T}, adam 3e-4, {epochs} epochs) under MXTPU_QUANT_STEP=int8: "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, the float fit's from "
+          f"the same seed {ref_losses[0]:.4f} -> {ref_losses[-1]:.4f} "
+          f"({rel:.4f} relative, tol {QTRAIN_RTOL}); {sites} quantized sites "
+          f"staged; one capture ({st['capture_ms']:.1f} ms), {st['replays']}"
+          f" replays; the first Dense site (x {site_shape[0]}, w "
+          f"{site_shape[1]}) in the last replay: {n_rows} rows bit-equal to "
+          f"int64 arithmetic of the int8 codes, rescaled; the float product "
+          f"of the same operands differs by up to {float_gap:.4e}; median "
+          f"of the last 10 {med:.2f} ms/step = {B * T / med * 1e3:.1f} "
+          f"tokens/s against the float fit's {ref_med:.2f} ms; fp8 and "
+          f"back: module_step {flip}; launches {launches}; {smi}",
+          flush=True)
+    print(f"  losses {[round(v, 4) for v in losses]}; float "
+          f"{[round(v, 4) for v in ref_losses]}; ms/step "
+          f"{[round(v, 2) for v in step_ms]}", flush=True)
+    # the probe's clones go with the programs that write them
+    del net, mod, seen, site
+    torch.cuda.empty_cache()
+    return launches
+
+
+def site_product(torch, kind, site, mode):
+    """(e) ``mode``'s product (None: the float one) of a probed site's
+    operands, on the CPU: ``quant.train``'s ``quant_dense``/``quant_conv``
+    as the CPU's step runs them."""
+    import torch.nn.functional as F
+    from mxtpu_torch.quant import train as qt
+    x, w, _, kw = site
+    x, w = x.cpu(), w.cpu()
+    cfg = {k: v for k, v in kw.items() if k not in ("mode", "record")}
+    with torch.no_grad():
+        if kind == "dense":
+            return (qt.quant_dense(x, w, mode=mode, record=False) if mode
+                    else torch.matmul(x, w.t()))
+        return (qt.quant_conv(x, w, mode=mode, record=False, **cfg) if mode
+                else F.conv2d(x, w, None, **cfg))
+
+
+def step_readings(torch, card, cpu, mode, kinds):
+    """(e) a card run against a CPU run under ``mode``: the losses' largest
+    difference of max(|CPU|, 1), the weights' (:func:`weight_diffs`), and
+    for each site kind the card step's product against ``mode``'s product
+    of the same operands on the CPU, of max(largest entry, 1) (None where
+    the card's step ran no such quantized site). Then the parts that fail
+    ``QSTEP_TOL`` (fp8's losses: ``QSTEP_FP8_LOSS``)."""
+    ldiff = max(abs(a - b) / max(abs(b), 1.0)
+                for a, b in zip(card["losses"], cpu["losses"]))
+    wd = weight_diffs(torch, card["net"], cpu["net"])
+    sites = {}
+    for kind in kinds:
+        # the capture's clones once a replay wrote them, else the last
+        # eager run's (a one-step fit on the card, every step on the CPU)
+        site = card["seen"].get((kind, True)) if card["replayed"] else None
+        site = card["seen"].get((kind, False)) if site is None else site
+        if site is None:
+            sites[kind] = None
+            continue
+        want = site_product(torch, kind, site, mode)
+        sites[kind] = ((site[2].cpu().float() - want.float()).abs().max()
+                       .item() / max(want.abs().max().item(), 1.0))
+    ltol = QSTEP_FP8_LOSS if mode == "fp8" else QSTEP_TOL
+    fails = ([f"losses {ldiff:.3e} > {ltol}"] if ldiff > ltol else []) \
+        + ([f"weights {wd[0][0]:.3e} > {QSTEP_TOL}"]
+           if wd[0][0] > QSTEP_TOL else []) \
+        + [f"{k} site " + ("not quantized" if d is None
+                           else f"{d:.3e} > {QSTEP_TOL}")
+           for k, d in sites.items() if d is None or d > QSTEP_TOL]
+    return dict(ldiff=ldiff, ltol=ltol, wd=wd, sites=sites, fails=fails)
+
+
+def quant_step_card_vs_cpu(torch, mx, lm, smi, tmp):
+    """(e) card against CPU under the quantized step: the flagship at 2
+    layers (f32, B2 T256), 3 SGD-momentum steps (lr ``QSTEP_LR``) under
+    ``int8`` and ``fp8``; one ``int8`` step of a small conv net
+    (``quant_conv``). The card's run in the CPU's mode: losses and weights
+    within ``QSTEP_TOL`` x max(largest entry, 1) (fp8's losses
+    ``QSTEP_FP8_LOSS``), and the product of the card step's first
+    quantized site of each kind within ``QSTEP_TOL`` of the mode's product
+    of the same operands on the CPU (:func:`step_readings`). Controls:
+    the card's runs in each other mode (and with the mode off) against
+    the same CPU run must fail that check."""
+    import numpy as np
+    from mxtpu_torch import io
+    from mxtpu_torch.gluon import nn
+    V = MODULE["vocab"]
+    gpu = mx.gpu(0)
+    rs = np.random.RandomState(16)
+    xb = rs.randint(0, V, (6, 256)).astype(np.int32)
+    yb = rs.randint(0, V, (6, 256)).astype(np.float32)
+    f = os.path.join(tmp, "q.params")
+    card = lm.transformer_lm("flagship", vocab_size=V, num_layers=2)
+    card.initialize(mx.init.Xavier(), ctx=gpu)
+    card.save_parameters(f)
+    del card
+
+    def conv_net(ctx):
+        net = nn.HybridSequential(prefix="qconv_")
+        with net.name_scope():
+            net.add(nn.Conv2D(16, 3, padding=1, in_channels=3,
+                              activation="relu"),
+                    nn.Conv2D(32, 3, strides=2, padding=1, in_channels=16),
+                    nn.Flatten(), nn.Dense(10, in_units=32 * 16 * 16))
+        net.initialize(mx.init.Xavier(), ctx=ctx)
+        return net
+
+    fc = os.path.join(tmp, "qconv.params")
+    mx.random.seed(16)
+    conv_net(mx.cpu()).save_parameters(fc)
+    g = torch.Generator().manual_seed(16)
+    xc = torch.rand((4, 3, 32, 32), generator=g).numpy()
+    yc = torch.randint(0, 10, (4,), generator=g).float().numpy()
+    # (what, data, labels, batch, the CPU's modes, site kinds)
+    legs = [("flagship L2 f32 B2 T256, 3 steps", xb, yb, 2, ("int8", "fp8"),
+             ("dense",)),
+            ("conv net B4 32x32, 1 step", xc, yc, 4, ("int8",),
+             ("conv", "dense"))]
+
+    def fit(x, y, batch, ctx, device, mode, probe):
+        if mode:
+            os.environ["MXTPU_QUANT_STEP"] = mode
+        else:
+            os.environ.pop("MXTPU_QUANT_STEP", None)
+        if x is xb:
+            net = lm.transformer_lm("flagship", vocab_size=V, num_layers=2,
+                                    device=device)
+            net.load_parameters(f)
+        else:
+            net = conv_net(ctx)
+            net.load_parameters(fc, ctx=ctx)
+        m = mx.mod.Module(net, context=ctx)
+        it = io.NDArrayIter(x, y, batch_size=batch)
+        with (quant_site_probe() if probe else contextlib.nullcontext()) \
+                as seen:
+            losses = module_fit(torch, mx, m, it, 1, "sgd",
+                                {"learning_rate": QSTEP_LR,
+                                 "momentum": 0.9})[0]
+        # the probe's capture clones hold a replay's values only if one ran
+        return dict(losses=losses, net=net, seen=seen or {},
+                    replayed=len(losses) > 1)
+
+    try:
+        for what, x, y, batch, modes, kinds in legs:
+            cards = {m: fit(x, y, batch, gpu, None, m, True)
+                     for m in ("int8", "fp8", None)}
+            for mode in modes:
+                cpu = fit(x, y, batch, mx.cpu(), "cpu", mode, False)
+                for run_mode, c in cards.items():
+                    r = step_readings(torch, c, cpu, mode, kinds)
+                    sites = ", ".join(
+                        f"{k} site " + ("not quantized" if d is None
+                                        else f"{d:.3e}")
+                        for k, d in r["sites"].items())
+                    if run_mode == mode:
+                        check(not r["fails"],
+                              f"(e) {what} under {mode}, card vs CPU: "
+                              f"{r['fails']} (losses {c['losses']} vs "
+                              f"{cpu['losses']}, weights {r['wd'][:3]})")
+                        print(f"quant (e) {what} under MXTPU_QUANT_STEP="
+                              f"{mode}, card vs CPU: losses {c['losses']} "
+                              f"vs {cpu['losses']}, max diff "
+                              f"{r['ldiff']:.3e} of max(|CPU|, 1) (tol "
+                              f"{r['ltol']}); weights max diff of each "
+                              f"tensor's largest entry or 1 "
+                              + ", ".join(f"{d:.3e} in {n}"
+                                          for d, n in r["wd"][:2])
+                              + f"; the card step's first quantized "
+                              f"{sites} of the {mode} product of its "
+                              f"operands on the CPU (tol {QSTEP_TOL}); "
+                              f"{smi}", flush=True)
+                    else:
+                        check(bool(r["fails"]),
+                              f"(e) control: the card's {what} run with "
+                              f"the mode {run_mode or 'off'} passed the "
+                              f"check against the CPU's {mode} run "
+                              f"(losses {r['ldiff']:.3e}, weights "
+                              f"{r['wd'][0][0]:.3e}, {sites})")
+                        print(f"quant (e) control: the card's run with the "
+                              f"mode {run_mode or 'off'} against the CPU's "
+                              f"{mode} run fails the check: losses "
+                              f"{r['ldiff']:.3e}, weights "
+                              f"{r['wd'][0][0]:.3e}, {sites}; failing: "
+                              + "; ".join(r["fails"]), flush=True)
+                del cpu
+            del cards
+    finally:
+        os.environ.pop("MXTPU_QUANT_STEP", None)
+    torch.cuda.empty_cache()
+
+
+def phase_quant(torch, mx, counts, smi, score15=None):
+    """Phase 16: int8 quantization on the card (see the module docstring).
+    Returns the attention kernels' launches in (d)'s quantized fit."""
+    import tempfile
+    from mxtpu_torch import serving, step_cache
+    from mxtpu_torch.gluon.model_zoo import transformer as lm
+    from mxtpu_torch.gluon.model_zoo import vision
+    from mxtpu_torch.ops import attention
+    tmp = tempfile.mkdtemp(prefix="phase16_")
+    quant_product_pair(torch, smi)
+    torch.cuda.empty_cache()
+    quant_resnet50(torch, mx, vision, serving, smi, score15)
+    quant_card_vs_cpu(torch, mx, vision, smi)
+    launches = quant_train_flagship(torch, mx, lm, attention, step_cache,
+                                    counts, smi)
+    quant_step_card_vs_cpu(torch, mx, lm, smi, tmp)
+    return launches
+
+
 def launch_counter(attention, quant_attention):
     """``counts(n)``: every kernel wrapper's launch counts (and the sm90
     route's) set to ``n``."""
@@ -4694,13 +5470,18 @@ def run():
                                attention, step_cache, counts, smi[0],
                                train_ms, glu_ms)
     torch.cuda.empty_cache()
-    timed_phase("vision", phase_vision, torch, mx, counts)
+    vision_out = timed_phase("vision", phase_vision, torch, mx, counts)
+    torch.cuda.empty_cache()
+    quant_l = timed_phase("quantization", phase_quant, torch, mx, counts,
+                          smi[0], vision_out["score"])
     print(f"K1 launches: forward {k1_launches}, training "
           f"{train_launches['K1']}, gluon {glu['K1']}, module {mod_l['K1']}, "
-          f"symbolic graph {sym_l['K1']}", flush=True)
-    sm90 = {k: train_launches[k] + glu[k] + mod_l[k]
+          f"symbolic graph {sym_l['K1']}, quantized module {quant_l['K1']}",
+          flush=True)
+    sm90 = {k: train_launches[k] + glu[k] + mod_l[k] + quant_l[k]
             for k in ("K1_sm90", "K2_sm90", "K3_sm90")}
-    gl_path = "train (bf16) + gluon (a) (bf16) + module (a) (bf16)"
+    gl_path = ("train (bf16) + gluon (a) (bf16) + module (a) (bf16) + "
+               "quantization (d) (bf16, MXTPU_QUANT_STEP=int8)")
 
     bwd_src = "mxtpu_torch/csrc/flash_bwd.cu"
     sm90_src = "mxtpu_torch/csrc/flash_bwd_sm90.cu"
@@ -4820,6 +5601,35 @@ def run_vision_only():
           flush=True)
 
 
+def run_quant_only():
+    """Phase 16 alone, after the build (``python3 chip_smoke.py --phase
+    16``): (d) runs its own float fit for the comparison; no kernels line,
+    no result line."""
+    import torch
+    if not torch.cuda.is_available():
+        raise SmokeFailure("no CUDA device: this smoke runs on the card only")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mxtpu_torch import _build
+    from mxtpu_torch.ops import attention, quant_attention
+    import mxtpu_torch as mx
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    print(smi[0], flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    t0 = time.monotonic()
+    _build.build_all()
+    check_build(_build)
+    print(f"[build: {time.monotonic() - t0:.1f} s]", flush=True)
+    t0 = time.monotonic()
+    phase_quant(torch, mx, launch_counter(attention, quant_attention),
+                smi[0])
+    print(f"[quantization: {time.monotonic() - t0:.1f} s] phase 16 passed",
+          flush=True)
+
+
 def main() -> int:
     try:
         if sys.argv[1:] == ["--phase", "14"]:
@@ -4827,6 +5637,9 @@ def main() -> int:
             return 0
         if sys.argv[1:] == ["--phase", "15"]:
             run_vision_only()
+            return 0
+        if sys.argv[1:] == ["--phase", "16"]:
+            run_quant_only()
             return 0
         run()
     except SmokeFailure as e:

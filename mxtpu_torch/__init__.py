@@ -14,8 +14,10 @@ runtime by NVRTC), and the Gluon training front end: ``gluon`` (``Block``,
 end: ``sym``/``symbol`` (graphs, ``Executor``), ``mod``/``module``
 (``Module.fit``, ``BucketingModule``, the fused ``StepExecutor`` step),
 ``io`` (``NDArrayIter``), ``model``, ``callback``, ``monitor`` and
-``AttrScope``. Module paths mirror ``mxtpu/`` so each module's counterpart
-is easy to find.
+``AttrScope``; and int8 quantization: ``contrib.quantization``
+(``quantize_net``), ``quant.calibrate`` and the quantized fused step
+(``quant.train``, ``MXTPU_QUANT_STEP``). Module paths mirror ``mxtpu/``
+so each module's counterpart is easy to find.
 
 The package imports ``torch`` and never JAX or ``mxtpu``. Entry points run
 on the card unless the caller passes ``device="cpu"`` (or, for ``nd``,
@@ -56,9 +58,10 @@ from . import monitor  # noqa: E402
 from . import module  # noqa: E402
 from . import module as mod  # noqa: E402
 from .module import Module  # noqa: E402
+from . import contrib  # noqa: E402
 
-__all__ = ["AttrScope", "Context", "Module", "NDArray", "Symbol",
-           "attribute", "autograd", "callback", "cpu", "current_context",
+__all__ = ["AttrScope", "Context", "Module", "NDArray", "Symbol", "attribute",
+           "autograd", "callback", "contrib", "cpu", "current_context",
            "engine", "gluon", "gpu", "init", "initializer", "io", "kvstore",
            "load_checkpoint", "metric", "mod", "model", "module", "monitor",
            "nd", "num_gpus", "operator", "optimizer", "random",

@@ -110,7 +110,8 @@ class HybridSequential(HybridBlock):
 
 
 class Dense(_Layer):
-    """Fully-connected layer: ``y = act(x . weight^T + bias)``."""
+    """Fully-connected layer: ``y = act(x . weight^T + bias)``; under
+    ``quant.train.quant_scope`` the product is ``ops.nn._QUANT_DENSE``'s."""
 
     def __init__(self, units: int, activation: Optional[str] = None,
                  use_bias: bool = True, flatten: bool = True,
@@ -138,7 +139,13 @@ class Dense(_Layer):
             x = x.reshape(x.shape[0], -1)
         w = self._ready("weight", (self._units, x.shape[-1]))
         b = self._ready("bias", (self._units,)) if self._use_bias else None
-        out = F.linear(x, w, b)
+        if _ops._QUANT_DENSE is not None:
+            # quant_scope's product (the bias added in float)
+            out = _ops._QUANT_DENSE(x, w)
+            if b is not None:
+                out = out + b
+        else:
+            out = F.linear(x, w, b)
         if self._act:
             out = _ops._activation(out, act_type=self._act)
         return out

@@ -7,7 +7,9 @@ loss heads whose gradient is not the derivative of their forward
 (``SoftmaxOutput``, ``make_loss``, the regression outputs, ``SVMOutput``,
 ``IdentityAttachKLSparseReg``) are ``torch.autograd.Function``s with the
 reference's injected backward. Dropout draws its mask from the device's
-generator (``mxtpu_torch.rng``).
+generator (``mxtpu_torch.rng``). ``_QUANT_DENSE`` and ``_QUANT_CONV`` are
+the hook points of the quantized fused step (``quant.train.quant_scope``):
+unset, nothing here changes.
 """
 
 from __future__ import annotations
@@ -26,12 +28,20 @@ from .registry import alias, register
 # ---------------------------------------------------------------------------
 
 
+# Low-precision hooks (mxtpu_torch.quant.train.quant_scope): when set, they
+# replace the float product (FullyConnected and gluon.nn.Dense) or the
+# convolution (Convolution); the bias, flattening and layout stay here
+_QUANT_DENSE = None   # (x, weight) -> x @ weight.T in the active quant mode
+_QUANT_CONV = None    # (data, weight, stride=, padding=, dilation=, groups=)
+
+
 @register("FullyConnected", aliases=("fully_connected",))
 def _fully_connected(data, weight, bias=None, num_hidden: int = 0,
                      no_bias: bool = False, flatten: bool = True):
     """src/operator/nn/fully_connected.cc: y = x·Wᵀ + b (weight [out, in])."""
     x = data.reshape(data.shape[0], -1) if flatten and data.dim() > 2 else data
-    y = torch.matmul(x, weight.T)
+    y = _QUANT_DENSE(x, weight) if _QUANT_DENSE is not None \
+        else torch.matmul(x, weight.T)
     if bias is not None and not no_bias:
         y = y + bias
     return y
@@ -60,7 +70,11 @@ def _convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
     n = len(kernel) if kernel else data.dim() - 2
     stride, dilate = _tup(stride, n), _tup(dilate, n)
     pad = _tup(pad, n) if pad else (0,) * n
-    out = _CONV[n](data, weight, None, stride, pad, dilate, num_group)
+    if _QUANT_CONV is not None:
+        out = _QUANT_CONV(data, weight, stride=stride, padding=pad,
+                          dilation=dilate, groups=num_group)
+    else:
+        out = _CONV[n](data, weight, None, stride, pad, dilate, num_group)
     if bias is not None and not no_bias:
         out = out + bias.reshape((1, -1) + (1,) * n)
     return out

@@ -3,15 +3,17 @@ quantization counters of the serving path, and the device-feed,
 resilience, serving, SLO-scheduler, router, checkpoint, communication,
 memory and sanitizer stores of ``mxtpu_torch.observability.metrics``.
 
-``quantize_lm`` records each weight's max-abs round-trip error, and
-``build_step`` the number of int8 matmul sites it stages. The checkpoint,
+``quantize_lm`` records each weight's max-abs round-trip error,
+``build_step`` and the quantized fused step (``quant.train``) the number
+of int8 matmul sites they stage, and ``quant.calibrate.calibrate_feed``
+each site's calibrated activation range. The checkpoint,
 communication, memory and sanitizer stores have no writer in the port yet.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict
+from typing import Dict, Tuple
 
 from .observability.metrics import (  # noqa: F401
     get_checkpoint_stats, get_comm_stats, get_feed_stats, get_memory_stats,
@@ -28,8 +30,8 @@ from .observability.metrics import (  # noqa: F401
     reset_sched_stats, reset_serving_stats, sanitizer_violations,
     set_feed_depth)
 
-__all__ = ["record_quant_matmuls", "record_quant_error", "get_quant_stats",
-           "reset_quant_stats",
+__all__ = ["record_quant_matmuls", "record_quant_error",
+           "record_quant_range", "get_quant_stats", "reset_quant_stats",
            "record_feed_transfer", "record_feed_resident",
            "record_feed_prefetch", "record_feed_consume", "set_feed_depth",
            "get_feed_stats", "reset_feed_stats",
@@ -51,6 +53,7 @@ __all__ = ["record_quant_matmuls", "record_quant_error", "get_quant_stats",
 _lock = threading.Lock()
 _matmuls = 0
 _quant_err: Dict[str, float] = {}
+_quant_ranges: Dict[str, Tuple[float, float]] = {}
 
 
 def record_quant_matmuls(n: int = 1) -> None:
@@ -70,11 +73,23 @@ def record_quant_error(tensor: str, err: float) -> None:
             _quant_err[tensor] = float(err)
 
 
-def get_quant_stats() -> dict:
-    """``matmuls`` (quantized matmul sites built) and ``max_abs_error``
-    (per-tensor weight round-trip error high-water)."""
+def record_quant_range(tensor: str, lo: float, hi: float) -> None:
+    """Calibrated activation range of one site (``quant.calibrate``); it
+    only widens, so repeated calibration passes compose."""
     with _lock:
-        return {"matmuls": _matmuls, "max_abs_error": dict(_quant_err)}
+        old = _quant_ranges.get(tensor)
+        if old is not None:
+            lo, hi = min(lo, old[0]), max(hi, old[1])
+        _quant_ranges[tensor] = (float(lo), float(hi))
+
+
+def get_quant_stats() -> dict:
+    """``matmuls`` (quantized matmul sites built), ``max_abs_error``
+    (per-tensor weight round-trip error high-water) and ``ranges`` (per
+    site calibrated activation (min, max))."""
+    with _lock:
+        return {"matmuls": _matmuls, "max_abs_error": dict(_quant_err),
+                "ranges": dict(_quant_ranges)}
 
 
 def reset_quant_stats() -> None:
@@ -82,3 +97,4 @@ def reset_quant_stats() -> None:
     with _lock:
         _matmuls = 0
         _quant_err.clear()
+        _quant_ranges.clear()

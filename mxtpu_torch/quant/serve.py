@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from . import kv_quant
 from ..ops import quant_attention
+from ..ops.quantization import int_matmul
 
 __all__ = ["QuantSpec", "parse_quant", "quantize_lm", "build_step",
            "build_verify_step"]
@@ -41,11 +42,10 @@ _LAYER_MATMULS = ("qw", "kw", "vw", "ow", "f1w", "f2w")
 _VALID_TOKENS = {"int8_kv": ("kv", "int8"), "fp8_kv": ("kv", "fp8"),
                  "int8_w": ("weights", "int8")}
 
-# the card's int8 product (``torch._int_mm``) takes more than 16 rows and
-# K, N multiples of 8: activation rows are padded to _MIN_ROWS and to a
-# multiple of _ALIGN with zero rows, head weights once to a multiple of
-# _ALIGN (zero codes stay zero in an exact int32 sum)
-_MIN_ROWS = 24
+# the card's int8 product (``torch._int_mm``, through
+# ``ops.quantization.int_matmul``) takes K, N multiples of 8: head weights
+# are padded once to a multiple of _ALIGN rows (zero codes stay zero in an
+# exact int32 sum); the product pads the activation rows itself
 _ALIGN = 8
 
 
@@ -159,14 +159,10 @@ def _int8_matmul(h: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor):
     int32 (``torch._int_mm``: cuBLASLt's int8 product on the card, which
     raises on what it does not take; never a float product), then one
     rescale by the row's and the output channel's scales, in the
-    reference's order. Rows are padded with zero rows (exact) to what the
-    card's product takes, and sliced off."""
+    reference's order. ``int_matmul`` pads rows (and K, N) with zeros
+    (exact) to what the card's product takes, and slices them off."""
     h_q, h_s = kv_quant.quantize_rows(h, "int8")
-    M = h_q.shape[0]
-    Mp = max(_MIN_ROWS, -(-M // _ALIGN) * _ALIGN)
-    if Mp != M:
-        h_q = torch.cat([h_q, h_q.new_zeros((Mp - M, h_q.shape[1]))])
-    acc = torch._int_mm(h_q, w_q.t())[:M]
+    acc = int_matmul(h_q, w_q)
     return acc.float() * h_s[:, None] * w_s[None, :]
 
 

@@ -507,9 +507,13 @@ class StepExecutor:
 
     Each :meth:`step` looks its signature up (the batch's, the
     parameters', the auxiliary states' and the optimizer states' shapes,
-    dtypes and devices, ``grad_req``, ``optimizer_fingerprint`` and the lr
-    and wd multipliers); a new signature builds a program (a trace in the
-    ``module_step`` entry of :func:`snapshot`), a known one is a hit. The
+    dtypes and devices, ``grad_req``, ``optimizer_fingerprint``, the lr
+    and wd multipliers and, last, ``quant.train.quant_step_mode()``); a new
+    signature builds a program (a trace in the ``module_step`` entry of
+    :func:`snapshot`), a known one is a hit. Under ``MXTPU_QUANT_STEP``
+    every run of the body is inside ``quant_scope`` (Dense and Conv
+    products quantized, straight-through gradients), and its quantized
+    sites are counted once a program (``get_quant_stats()['matmuls']``). The
     program's body copies nothing from the host: it reads the batch from
     static buffers and ``t``, lr, wd, rescale and clip from a float64
     device buffer, runs the block and the loss inside ``autograd.record()``
@@ -571,6 +575,7 @@ class StepExecutor:
                     i, p.data()))
 
     def _sig(self, data, label) -> tuple:
+        from .quant.train import quant_step_mode
         tr = self.trainer
         return (tuple(_tensor_sig(d) for d in data),
                 _tensor_sig(label),
@@ -580,9 +585,10 @@ class StepExecutor:
                       for st in tr._states),
                 tuple(p.grad_req for p in self._param_handles),
                 optimizer_fingerprint(tr._optimizer),
-                tuple(map(tuple, self._mults())))
+                tuple(map(tuple, self._mults())),
+                quant_step_mode())    # MXTPU_QUANT_STEP: a flip builds anew
 
-    def _build(self, data, label) -> _StepProgram:
+    def _build(self, data, label, quant_mode) -> _StepProgram:
         """The signature's program over static copies of the batch. The
         body holds what it runs and not the executor, so an executor and
         its graphs are freed when the last reference goes."""
@@ -590,6 +596,7 @@ class StepExecutor:
         from .gluon.loss import SoftmaxCrossEntropyLoss
         from .ndarray.ndarray import NDArray
         from .ops import attention
+        from .quant.train import quant_scope
         from .rng import sample_bits
         tr = self.trainer
         handles = self._param_handles
@@ -613,20 +620,25 @@ class StepExecutor:
         block, loss_fn, dropouts = self.block, self.loss_fn, self._dropouts
         expose = isinstance(loss_fn, SoftmaxCrossEntropyLoss)
         out: dict = {}
+        staged = [False]
 
         def body():
             seed = values[0].long()
             for j, d in enumerate(dropouts):
                 d.seed = sample_bits(seed, j)
             try:
-                with autograd.record(train_mode=True):
-                    o = block(*[NDArray(x) for x in xs])
-                    outs = list(o) if isinstance(o, (tuple, list)) else [o]
-                    loss = loss_fn(outs[0], NDArray(y)).data
-                g = torch.autograd.grad(loss, params,
-                                        grad_outputs=torch.ones_like(loss),
-                                        allow_unused=True,
-                                        materialize_grads=True)
+                # the quantized twins for every run of the body (the
+                # capture's too); its sites counted on the first run only
+                with quant_scope(quant_mode, record=not staged[0]):
+                    with autograd.record(train_mode=True):
+                        o = block(*[NDArray(x) for x in xs])
+                        outs = list(o) if isinstance(o, (tuple, list)) \
+                            else [o]
+                        loss = loss_fn(outs[0], NDArray(y)).data
+                    staged[0] = True
+                    g = torch.autograd.grad(
+                        loss, params, grad_outputs=torch.ones_like(loss),
+                        allow_unused=True, materialize_grads=True)
             finally:
                 for d in dropouts:
                     d.seed = None
@@ -688,7 +700,7 @@ class StepExecutor:
         traced_now = entry is None
         if traced_now:
             self._stats.miss()
-            entry = self._cache[sig] = self._build(data, label)
+            entry = self._cache[sig] = self._build(data, label, sig[-1])
         else:
             self._stats.hit()
         self._last_sig = sig

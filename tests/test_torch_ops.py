@@ -36,7 +36,8 @@ from mxtpu_torch.ops import registry as treg
 RTOL, ATOL = 1e-5, 1e-6
 
 SLICE_MODULES = ("elementwise", "reduce", "matrix", "init_ops", "random",
-                 "nn", "operator", "optimizer_ops", "attention")
+                 "nn", "operator", "optimizer_ops", "attention",
+                 "quantization")
 # ops of those modules that wait for a later slice (SyncBatchNorm needs
 # parallel/collectives)
 WAITING = {"contrib.SyncBatchNorm", "contrib._contrib_SyncBatchNorm"}
@@ -239,6 +240,54 @@ CASES.update({
     "linspace": [case(start=0.0, stop=1.0, num=5),
                  case(start=-1.0, stop=2.0, num=4, endpoint=False)],
     "eye": [case(N=3), case(N=3, M=4, k=1)],
+})
+
+# int8 quantization: codes and their travelling ranges (no gradient)
+_QRS = np.random.RandomState(16)
+
+
+def _codes(shape, dtype=np.int8):
+    lo, hi = (0, 256) if dtype == np.uint8 else (-127, 128)
+    return K(_QRS.randint(lo, hi, shape).astype(dtype))
+
+
+def _r(v):
+    return K(np.array([v], np.float32))
+
+
+CASES.update({
+    "quantize": [case(U(4, 16), _r(-1.5), _r(1.8), grad=False),
+                 case(U(4, 16, lo=-0.2, hi=2.0), _r(0.0), _r(1.7),
+                      out_type="uint8", grad=False)],
+    "dequantize": [case(_codes((4, 16)), _r(-1.5), _r(1.8), grad=False),
+                   case(_codes((4, 16), np.uint8), _r(0.0), _r(1.7),
+                        grad=False)],
+    "requantize": [case(K(_QRS.randint(-2 ** 20, 2 ** 20, (8, 8))
+                          .astype(np.int32)), _r(-2.0 ** 31 + 1),
+                        _r(2.0 ** 31 - 1), grad=False),
+                   case(K(_QRS.randint(-2 ** 20, 2 ** 20, (8, 8))
+                          .astype(np.int32)), _r(-2.0 ** 31 + 1),
+                        _r(2.0 ** 31 - 1), min_calib_range=-3e5,
+                        max_calib_range=2e5, grad=False)],
+    "quantized_flatten": [case(_codes((2, 3, 4, 4)), _r(-1.0), _r(1.0),
+                               grad=False)],
+    "quantized_pooling": [case(_codes((1, 2, 5, 5)), _r(-1.0), _r(1.0),
+                               kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                               pool_type="avg", grad=False),
+                          case(_codes((1, 2, 5, 5), np.uint8), _r(0.0),
+                               _r(1.0), grad=False)],
+    "quantized_fully_connected": [
+        case(_codes((3, 19)), _codes((5, 19)), _r(-1.0), _r(2.0), _r(-0.5),
+             _r(0.5), num_hidden=5, grad=False),
+        case(_codes((2, 3, 8), np.uint8), _codes((4, 8)), _r(0.0), _r(2.0),
+             _r(-0.5), _r(0.5), num_hidden=4, grad=False)],
+    "quantized_conv": [
+        case(_codes((1, 3, 7, 7), np.uint8), _codes((4, 3, 3, 3)), _r(0.0),
+             _r(3.0), _r(-0.7), _r(0.7), kernel=(3, 3), stride=(2, 2),
+             pad=(1, 1), num_filter=4, grad=False),
+        case(_codes((1, 4, 6, 6)), _codes((4, 2, 3, 3)), _r(-1.0), _r(1.0),
+             _r(-0.7), _r(0.7), kernel=(3, 3), dilate=(2, 2), num_filter=4,
+             num_group=2, grad=False)],
 })
 
 # nn

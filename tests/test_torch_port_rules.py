@@ -65,7 +65,9 @@ def test_no_jax_or_mxtpu_imports(path):
     "module.py", "serving/chained.py", "autograd.py", "ops/attention.py",
     "gluon/nn/conv_layers.py", "gluon/model_zoo/vision.py",
     "gluon/model_zoo/model_store.py", "gluon/model_zoo/__init__.py",
-    "parallel/data_parallel.py"])
+    "parallel/data_parallel.py", "ops/quantization.py", "quant/calibrate.py",
+    "quant/train.py", "contrib/__init__.py", "contrib/quantization.py",
+    "ops/nn.py", "profiler.py"])
 def test_the_counterparts_are_checked(module):
     """Each module that has a counterpart in the JAX package lies where
     its counterpart does, and the import rule above reads it."""

@@ -129,7 +129,8 @@ def test_quant_stats_equal_jax(nets):
     # a KV-only step stages no int8 matmul
     profiler.reset_quant_stats()
     serve.build_step(tnet, 2, 64, serve.parse_quant("int8_kv"))
-    assert profiler.get_quant_stats() == {"matmuls": 0, "max_abs_error": {}}
+    assert profiler.get_quant_stats() == {"matmuls": 0, "max_abs_error": {},
+                                          "ranges": {}}
 
 
 @pytest.mark.parametrize("M", [1, 8, 40])

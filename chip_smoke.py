@@ -3,8 +3,9 @@
 main paths on one NVIDIA GPU: serving, training, the imperative ``nd`` +
 ``autograd`` path with runtime-compiled kernels (``rtc``), the Gluon front
 end, the symbolic and Module front ends, the vision path (ResNet-50
-training and the zoo's scoring) and int8 quantization (an int8 ResNet-50,
-the quantized fused training step).
+training and the zoo's scoring), int8 quantization (an int8 ResNet-50,
+the quantized fused training step) and recurrent nets (the reference's
+word LM, control flow, ``jit``).
 
     python3 chip_smoke.py
 
@@ -307,18 +308,53 @@ Phases, in order; any failure exits non-zero without a result line:
     the other way moves its value by 1/16 to 1/8 of itself); controls:
     the card's runs in the other mode and with the mode off fail that
     check against each CPU run.
+17. recurrent nets, control flow and ``jit`` (``ops/{rnn,sequence,
+    control_flow}.py``, ``gluon.rnn``, ``jit``, ``rnn``; no TPU kernel
+    lies on it: the recurrence is a loop of plain PyTorch ops, captured
+    with the step): (a) ``bench.py``'s ``bench_word_lm``:
+    ``Embedding(10000, 650)`` -> ``LSTM(650, 2 layers, TNC)`` ->
+    ``Dense(10000)`` inside its ``LMWrap`` ((N, T) -> (T, N) in the
+    forward), T35 B128 f32, one resident batch from RandomState(0),
+    SGD(1.0, momentum 0.9) through ``DataParallelTrainer``: 1 + 1 + 30
+    steps, one capture, the learning gate (final loss < first - 0.1);
+    ms a step, tokens/s, capture ms, peak memory, busy share of 3
+    replays, FLOPs (3 x 118.8 G) against 67 TFLOP/s f32; one replayed
+    step bit-equal to its body run eagerly from the same state; two
+    replays from one state at t and t + 1 give the same loss; one LSTM
+    layer at this shape, forward and backward, through ``rnn_scan`` and
+    through ``torch.nn.LSTM`` (cuDNN, the same weights: a yardstick, not
+    on the path); then the same net at ``dropout=0.5``: two replays from
+    one state at t and t + 1 differ (new masks between the layers), at t
+    twice they are equal; (b) card against CPU: a 2-layer LSTM LM (64
+    wide, T8 B4) logits within 1e-5 x max(|CPU|, 1), its weights after
+    one SGD-momentum step within 5e-5 of each tensor's largest entry; a
+    bidirectional 2-layer GRU and ``rnn_tanh`` through the fused ``RNN``
+    op, outputs and states within 1e-5; (c) ``examples/train_word_lm.py``'s
+    flow (vocab 60, 48 wide, B8, bptt 16, lr 4, 4 epochs on its Markov
+    corpus): a ``CachedOp`` over the window loss, eager under ``record``,
+    ``clip_global_norm(0.25)``, ``gluon.Trainer`` SGD, validation through
+    the ``CachedOp`` captured once and replayed (hits counted): best
+    validation perplexity < 20; (d) ``foreach`` over an ``LSTMCell``
+    against ``rnn_scan`` with its weights within 1e-6; ``while_loop``'s
+    reference example and its gradient equal on card and CPU; ``cond``
+    inside a ``CachedOp`` captured once: both predicates equal the eager
+    branch; (e) ``BucketSentenceIter`` (buckets 4, 8, 12) into
+    ``BucketingModule`` over an NTC LSTM: one epoch, one fused program a
+    bucket, the masked cross-entropy falls. K1 to K5 must not launch in
+    it.
 
 ``python3 chip_smoke.py --phase 14`` builds the kernels and runs phase 14
-alone; ``--phase 15`` runs phase 15 alone, building nothing; ``--phase
-16`` builds the kernels and runs phase 16 alone (no kernels line, no
-result line).
+alone; ``--phase 15`` and ``--phase 17`` run phase 15 or 17 alone,
+building nothing; ``--phase 16`` builds the kernels and runs phase 16
+alone (no kernels line, no result line).
 
 Launch counts are set to 0 just before phases 4, 5, 5c (its first
 burst), 5e (its SLO burst), 5f, 8, 9 (each fused run), 10, saxpy's drive in
 11, the 10 steps of 12, the 12 steps of 13 (a), phase 14 (a)'s fit, (c)'s
 forward and backward and (d)'s chained predict, phase 15 (all
-zero: no kernel of the port on the vision path) and phase 16 (d)'s
-quantized fit, and read just after.
+zero: no kernel of the port on the vision path), phase 16 (d)'s
+quantized fit and phase 17 (all zero: none on the RNN path), and read
+just after.
 The line before the last is the kernels' JSON record, with one K1, K2, K3
 and K4 record for each route and the path it runs on (the sm90 records of
 K1-K3 count phases 8, 13 (a), 14 (a) and 16 (d), the simt records of
@@ -5362,6 +5398,619 @@ def phase_quant(torch, mx, counts, smi, score15=None):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 17: recurrent nets, control flow and jit
+# ---------------------------------------------------------------------------
+
+# the JAX package's bench_word_lm (bench.py:361): the reference's word LM
+# (--large), a resident batch, SGD(1.0, momentum 0.9)
+WORD_LM = dict(vocab=10000, embed=650, hidden=650, layers=2, T=35, B=128,
+               steps=30, drop_steps=4)
+# (b): card against CPU, phase 13's bounds: logits and states within 1e-5 x
+# max(|CPU|, 1), weights after one step within 5e-5 of each tensor's
+# largest entry
+RNN_FWD_TOL = 1e-5
+RNN_STEP_TOL = 5e-5
+# (c): examples/train_word_lm.py at tests/test_examples.py:21-27's config;
+# the gate is that test's
+BPTT = dict(vocab=60, corpus_len=12000, branch=4, epochs=4, embed=48,
+            hidden=48, layers=2, batch=8, bptt=16, lr=4.0, clip=0.25,
+            ppl_gate=20.0)
+# (d): foreach over an LSTMCell against rnn_scan (the scan hoists the input
+# product and adds both biases there: another order of the same f32 sums)
+FOREACH_TOL = 1e-6
+
+
+def make_corpus(vocab, length, branch=4, seed=17):
+    """``examples/train_word_lm.py``'s corpus: a first-order Markov chain,
+    every token with ``branch`` fixed successors (numpy only)."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    successors = rs.randint(vocab, size=(vocab, branch))
+    data = np.empty(length, np.int64)
+    data[0] = rs.randint(vocab)
+    draws = rs.randint(branch, size=length)
+    for t in range(1, length):
+        data[t] = successors[data[t - 1], draws[t]]
+    return data
+
+
+def batchify(data, batch_size):
+    """(len,) tokens -> (batch, T) parallel streams."""
+    n = len(data) // batch_size
+    return data[:n * batch_size].reshape(batch_size, n)
+
+
+def word_lm_net(gluon, c, dropout=0.0):
+    """``bench_word_lm``'s net: Embedding -> LSTM (TNC) -> Dense, inside
+    its ``LMWrap``, which takes (N, T) tokens, transposes them to (T, N)
+    in its forward and returns (T * N, V) logits."""
+    V = c["vocab"]
+
+    class LMBlock(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__(prefix="lm_")
+            with self.name_scope():
+                self.embedding = gluon.nn.Embedding(V, c["embed"])
+                self.lstm = gluon.rnn.LSTM(
+                    c["hidden"], num_layers=c["layers"], layout="TNC",
+                    input_size=c["embed"], dropout=dropout)
+                self.decoder = gluon.nn.Dense(V, in_units=c["hidden"],
+                                              flatten=False)
+
+        def forward(self, x):
+            return self.decoder(self.lstm(self.embedding(x)))
+
+    class LMWrap(gluon.HybridBlock):
+        def __init__(self, inner):
+            super().__init__(prefix="wrap_")
+            self.inner = inner
+
+        def forward(self, x):
+            return self.inner(x.t()).reshape(-1, V)
+
+    return LMWrap(LMBlock())
+
+
+def word_lm_flops(c):
+    """One forward's FLOPs: 2 T B 4H (I + H) a layer, then the decoder's
+    2 T B H V; a training step is ~3 of them."""
+    T, B, H = c["T"], c["B"], c["hidden"]
+    lstm = sum(2 * T * B * 4 * H * ((c["embed"] if i == 0 else H) + H)
+               for i in range(c["layers"]))
+    return lstm + 2 * T * B * H * c["vocab"]
+
+
+def word_lm_batch(torch, c):
+    """``bench_word_lm``'s resident batch: (N, T) int32 tokens from
+    RandomState(0) and their next tokens flattened T-major."""
+    import numpy as np
+    rs = np.random.RandomState(0)
+    tok = rs.randint(0, c["vocab"], (c["T"], c["B"])).astype(np.int32)
+    y = np.roll(tok, -1, axis=0).reshape(-1).astype(np.float32)
+    return (torch.from_numpy(np.ascontiguousarray(tok.T)).cuda(),
+            torch.from_numpy(y).cuda())
+
+
+def two_replays(torch, net, dpt, x, y, advance):
+    """Two steps of ``dpt``'s captured program from the same weights and
+    optimizer states; the second at the next ``t`` when ``advance``, else
+    at the same. Returns both losses (the trainer is left after the
+    second)."""
+    live = [p._tensor() for p in net.collect_params().values()] \
+        + [s for st in dpt._states for s in st]
+    saved = [t.detach().clone() for t in live]
+    t0 = dpt._t
+    a = float(dpt.step_async(x, y))
+    with torch.no_grad():
+        for t, v in zip(live, saved):
+            t.copy_(v)
+    if not advance:
+        dpt._t = t0
+    b = float(dpt.step_async(x, y))
+    return a, b
+
+
+def word_lm_trainer(mx, gluon, parallel, optimizer, loss_mod, c, dropout):
+    """``bench_word_lm``'s net on the card (``Uniform`` from seed 0) and its
+    ``DataParallelTrainer``, which must seed the LSTM's dropout."""
+    mx.random.seed(0)
+    net = word_lm_net(gluon, c, dropout)
+    net.initialize()
+    dpt = parallel.DataParallelTrainer(
+        net, loss_mod.SoftmaxCrossEntropyLoss(),
+        optimizer.SGD(learning_rate=1.0, momentum=0.9))
+    check(dpt._dropouts == [net.inner.lstm],
+          f"word LM: the trainer seeds {dpt._dropouts}, not the LSTM")
+    return net, dpt
+
+
+def word_lm_train(torch, mx, gluon, parallel, optimizer, loss_mod, smi):
+    """(a) the word LM at full width; returns its readings."""
+    c = WORD_LM
+    x, y = word_lm_batch(torch, c)
+    net, dpt = word_lm_trainer(mx, gluon, parallel, optimizer, loss_mod, c,
+                               0.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()     # what earlier phases hold
+    t0 = time.monotonic()
+    loss_start = float(dpt.step_async(x, y))
+    first_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    float(dpt.step_async(x, y))           # captures, then replays
+    second_s = time.monotonic() - t0
+    steps = c["steps"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss = dpt.step_async(x, y)
+    loss_end = float(loss)
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    peak = torch.cuda.max_memory_allocated() - held
+    stats = dpt.stats()
+    cost = dpt.cost_analysis()
+    busy, by_op, _ = device_busy(torch, lambda: dpt.step_async(x, y), 3)
+    check(math.isfinite(loss_start) and math.isfinite(loss_end),
+          f"word LM (a): losses {loss_start}, {loss_end}")
+    check(stats["captured"] == 1 and stats["replays"] == steps + 1,
+          f"word LM (a): trainer {stats}: want 1 capture and {steps + 1} "
+          f"replays")
+    check(loss_end < loss_start - 0.1,
+          f"word LM (a) learning gate: loss {loss_start:.4f} -> "
+          f"{loss_end:.4f} (bench.py's gate: fall by 0.1)")
+    fwd = word_lm_flops(c)
+    step_flops = 3 * fwd
+    share = step_flops / (step_ms / 1e3) / PEAK_FLOPS["float32"]
+    bound_ms = step_flops / PEAK_FLOPS["float32"] * 1e3
+    tok_s = c["T"] * c["B"] / step_ms * 1e3
+    top = sorted(by_op.items(), key=lambda kv: -kv[1])[:5]
+    total_us = sum(by_op.values())
+    print(f"rnn (a) [{smi}]: word LM (bench_word_lm) Embedding(10000, 650) "
+          f"-> LSTM(650, 2 layers, TNC) -> Dense(10000), T35 B128 f32 "
+          f"(TF32 off), SGD(1.0, momentum 0.9), DataParallelTrainer, "
+          f"captured: loss {loss_start:.4f} -> {loss_end:.4f} over 2 + "
+          f"{steps} steps (gate: fall by 0.1); first step (body, cost count) "
+          f"{first_s:.2f} s; second (capture {stats['capture_ms']:.1f} ms, "
+          f"then a replay) {second_s * 1e3:.1f} ms; {steps} replays "
+          f"{step_ms:.3f} ms/step = {tok_s:.1f} tokens/s; captures "
+          f"{stats['captured']}, replays {stats['replays']}; device busy "
+          f"{busy:.3f} of 3 replays' wall; peak memory {peak} bytes above "
+          f"the {held} earlier phases hold; FLOPs a step 3 x {fwd / 1e9:.2f} G = "
+          f"{step_flops / 1e9:.1f} G (cost_analysis {cost['flops'] / 1e9:.1f}"
+          f" G) = {step_flops / (step_ms / 1e3) / 1e12:.2f} TFLOP/s = "
+          f"{share:.4f} of 67 TFLOP/s f32; bound {bound_ms:.3f} ms; top "
+          f"device ops (share of busy): "
+          + "; ".join(f"{n[:60]} {us / total_us:.3f}" for n, us in top),
+          flush=True)
+    (lr_, le), names, replayed, eager = replay_vs_eager(torch, net, dpt, x, y)
+    same = lr_ == le and all(torch.equal(a, b)
+                             for a, b in zip(replayed, eager))
+    check(same, f"word LM (a): a replayed step is not bit-equal to its body "
+          f"run eagerly from the same state: loss {lr_} vs {le}; "
+          f"{tensor_diffs(torch, replayed, eager, names)[:3]}")
+    a, b = two_replays(torch, net, dpt, x, y, advance=True)
+    check(a == b, f"word LM (a): without dropout, replays at t and t + 1 "
+          f"from one state differ: {a} vs {b}")
+    print(f"rnn (a): one replayed step bit-equal to its body run eagerly "
+          f"(loss {lr_:.6f}); without dropout two replays from one state at "
+          f"t and t + 1 give {a:.6f} and {b:.6f}", flush=True)
+    yard = cudnn_yardstick(torch, net, c, smi)
+    del net, dpt
+    torch.cuda.empty_cache()
+
+    # the dropout leg: the between-layer masks come from the step's seeds
+    net, dpt = word_lm_trainer(mx, gluon, parallel, optimizer, loss_mod, c,
+                               0.5)
+    losses = [float(dpt.step_async(x, y)) for _ in range(2 + c["drop_steps"])]
+    a, b = two_replays(torch, net, dpt, x, y, advance=True)
+    a2, b2 = two_replays(torch, net, dpt, x, y, advance=False)
+    stats = dpt.stats()
+    check(all(map(math.isfinite, losses)) and stats["captured"] == 1
+          and a != b and a2 == b2,
+          f"word LM (a) dropout 0.5: losses {losses}, trainer {stats}; two "
+          f"replays from one state at t and t + 1: {a} vs {b} (masks must "
+          f"differ); at t twice: {a2} vs {b2} (must be equal)")
+    print(f"rnn (a) dropout 0.5 between the layers: {len(losses)} steps "
+          f"{[round(v, 4) for v in losses]}; two replays from one state at t "
+          f"and t + 1: {a:.6f} vs {b:.6f} (new masks), at t twice: {a2:.6f} "
+          f"and {b2:.6f} (the same masks); trainer {stats}", flush=True)
+    del net, dpt
+    torch.cuda.empty_cache()
+    return dict(step_ms=step_ms, tok_s=tok_s, busy=busy, peak=peak,
+                share=share, bound_ms=bound_ms, **yard)
+
+
+def cudnn_yardstick(torch, net, c, smi):
+    """One LSTM layer at (a)'s shape, forward and backward: the port's
+    ``rnn_scan`` (eager, and captured) beside ``torch.nn.LSTM`` (cuDNN)
+    with the same weights. A yardstick for a later PR, not on the path."""
+    from mxtpu_torch.ops import rnn as ops_rnn
+    from mxtpu_torch.step_cache import GraphProgram
+    T, B, E, H = c["T"], c["B"], c["embed"], c["hidden"]
+    w = [t.detach() for t in net.inner.lstm._weights(E)[0][0]]
+    ref = torch.nn.LSTM(E, H).cuda()
+    with torch.no_grad():
+        for dst, src in zip((ref.weight_ih_l0, ref.bias_ih_l0,
+                             ref.weight_hh_l0, ref.bias_hh_l0), w):
+            dst.copy_(src)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    inp = torch.randn(T, B, E, generator=g, device="cuda",
+                      requires_grad=True)
+    cot = torch.randn(T, B, H, generator=g, device="cuda")
+    h0 = torch.zeros(B, H, device="cuda")
+    wq = [t.clone().requires_grad_(True) for t in w]
+
+    def ours():
+        out, _, _ = ops_rnn._scan(inp, h0, h0, *wq, "lstm", False)
+        return torch.autograd.grad(out, [inp] + wq, cot), out
+
+    def cudnn():
+        out, _ = ref(inp, (h0[None], h0[None]))
+        return torch.autograd.grad(out, [inp] + list(ref.parameters()),
+                                   cot), out
+
+    (g_ours, o_ours), (g_ref, o_ref) = ours(), cudnn()
+    err = (o_ours - o_ref).abs().max().item()
+    gerr = (g_ours[0] - g_ref[0]).abs().max().item()
+    # free the graphs: a live one keeps its leaves' gradient nodes on the
+    # default stream, which a capture may not join
+    del g_ours, o_ours, g_ref, o_ref
+    check(err < 1e-4 and gerr < 1e-4,
+          f"rnn (a) yardstick: rnn_scan and torch.nn.LSTM disagree: outputs "
+          f"{err:.3e}, input gradients {gerr:.3e}")
+    eager_ms = timed_ms(torch, ours, 10)
+    prog = GraphProgram(ours)     # the backward runs on autograd's thread
+    prog.capture(warm_up=ours)
+    graph = timed_ms(torch, prog.replay, 10)
+    cudnn_ms = timed_ms(torch, cudnn, 10)
+    print(f"rnn (a) yardstick [{smi}]: one LSTM layer T{T} B{B} {E} -> {H} "
+          f"f32, forward + backward: rnn_scan eager {eager_ms:.3f} ms, "
+          f"captured {graph:.3f} ms; torch.nn.LSTM (cuDNN) {cudnn_ms:.3f} ms "
+          f"eager; outputs agree to {err:.2e}, input gradients to "
+          f"{gerr:.2e}", flush=True)
+    return dict(layer_eager_ms=eager_ms, layer_graph_ms=graph,
+                cudnn_ms=cudnn_ms)
+
+
+def rel_err(torch, a, b):
+    """max |a - b| over max(max |b|, 1)."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return (a - b).abs().max().item() / max(b.abs().max().item(), 1.0)
+
+
+def share_err(torch, a, b):
+    """max |a - b| over max |b| (each tensor's largest entry)."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+
+
+def packed_size(gates, layers, I, H, dirs):
+    """The fused RNN op's parameter vector length."""
+    n = 0
+    for layer in range(layers):
+        isz = I if layer == 0 else dirs * H
+        n += dirs * (gates * H * isz + gates * H * H + 2 * gates * H)
+    return n
+
+
+def rnn_card_vs_cpu(torch, mx, gluon, parallel, optimizer, loss_mod):
+    """(b) a small LSTM LM, and the fused RNN op, on the card and the
+    CPU from the same weights and inputs."""
+    import numpy as np
+    from mxtpu_torch import nd
+    c = dict(vocab=50, embed=64, hidden=64, layers=2)
+    T, B = 8, 4
+    rs = np.random.RandomState(3)
+    xv = rs.randint(0, c["vocab"], (B, T)).astype(np.int32)
+    yv = rs.randint(0, c["vocab"], (T * B,)).astype(np.float32)
+    nets, res = {}, {}
+    for dev, ctx in (("cpu", mx.cpu()), ("cuda", mx.gpu(0))):
+        nets[dev] = word_lm_net(gluon, c)
+        nets[dev].initialize(mx.init.Xavier(), ctx=ctx)
+    for p, q in zip(nets["cpu"].collect_params().values(),
+                    nets["cuda"].collect_params().values()):
+        q.set_data(p.data().as_in_context(mx.gpu(0)))
+    for dev, net in nets.items():
+        x, y = torch.from_numpy(xv).to(dev), torch.from_numpy(yv).to(dev)
+        net.eval()
+        with torch.no_grad():
+            logits = net(x)
+        dpt = parallel.DataParallelTrainer(
+            net, loss_mod.SoftmaxCrossEntropyLoss(),
+            optimizer.SGD(learning_rate=0.1, momentum=0.9), device=dev)
+        loss = float(dpt.step_async(x, y))
+        res[dev] = (logits, loss, [p._tensor().detach().clone()
+                                   for p in net.collect_params().values()])
+    lerr = rel_err(torch, res["cuda"][0], res["cpu"][0])
+    werr = max(share_err(torch, a, b)
+               for a, b in zip(res["cuda"][2], res["cpu"][2]))
+    loss_err = abs(res["cuda"][1] - res["cpu"][1]) / max(abs(res["cpu"][1]),
+                                                         1.0)
+    check(lerr <= RNN_FWD_TOL and loss_err <= RNN_FWD_TOL
+          and werr <= RNN_STEP_TOL,
+          f"rnn (b) LSTM LM card vs CPU: logits {lerr:.3e} (tol "
+          f"{RNN_FWD_TOL:g}), loss {loss_err:.3e}, weights after one SGD "
+          f"step {werr:.3e} of each tensor's largest entry (tol "
+          f"{RNN_STEP_TOL:g})")
+    out = [f"LSTM LM (2 x 64, T{T} B{B}) logits {lerr:.3e}, loss "
+           f"{loss_err:.3e}, weights after one SGD-momentum step {werr:.3e}"]
+    cases = [("gru, 2 layers, bidirectional", "gru", 3, 2, True),
+             ("rnn_tanh, 1 layer", "rnn_tanh", 1, 1, False)]
+    I, H, T2, B2 = 16, 32, 10, 4
+    for label, mode, gates, layers, bi in cases:
+        dirs = 2 if bi else 1
+        vals = [rs.randn(T2, B2, I).astype(np.float32),
+                rs.uniform(-0.3, 0.3, packed_size(gates, layers, I, H, dirs))
+                .astype(np.float32),
+                rs.randn(layers * dirs, B2, H).astype(np.float32)]
+        got = {}
+        for dev, ctx in (("cpu", mx.cpu()), ("cuda", mx.gpu(0))):
+            outs = nd.RNN(*[nd.array(v, ctx=ctx) for v in vals],
+                          state_size=H, num_layers=layers, mode=mode,
+                          bidirectional=bi, state_outputs=True)
+            got[dev] = [o.data for o in outs]
+        errs = [rel_err(torch, a, b) for a, b in zip(got["cuda"],
+                                                      got["cpu"])]
+        check(max(errs) <= RNN_FWD_TOL,
+              f"rnn (b) fused RNN op {label}: card vs CPU output and states "
+              f"{errs} (tol {RNN_FWD_TOL:g})")
+        out.append(f"nd.RNN {label} (T{T2} B{B2} {I} -> {H}) output and "
+                   f"states {max(errs):.3e}")
+    print("rnn (b) card vs CPU, each as a share of max(|CPU|, 1): "
+          + "; ".join(out), flush=True)
+
+
+def bptt_flow(torch, mx, gluon, nd, autograd, jit, step_cache):
+    """(c) ``examples/train_word_lm.py``'s flow: a ``CachedOp`` over the
+    window loss (eager under ``record``, captured in predict mode),
+    states detached between windows, ``clip_global_norm`` and
+    ``gluon.Trainer`` SGD; returns the best validation perplexity."""
+    import numpy as np
+    c = BPTT
+    mx.random.seed(0)
+    corpus = make_corpus(c["vocab"], c["corpus_len"], c["branch"])
+    split = int(0.9 * len(corpus))
+    train_data = batchify(corpus[:split], c["batch"])
+    valid_data = batchify(corpus[split:], c["batch"])
+    embedding = gluon.nn.Embedding(c["vocab"], c["embed"])
+    lstm = gluon.rnn.LSTM(c["hidden"], num_layers=c["layers"], layout="TNC",
+                          input_size=c["embed"])
+    decoder = gluon.nn.Dense(c["vocab"], in_units=c["hidden"], flatten=False)
+    params = {}
+    for b in (embedding, lstm, decoder):
+        b.initialize(mx.init.Xavier())
+        params.update(b.collect_params()._params)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(params, "sgd", {"learning_rate": c["lr"]})
+
+    def window_loss(x, y, h, cc):
+        out, (h2, c2) = lstm(embedding(x), [h, cc])
+        logits = decoder(out)
+        loss = loss_fn(logits.reshape((-1, c["vocab"])), y.reshape((-1,)))
+        return nd.mean(loss), h2, c2
+
+    step = jit.CachedOp(window_loss,
+                        params=[p.data() for p in params.values()])
+    step_cache.reset_stats("cached_op")
+
+    evals = [0]
+
+    def run_epoch(data, train):
+        total, windows = 0.0, 0
+        h, cc = lstm.begin_state(c["batch"])
+        for start in range(0, data.shape[1] - 1 - c["bptt"], c["bptt"]):
+            x = nd.array(data[:, start:start + c["bptt"]].T.astype(np.int32))
+            y = nd.array(data[:, start + 1:start + 1 + c["bptt"]].T
+                         .astype(np.int32))
+            h, cc = h.detach(), cc.detach()
+            if train:
+                with autograd.record():
+                    loss, h, cc = step(x, y, h, cc)
+                loss.backward()
+                gluon.utils.clip_global_norm(
+                    [p.grad() for p in params.values()], c["clip"])
+                trainer.step(1)
+            else:
+                with autograd.predict_mode():
+                    loss, h, cc = step(x, y, h, cc)
+                evals[0] += 1
+            total += float(loss.asscalar())
+            windows += 1
+        return float(np.exp(total / max(windows, 1)))
+
+    best, ppls = float("inf"), []
+    t0 = time.monotonic()
+    for _ in range(c["epochs"]):
+        train_ppl = run_epoch(train_data, True)
+        valid_ppl = run_epoch(valid_data, False)
+        if valid_ppl >= best:
+            trainer.set_learning_rate(trainer.learning_rate / 4.0)
+        best = min(best, valid_ppl)
+        ppls.append((round(train_ppl, 2), round(valid_ppl, 2)))
+    secs = time.monotonic() - t0
+    stats, cache = step.stats(), step_cache.snapshot()["cached_op"]
+    check(best < c["ppl_gate"] and stats["captured"] == 1
+          and stats["replays"] == evals[0] - 1
+          and cache["traces"] == 2 and cache["hits"] > 0,
+          f"rnn (c) BPTT: best valid perplexity {best:.2f} (gate < "
+          f"{c['ppl_gate']:g}); (train, valid) a epoch {ppls}; CachedOp "
+          f"programs {stats}, cached_op {cache}")
+    print(f"rnn (c) examples/train_word_lm.py flow (vocab {c['vocab']}, "
+          f"embed/hidden {c['hidden']}, B{c['batch']}, bptt {c['bptt']}, lr "
+          f"{c['lr']:g}, clip {c['clip']}, {c['epochs']} epochs, "
+          f"{secs:.1f} s): (train, valid) perplexity a epoch {ppls}, best "
+          f"{best:.2f} (gate < {c['ppl_gate']:g}, uniform {c['vocab']}, "
+          f"chain {c['branch']}); CachedOp: training windows eager under "
+          f"record, validation captured once and replayed {stats}; "
+          f"cached_op {cache}", flush=True)
+    return best
+
+
+def control_flow_on_card(torch, mx, gluon, nd, autograd, jit):
+    """(d) foreach against rnn_scan, while_loop card vs CPU, and cond
+    inside a captured CachedOp."""
+    import numpy as np
+    gpu = mx.gpu(0)
+    rs = np.random.RandomState(8)
+    cell = gluon.rnn.LSTMCell(64, input_size=32)
+    cell.initialize(mx.init.Xavier(), ctx=gpu)
+    x = nd.array(rs.randn(10, 8, 32).astype(np.float32), ctx=gpu)
+    h0 = nd.array(rs.randn(8, 64).astype(np.float32), ctx=gpu)
+    c0 = nd.array(rs.randn(8, 64).astype(np.float32), ctx=gpu)
+    outs, (hT, cT) = nd.contrib.foreach(lambda xt, st: cell(xt, st), x,
+                                        [h0, c0])
+    p = cell.collect_params()
+    w = [p[cell.prefix + k].data() for k in ("i2h_weight", "i2h_bias",
+                                              "h2h_weight", "h2h_bias")]
+    ref = nd.rnn_scan(x, h0, c0, *w, mode="lstm")
+    fe = max((a.data - b.data).abs().max().item()
+             for a, b in zip((outs, hT, cT), ref))
+    check(fe <= FOREACH_TOL, f"rnn (d) foreach over an LSTMCell against "
+          f"rnn_scan: {fe:.3e} (tol {FOREACH_TOL:g})")
+
+    def while_example(ctx):
+        with mx.Context(ctx):
+            outputs, states = nd.contrib.while_loop(
+                lambda i, s: i <= 5, lambda i, s: ([i + s], [i + 1, s + i]),
+                (nd.array([0.0]), nd.array([1.0])), max_iterations=10)
+            v = nd.array([2.0])
+            v.attach_grad()
+            with autograd.record():
+                _, st = nd.contrib.while_loop(
+                    lambda a: nd.sum(a) < 100.0, lambda a: ([a * a], [a * a]),
+                    [v], max_iterations=8)
+                loss = nd.sum(st[0])
+            loss.backward()
+            return [outputs[0].asnumpy()] + [s.asnumpy() for s in states] \
+                + [st[0].asnumpy(), v.grad.asnumpy()]
+
+    card, host = while_example(gpu), while_example(mx.cpu())
+    we = max(float(np.abs(a - b).max()) for a, b in zip(card, host))
+    check(we == 0.0 and card[-1][0] == 8 * 2.0 ** 7,
+          f"rnn (d) while_loop card vs CPU: {card} vs {host}")
+
+    op = jit.CachedOp(lambda a: nd.contrib.cond(
+        lambda: nd.sum(a) > 0, lambda: a * 2.0, lambda: a * 5.0))
+    vals = [rs.randn(16).astype(np.float32) for _ in range(6)]
+    for i, v in enumerate(vals):
+        v[:] = np.abs(v) * (1 if i % 2 else -1)
+    got = [op(nd.array(v, ctx=gpu)).asnumpy() for v in vals]
+    want = [v * (2.0 if v.sum() > 0 else 5.0) for v in vals]
+    st = op.stats()
+    diffs = [float(np.abs(a - b).max()) for a, b in zip(got, want)]
+    check(not any(diffs) and st["captured"] == 1
+          and st["replays"] == len(vals) - 1,
+          f"rnn (d) cond in a captured CachedOp: {st}; results vs the "
+          f"eager branch {diffs}")
+    print(f"rnn (d) control flow on the card: foreach over an LSTMCell "
+          f"(T10 B8 32 -> 64) against rnn_scan {fe:.3e} (tol "
+          f"{FOREACH_TOL:g}); while_loop's reference example and its "
+          f"gradient (8 x 2^7) card vs CPU {we:.1e}; cond inside a CachedOp "
+          f"captured once {st}: both predicates equal the eager branch",
+          flush=True)
+
+
+def bucket_sentences(rs, n, vocab, min_len=3, max_len=12):
+    """``tests/test_bucketing.py``'s sentences: successor = (2 tok + 1) %
+    (vocab - 1) + 1 (0 is the pad)."""
+    out = []
+    for _ in range(n):
+        L = rs.randint(min_len, max_len + 1)
+        s = [int(rs.randint(1, vocab))]
+        for _ in range(L - 1):
+            s.append((2 * s[-1] + 1) % (vocab - 1) + 1)
+        out.append(s)
+    return out
+
+
+def bucketing_on_card(torch, mx, gluon):
+    """(e) BucketSentenceIter into BucketingModule over an NTC LSTM: one
+    epoch, one fused program a bucket, and the masked cross-entropy over
+    the epoch's batches falls."""
+    import numpy as np
+    vocab = 20
+    it = mx.rnn.BucketSentenceIter(
+        bucket_sentences(np.random.RandomState(1), 96, vocab), batch_size=8,
+        buckets=[4, 8, 12], invalid_label=0)
+
+    class TinyLM(gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.emb = gluon.nn.Embedding(vocab, 16)
+                self.lstm = gluon.rnn.LSTM(32, input_size=16, layout="NTC")
+                self.out = gluon.nn.Dense(vocab, flatten=False, in_units=32)
+
+        def forward(self, x):
+            return self.out(self.lstm(self.emb(x)))
+
+    net = TinyLM()
+    bm = mx.mod.BucketingModule(
+        lambda key: (net, ("data",), ("softmax_label",)),
+        default_bucket_key=it.default_bucket_key,
+        loss=gluon.loss.SoftmaxCrossEntropyLoss(ignore_label=0))
+    bm.bind(it.provide_data, it.provide_label)
+    bm.init_params(initializer=mx.init.Xavier())
+    bm.init_optimizer(optimizer="adam",
+                      optimizer_params={"learning_rate": 0.02})
+
+    def epoch_ce():
+        tot, ntok = 0.0, 0
+        it.reset()
+        for batch in it:
+            bm.forward(batch, is_train=False)
+            p = bm.get_outputs()[0].asnumpy()
+            y = batch.label[0].asnumpy().astype(int)
+            mask = y > 0
+            tot += -np.log(np.maximum(np.take_along_axis(
+                p, y[..., None], -1)[..., 0], 1e-9))[mask].sum()
+            ntok += int(mask.sum())
+        return tot / ntok
+
+    before = epoch_ce()
+    it.reset()
+    keys = []
+    for batch in it:
+        bm.forward_backward(batch)
+        bm.update()
+        keys.append(batch.bucket_key)
+    after = epoch_ce()
+    stats = {k: m._step_exec.stats() for k, m in bm._modules.items()
+             if m._step_exec is not None}
+    check(after < before and sorted(stats) == [4, 8, 12]
+          and all(s["programs"] == 1 for s in stats.values()),
+          f"rnn (e) bucketing: masked cross-entropy {before:.4f} -> "
+          f"{after:.4f} over one epoch; programs a bucket {stats}")
+    print(f"rnn (e) BucketSentenceIter (buckets 4, 8, 12, B8) into "
+          f"BucketingModule over an NTC LSTM, one epoch of {len(keys)} "
+          f"batches: masked cross-entropy {before:.4f} -> {after:.4f}; one "
+          f"fused program a bucket {stats}", flush=True)
+
+
+def phase_rnn(torch, mx, counts, smi):
+    """Phase 17: recurrent nets, control flow and jit on the card (see the
+    module docstring). Returns (a)'s readings."""
+    from mxtpu_torch import (autograd, gluon, jit, nd, optimizer, parallel,
+                             step_cache)
+    from mxtpu_torch.gluon import loss as loss_mod
+    from mxtpu_torch.ops import attention, quant_attention
+    counts(0)
+    out = word_lm_train(torch, mx, gluon, parallel, optimizer, loss_mod, smi)
+    rnn_card_vs_cpu(torch, mx, gluon, parallel, optimizer, loss_mod)
+    out["ppl"] = bptt_flow(torch, mx, gluon, nd, autograd, jit, step_cache)
+    control_flow_on_card(torch, mx, gluon, nd, autograd, jit)
+    bucketing_on_card(torch, mx, gluon)
+    launches = dict(attention_launches(attention),
+                    K5=quant_attention.dequant_decode.launches)
+    check(not any(launches.values()),
+          f"phase 17 launched a TPU kernel's port: {launches} (the RNN path "
+          f"runs none of K1-K5)")
+    print(f"rnn: no TPU kernel lies on this path: K1-K5 launches "
+          f"{launches}", flush=True)
+    return out
+
+
 def launch_counter(attention, quant_attention):
     """``counts(n)``: every kernel wrapper's launch counts (and the sm90
     route's) set to ``n``."""
@@ -5474,6 +6123,8 @@ def run():
     torch.cuda.empty_cache()
     quant_l = timed_phase("quantization", phase_quant, torch, mx, counts,
                           smi[0], vision_out["score"])
+    torch.cuda.empty_cache()
+    timed_phase("rnn", phase_rnn, torch, mx, counts, smi[0])
     print(f"K1 launches: forward {k1_launches}, training "
           f"{train_launches['K1']}, gluon {glu['K1']}, module {mod_l['K1']}, "
           f"symbolic graph {sym_l['K1']}, quantized module {quant_l['K1']}",
@@ -5630,6 +6281,29 @@ def run_quant_only():
           flush=True)
 
 
+def run_rnn_only():
+    """Phase 17 alone (``python3 chip_smoke.py --phase 17``): no kernel of
+    the port lies on the RNN path, so nothing is built; no kernels line,
+    no result line."""
+    import torch
+    if not torch.cuda.is_available():
+        raise SmokeFailure("no CUDA device: this smoke runs on the card only")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mxtpu_torch.ops import attention, quant_attention
+    import mxtpu_torch as mx
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    print(smi[0], flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    t0 = time.monotonic()
+    phase_rnn(torch, mx, launch_counter(attention, quant_attention), smi[0])
+    print(f"[rnn: {time.monotonic() - t0:.1f} s] phase 17 passed",
+          flush=True)
+
+
 def main() -> int:
     try:
         if sys.argv[1:] == ["--phase", "14"]:
@@ -5640,6 +6314,9 @@ def main() -> int:
             return 0
         if sys.argv[1:] == ["--phase", "16"]:
             run_quant_only()
+            return 0
+        if sys.argv[1:] == ["--phase", "17"]:
+            run_rnn_only()
             return 0
         run()
     except SmokeFailure as e:

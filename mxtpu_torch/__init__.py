@@ -16,8 +16,11 @@ end: ``sym``/``symbol`` (graphs, ``Executor``), ``mod``/``module``
 ``io`` (``NDArrayIter``), ``model``, ``callback``, ``monitor`` and
 ``AttrScope``; and int8 quantization: ``contrib.quantization``
 (``quantize_net``), ``quant.calibrate`` and the quantized fused step
-(``quant.train``, ``MXTPU_QUANT_STEP``). Module paths mirror ``mxtpu/``
-so each module's counterpart is easy to find.
+(``quant.train``, ``MXTPU_QUANT_STEP``); and recurrent nets and control
+flow: ``gluon.rnn`` (``LSTM``, ``GRU``, ``RNN`` and the cells), the fused
+``RNN`` op, ``nd.contrib.foreach``/``while_loop``/``cond``, ``jit``
+(``CachedOp``, ``grad``) and ``rnn.BucketSentenceIter``. Module paths
+mirror ``mxtpu/`` so each module's counterpart is easy to find.
 
 The package imports ``torch`` and never JAX or ``mxtpu``. Entry points run
 on the card unless the caller passes ``device="cpu"`` (or, for ``nd``,
@@ -59,10 +62,13 @@ from . import module  # noqa: E402
 from . import module as mod  # noqa: E402
 from .module import Module  # noqa: E402
 from . import contrib  # noqa: E402
+from . import jit  # noqa: E402
+from . import rnn  # noqa: E402
 
 __all__ = ["AttrScope", "Context", "Module", "NDArray", "Symbol", "attribute",
            "autograd", "callback", "contrib", "cpu", "current_context",
            "engine", "gluon", "gpu", "init", "initializer", "io", "kvstore",
            "load_checkpoint", "metric", "mod", "model", "module", "monitor",
-           "nd", "num_gpus", "operator", "optimizer", "random",
-           "resolve_device", "rtc", "save_checkpoint", "sym", "symbol"]
+           "jit", "nd", "num_gpus", "operator", "optimizer", "random",
+           "resolve_device", "rnn", "rtc", "save_checkpoint", "sym",
+           "symbol"]

@@ -1,9 +1,10 @@
 """mxtpu_torch.gluon — the Gluon front end (``Block``, ``Parameter``,
-``Trainer``, layers, losses, utilities) and the model zoo, as torch
-modules."""
+``Trainer``, layers, recurrent layers and cells, losses, utilities) and
+the model zoo, as torch modules."""
 
 from . import loss
 from . import nn
+from . import rnn
 from . import utils
 from .block import Block, HybridBlock, SymbolBlock
 from .parameter import Constant, Parameter, ParameterDict
@@ -14,4 +15,4 @@ from . import model_zoo  # noqa: E402
 
 __all__ = ["Block", "Constant", "HybridBlock", "Parameter", "ParameterDict",
            "SymbolBlock", "Trainer", "contrib", "loss", "model_zoo", "nn",
-           "utils"]
+           "rnn", "utils"]

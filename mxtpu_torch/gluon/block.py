@@ -15,7 +15,8 @@ A layer's attribute (``dense.weight``) is its tensor, which the port's
 forward code and the serving steps read; the Gluon handle is in
 ``params``/``collect_params()`` (``.data()``, ``.grad()``). The port's
 layers compute on tensors; called with NDArrays (the Gluon way, inside or
-outside ``autograd.record()``), a layer runs its forward on their tensors
+outside ``autograd.record()``; NDArrays in a list argument, such as an
+RNN's states, too), a layer runs its forward on their tensors
 with torch's gradient recording on only inside ``record()``, in train mode
 only under ``autograd.is_training()``, and records one node from its inputs
 and parameters to its outputs, so ``loss.backward()`` fills every
@@ -291,12 +292,15 @@ class Block(torch.nn.Module):
         train = autograd.is_training()
         if self.training != train:
             self.train(train)
-        nd_in = [a for a in list(args) + list(kwargs.values())
-                 if isinstance(a, NDArray)]
-        raw = [autograd._input(a, rec) if isinstance(a, NDArray) else a
-               for a in args]
-        raw_kw = {k: (autograd._input(v, rec) if isinstance(v, NDArray)
-                      else v) for k, v in kwargs.items()}
+        nd_in = _flat(list(args) + list(kwargs.values()))
+
+        def unwrap(a):
+            if isinstance(a, (list, tuple)):
+                return type(a)(unwrap(x) for x in a)
+            return autograd._input(a, rec) if isinstance(a, NDArray) else a
+
+        raw = [unwrap(a) for a in args]
+        raw_kw = {k: unwrap(v) for k, v in kwargs.items()}
         _nd_call.depth = getattr(_nd_call, "depth", 0) + 1
         try:
             with (torch.enable_grad() if rec else torch.no_grad()):

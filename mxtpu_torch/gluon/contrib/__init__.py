@@ -1,3 +1,4 @@
 from .nn import MultiHeadAttention
+from .rnn import VariationalDropoutCell
 
-__all__ = ["MultiHeadAttention"]
+__all__ = ["MultiHeadAttention", "VariationalDropoutCell"]

@@ -221,10 +221,14 @@ class Dropout(_Layer):
     the identity in eval mode or at ``rate == 0``. With ``self.seed`` set
     (a 0-d int64 tensor on the input's device) element ``i`` (row-major) is
     kept where ``uniform(seed, i) < 1 - rate``, so the mask is a function
-    of the seed and the element alone and reading it needs no host; else
-    the mask comes from ``self.generator``; in a Gluon call with NDArrays
+    of the seed and the element alone and reading it needs no host; else,
+    inside ``rng.device_seeds``, from the scope's next seed; else the mask
+    comes from ``self.generator``; in a Gluon call with NDArrays
     it may come from the port's generator for the input's device, as
     ``nd.Dropout``'s does. Used directly without either, it raises.""" 
+
+    # DataParallelTrainer gives it a device seed each micro-batch
+    _device_seeded = True
 
     def __init__(self, rate: float, axes=(), prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
@@ -242,12 +246,9 @@ class Dropout(_Layer):
         shape = list(x.shape)
         for a in self._axes:
             shape[a] = 1
-        if self.seed is not None:
-            n = 1
-            for s in shape:
-                n *= s
-            pos = torch.arange(n, device=x.device).view(shape)
-            u = rng.uniform(self.seed, pos)
+        seed = self.seed if self.seed is not None else rng.next_seed()
+        if seed is not None:
+            u = rng.rand(shape, x.device, seed=seed)
         elif self.generator is not None or in_nd_call():
             g = self.generator if self.generator is not None \
                 else rng.generator(x.device)

@@ -1,7 +1,8 @@
 """``mx.nd``-equivalent namespace, generated from the op registry.
 
 Port of ``mxtpu/ndarray/__init__.py``: one wrapper per registered op name,
-with the sub-namespaces ``nd.random`` and ``nd.contrib``. A wrapper's
+with the sub-namespaces ``nd.random`` and ``nd.contrib`` (which also
+holds the control flow: ``foreach``, ``while_loop``, ``cond``). A wrapper's
 ``ctx=`` runs the op in that context (creation and random ops land there)
 and moves a result made elsewhere onto it.
 """
@@ -22,6 +23,8 @@ from ..ops import nn as _nn  # noqa: F401
 from ..ops import optimizer_ops as _optimizer_ops  # noqa: F401
 from ..ops import random as _random_ops  # noqa: F401
 from ..ops import reduce as _reduce  # noqa: F401
+from ..ops import rnn as _rnn  # noqa: F401
+from ..ops import sequence as _sequence  # noqa: F401
 from .ndarray import (NDArray, array, concatenate, empty, from_dlpack,
                       from_numpy, load, save, to_dlpack, waitall)
 
@@ -74,6 +77,13 @@ _fused_opt.install(_this)
 
 def moveaxis(a, source, destination):
     return NDArray(a.data.movedim(source, destination))
+
+
+# control flow lives under nd.contrib (reference: mxnet.ndarray.contrib)
+from ..ops import control_flow as _control_flow  # noqa: E402
+contrib.foreach = _control_flow.foreach  # noqa: F821
+contrib.while_loop = _control_flow.while_loop  # noqa: F821
+contrib.cond = _control_flow.cond  # noqa: F821
 
 
 def __getattr__(name):

@@ -18,7 +18,9 @@ _INT_ACC = {torch.bool: torch.int32, torch.int8: torch.int32,
 def as_tensor(x, like=None) -> torch.Tensor:
     """``x`` as a tensor on ``like``'s device. A Python scalar becomes a 0-d
     tensor, which torch's promotion treats as weakly typed, as jnp treats a
-    Python scalar: it does not widen a tensor of its own kind."""
+    Python scalar: it does not widen a tensor of its own kind. It is made
+    on that device by a fill, not copied from the host, so an op on the
+    card can be captured in a CUDA graph."""
     if isinstance(x, torch.Tensor):
         return x
     dev = like.device if isinstance(like, torch.Tensor) else None
@@ -34,7 +36,7 @@ def as_tensor(x, like=None) -> torch.Tensor:
         arr = np.asarray(x)
         return torch.as_tensor(arr.astype(np.float32) if arr.dtype ==
                                np.float64 else arr, device=dev)
-    return torch.tensor(x, dtype=dtype, device=dev)
+    return torch.full((), x, dtype=dtype, device=dev)
 
 
 def pair(lhs, rhs):

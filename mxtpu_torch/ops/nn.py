@@ -7,7 +7,8 @@ loss heads whose gradient is not the derivative of their forward
 (``SoftmaxOutput``, ``make_loss``, the regression outputs, ``SVMOutput``,
 ``IdentityAttachKLSparseReg``) are ``torch.autograd.Function``s with the
 reference's injected backward. Dropout draws its mask from the device's
-generator (``mxtpu_torch.rng``). ``_QUANT_DENSE`` and ``_QUANT_CONV`` are
+generator, or inside ``rng.device_seeds`` from the scope's device seeds
+(``mxtpu_torch.rng``). ``_QUANT_DENSE`` and ``_QUANT_CONV`` are
 the hook points of the quantized fused step (``quant.train.quant_scope``):
 unset, nothing here changes.
 """
@@ -342,8 +343,7 @@ def _dropout(data, p: float = 0.5, mode: str = "training", axes=(),
     for a in axes or ():
         shape[a] = 1
     keep = 1.0 - p
-    mask = torch.rand(shape, generator=rng.generator(data.device),
-                      device=data.device) < keep
+    mask = rng.rand(shape, data.device) < keep
     return torch.where(mask, data / keep, torch.zeros_like(data)).to(
         data.dtype)
 

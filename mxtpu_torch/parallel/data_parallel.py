@@ -64,7 +64,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..context import check_device, resolve_device
-from ..gluon.nn.basic_layers import Dropout, frozen_running_stats
+from ..gluon.nn.basic_layers import frozen_running_stats
 from ..observability import exporter, flops
 from ..ops import attention
 from ..rng import sample_bits
@@ -124,11 +124,12 @@ class DataParallelTrainer:
     ``mesh`` may be given only with one device. ``remat=True`` recomputes
     each micro-batch's forward in its backward (``torch.utils.checkpoint``,
     non-reentrant, without saving the generators' state: no draw uses
-    them). The block's ``Dropout`` layers draw from device seeds that the
-    step derives from its ``t`` (read on the device), the micro-batch and
-    the layer, so a step's masks are a function of those and the element,
-    a recomputed forward draws the same masks, and every replay of a
-    captured step draws new ones."""
+    them). The block's ``Dropout`` layers (and the ``gluon.rnn`` layers'
+    dropout between layers: every module marked ``_device_seeded``) draw
+    from device seeds that the step derives from its ``t`` (read on the
+    device), the micro-batch and the layer, so a step's masks are a
+    function of those and the element, a recomputed forward draws the
+    same masks, and every replay of a captured step draws new ones."""
 
     def __init__(self, block, loss_fn, optimizer, mesh=None,
                  param_shardings=None, remat: bool = False,
@@ -151,7 +152,7 @@ class DataParallelTrainer:
         if self.micro_batches < 1:
             raise ValueError(f"micro_batches={micro_batches} must be >= 1")
         self._dropouts = [m for m in block.modules()
-                          if isinstance(m, Dropout)]
+                          if getattr(m, "_device_seeded", False)]
         # collected on the first step (_collect)
         self._params: Optional[list] = None
         self._states: Optional[list] = None

@@ -11,18 +11,22 @@ so a seeded run reproduces itself; its draws are not the JAX package's
 bits as a pure function of a seed and a counter, computed where the tensors
 lie, with no generator state. The serving sampler and the training step's
 dropout draw from them, so a captured program draws anew on every replay
-from seeds that it reads from the device.
+from seeds that it reads from the device. Inside :func:`device_seeds` every
+draw of :func:`rand` (``nd.Dropout``, the ``Dropout`` layer, the RNN
+layers' dropout between layers) takes the next seed of such a stream, as
+the reference's traced programs take their keys from a provider.
 """
 
 from __future__ import annotations
 
 import threading
+from contextlib import contextmanager
 from typing import Dict
 
 import torch
 
 __all__ = ["seed", "generator", "get_state_blob", "set_state_blob",
-           "sample_bits", "uniform"]
+           "sample_bits", "uniform", "device_seeds", "next_seed", "rand"]
 
 _state = threading.local()
 
@@ -107,3 +111,42 @@ def uniform(seed, pos):
     """f32 uniforms in [0, 1) on a 2^-24 grid: the top 24 of
     :func:`sample_bits`."""
     return _shr(sample_bits(seed, pos), 40).float() * 2.0 ** -24
+
+
+@contextmanager
+def device_seeds(seed):
+    """Draws on this thread inside the scope come from ``seed`` (a 0-d
+    int64 tensor on the device): draw ``k`` of the scope from seed
+    ``sample_bits(seed, k)``. A captured program that writes a new
+    ``seed`` before each replay draws new masks on every replay."""
+    prev = getattr(_state, "seeds", None)
+    _state.seeds = [seed, 0]
+    try:
+        yield
+    finally:
+        _state.seeds = prev
+
+
+def next_seed():
+    """The next draw's seed inside :func:`device_seeds`, else None."""
+    scope = getattr(_state, "seeds", None)
+    if scope is None:
+        return None
+    scope[1] += 1
+    return sample_bits(scope[0], scope[1] - 1)
+
+
+def rand(shape, device, seed=None) -> torch.Tensor:
+    """Uniforms in [0, 1) of ``shape`` on ``device``: element ``i``
+    (row-major) from ``uniform(seed, i)`` where ``seed`` is given, else
+    from the :func:`device_seeds` scope's next seed, else from the device's
+    generator."""
+    if seed is None:
+        seed = next_seed()
+    if seed is None:
+        return torch.rand(tuple(shape), generator=generator(device),
+                          device=device)
+    n = 1
+    for s in shape:
+        n *= s
+    return uniform(seed, torch.arange(n, device=device).view(tuple(shape)))

@@ -517,16 +517,17 @@ class StepExecutor:
     program's body copies nothing from the host: it reads the batch from
     static buffers and ``t``, lr, wd, rescale and clip from a float64
     device buffer, runs the block and the loss inside ``autograd.record()``
-    (the block's ``Dropout`` layers draw from device seeds derived from
-    ``t``), takes the gradient of the summed per-sample loss with
-    ``torch.autograd.grad`` and updates every parameter in place through
-    :class:`MultiTensorUpdate`. On the card the first step of a signature
-    runs the body on a side stream (a real step, which builds the kernels
-    and cuBLAS's workspaces), the second captures it as a CUDA graph
-    (:class:`GraphProgram`, the attention kernels' launches counted through
-    the capture) and every later step replays it, its values staged through
-    :class:`HostStaging`; on the CPU every step runs the body. A capture or
-    launch that fails raises; nothing falls back.
+    (the block's ``Dropout`` layers and the ``gluon.rnn`` layers draw from
+    device seeds derived from ``t``), takes the gradient of the summed
+    per-sample loss with ``torch.autograd.grad`` and updates every
+    parameter in place through :class:`MultiTensorUpdate`. On the card
+    the first step of a signature runs the body on a side stream (a real
+    step, which builds the kernels and cuBLAS's workspaces), the second
+    captures it as a CUDA graph (:class:`GraphProgram`, the attention
+    kernels' launches counted through the capture) and every later step
+    replays it, its values staged through :class:`HostStaging`; on the
+    CPU every step runs the body. A capture or launch that fails raises;
+    nothing falls back.
 
     The program writes into the tensors the ``Trainer`` itself uses: the
     parameters, the optimizer states (``trainer._states``; a state that the
@@ -551,9 +552,8 @@ class StepExecutor:
         self._param_handles = list(trainer._params)
         self._aux_handles = [p for p in trainer._all_params
                              if p.grad_req == "null" and p._data is not None]
-        from .gluon.nn.basic_layers import Dropout
         self._dropouts = [m for m in block.modules()
-                          if isinstance(m, Dropout)]
+                          if getattr(m, "_device_seeded", False)]
 
     def adopt_mesh(self, mesh) -> None:
         raise _no_zero("StepExecutor.adopt_mesh")

@@ -98,7 +98,9 @@ def _op_attrs(node: _Node) -> dict:
 
 
 def _tensor_params(op) -> List[str]:
-    """Which signature parameters of an op are tensor inputs."""
+    """Which signature parameters of an op are tensor inputs (the fused
+    RNN op's ``state_cell`` too, which the JAX package's symbol layer
+    takes for an attribute, so that its LSTM cannot bind)."""
     out = []
     for p in inspect.signature(op.fn).parameters.values():
         if p.kind == inspect.Parameter.VAR_POSITIONAL:
@@ -106,7 +108,8 @@ def _tensor_params(op) -> List[str]:
         elif p.kind == inspect.Parameter.POSITIONAL_OR_KEYWORD and (
                 p.default is inspect.Parameter.empty
                 or p.name in ("bias", "gamma", "beta", "moving_mean",
-                              "moving_var", "weight", "label")):
+                              "moving_var", "weight", "label",
+                              "state_cell")):
             out.append(p.name)
     return out
 
@@ -711,6 +714,9 @@ def make_op_wrapper(op_key: str):
                     input_params.append(pname)
                     continue
                 if pname == "bias" and (attrs.get("no_bias", False)):
+                    continue
+                if pname == "state_cell" and \
+                        attrs.get("mode", "lstm") != "lstm":
                     continue
                 if pname == "data":
                     raise ValueError(f"sym.{op_key}: 'data' input required")

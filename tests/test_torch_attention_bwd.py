@@ -25,6 +25,18 @@ from mxtpu.ops.attention import (_chunk_reference_lse,
                                  _flash_backward_pallas)
 from mxtpu_torch.ops import attention as ta
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch CPU thread while this file runs: the suite runs in
+    parallel workers on shared cores, where each worker's own thread pool
+    would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=1e-4, atol=1e-4)   # f32 reassociation between the packages
 
 

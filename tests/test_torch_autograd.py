@@ -15,6 +15,7 @@ custom ``Function``.
 
 import numpy as np
 import pytest
+import torch
 
 from mxtpu import autograd as jag
 from mxtpu import nd as jnd
@@ -22,6 +23,18 @@ from mxtpu import nd as jnd
 import mxtpu_torch
 from mxtpu_torch import autograd as tag
 from mxtpu_torch import nd as tnd
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch CPU thread while this file runs: the suite runs in
+    parallel workers on shared cores, where each worker's own thread pool
+    would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 PKGS = [(jnd, jag), (tnd, tag)]

@@ -19,6 +19,7 @@ reference's.
 
 import numpy as np
 import pytest
+import torch
 
 import mxtpu as jmx
 from mxtpu import autograd as jag
@@ -28,6 +29,18 @@ from mxtpu import nd as jnd
 import mxtpu_torch as mx
 from mxtpu_torch import autograd as ag
 from mxtpu_torch import gluon, nd
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch CPU thread while this file runs: the suite runs in
+    parallel workers on shared cores, where each worker's own thread pool
+    would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 

@@ -24,6 +24,18 @@ from mxtpu_torch import autograd as tag
 from mxtpu_torch import nd as tnd
 from mxtpu_torch import operator as toperator
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch CPU thread while this file runs: the suite runs in
+    parallel workers on shared cores, where each worker's own thread pool
+    would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SEEN = []   # (package, is_train, req, prop kwargs, in_data context)
 
 

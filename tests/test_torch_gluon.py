@@ -28,6 +28,7 @@
 
 import numpy as np
 import pytest
+import torch
 
 import mxtpu as jmx
 from mxtpu import autograd as jag
@@ -39,6 +40,18 @@ import mxtpu_torch as mx
 from mxtpu_torch import autograd as ag
 from mxtpu_torch import engine, gluon, nd, step_cache
 from mxtpu_torch.gluon.model_zoo import transformer_lm
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch CPU thread while this file runs: the suite runs in
+    parallel workers on shared cores, where each worker's own thread pool
+    would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 VOCAB, B, T, STEPS = 50, 2, 16, 5
 LOSS_RTOL = 1e-4

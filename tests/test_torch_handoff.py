@@ -32,6 +32,18 @@ from mxtpu_torch.serving import (HandoffMismatch, ServingEngine,
                                  ServingHandoff, SpecConfig)
 from mxtpu_torch.serving import kv as tkv
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch CPU thread while this file runs: the suite runs in
+    parallel workers on shared cores, where each worker's own thread pool
+    would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 VOCAB = 50
 TIMEOUT = 300
 KW = dict(slots=3, queue_depth=8, chunk=4, prefill_chunk=16, device="cpu")

@@ -14,6 +14,7 @@ the card run's reference for the rtc kernels), and its loss falls.
 
 import numpy as np
 import pytest
+import torch
 
 import mxtpu.operator as joperator
 from mxtpu import autograd as jag
@@ -22,6 +23,18 @@ from mxtpu import nd as jnd
 import chip_smoke
 import mxtpu_torch
 from mxtpu_torch import operator as toperator
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch CPU thread while this file runs: the suite runs in
+    parallel workers on shared cores, where each worker's own thread pool
+    would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ROWS, HIDDEN, VOCAB, STEPS, LR = 64, 32, 50, 5, 1.0
 LOSS_RTOL, W_ATOL = 1e-5, 1e-5

@@ -21,6 +21,7 @@ losses against the JAX package's, on the CPU.
 
 import numpy as np
 import pytest
+import torch
 
 from mxtpu import autograd as jag
 from mxtpu import gluon as jgluon
@@ -34,6 +35,17 @@ from mxtpu_torch import gluon
 from mxtpu_torch import kvstore as tkv
 from mxtpu_torch import metric as tmetric
 from mxtpu_torch import nd
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch CPU thread while this file runs: the suite runs in
+    parallel workers on shared cores, where each worker's own thread pool
+    would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

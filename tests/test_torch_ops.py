@@ -1,9 +1,9 @@
 """Every op of the port's registry against the JAX package's, on the CPU.
 
 The ops of ``ops/{elementwise,reduce,matrix,init_ops,random,nn,
-optimizer_ops}.py`` and the ``Custom`` op are registered in both packages
-under the same names (the update ops' pure functions here; their in-place
-``nd`` wrappers in ``tests/test_torch_optimizers.py``).
+optimizer_ops,sequence,rnn}.py`` and the ``Custom`` op are registered in
+both packages under the same names (the update ops' pure functions here;
+their in-place ``nd`` wrappers in ``tests/test_torch_optimizers.py``).
 One parametrised test runs each registered name (aliases included) in
 both packages on the same numpy inputs and compares the outputs: float
 results within 1e-5 relative + 1e-6 absolute (f32 reassociation between
@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import mxtpu
 import mxtpu.operator  # noqa: F401  (registers Custom)
@@ -33,11 +34,23 @@ from mxtpu_torch import nd as tnd
 from mxtpu_torch import rng as trng
 from mxtpu_torch.ops import registry as treg
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch CPU thread while this file runs: the suite runs in
+    parallel workers on shared cores, where each worker's own thread pool
+    would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL, ATOL = 1e-5, 1e-6
 
 SLICE_MODULES = ("elementwise", "reduce", "matrix", "init_ops", "random",
                  "nn", "operator", "optimizer_ops", "attention",
-                 "quantization")
+                 "quantization", "sequence", "rnn")
 # ops of those modules that wait for a later slice (SyncBatchNorm needs
 # parallel/collectives)
 WAITING = {"contrib.SyncBatchNorm", "contrib._contrib_SyncBatchNorm"}
@@ -464,6 +477,45 @@ CASES["Custom"] = _custom_case()
 CASES["flash_attention"] = [
     case(U(1, 2, 8, 4), U(1, 2, 8, 4), U(1, 2, 8, 4), causal=True),
     case(U(2, 1, 5, 8), U(2, 1, 7, 8), U(2, 1, 7, 8), scale=0.5)]
+
+# sequence ops: lengths per batch element, on axis 0 and on axis 1
+_LENS = K(np.array([2, 4, 1], np.float32))
+CASES.update({
+    "SequenceMask": [
+        case(U(4, 3, 2), _LENS, use_sequence_length=True, value=-1.0),
+        case(U(3, 4, 2), _LENS, use_sequence_length=True, axis=1),
+        case(U(4, 3))],
+    "SequenceLast": [
+        case(U(4, 3, 2), _LENS, use_sequence_length=True),
+        case(U(3, 4), _LENS, use_sequence_length=True, axis=1),
+        case(U(4, 3))],
+    "SequenceReverse": [
+        case(U(4, 3, 2), _LENS, use_sequence_length=True),
+        case(U(4, 3))],
+})
+
+
+# RNN: T 4, B 2, I 3, H 5; weights of a gate block of H rows a gate
+def _scan_case(mode, gates, reverse):
+    g = gates * 5
+    state = [U(2, 5), U(2, 5)] if mode == "lstm" else [U(2, 5)]
+    return case(U(4, 2, 3), *state, U(g, 3, **_UNIT), U(g, **_UNIT),
+                U(g, 5, **_UNIT), U(g, **_UNIT), mode=mode, reverse=reverse)
+
+
+CASES["rnn_scan"] = [_scan_case(m, g, r)
+                     for m, g in (("lstm", 4), ("gru", 3), ("rnn_tanh", 1),
+                                  ("rnn_relu", 1))
+                     for r in (False, True)]
+# the packed vectors: 2-layer bidirectional GRU (810 = weights 240 + 450,
+# biases 120), 1-layer LSTM (160 + 40), 1-layer rnn_tanh (40 + 10)
+CASES["RNN"] = [
+    case(U(4, 2, 3), U(810, **_UNIT), U(4, 2, 5), state_size=5, num_layers=2,
+         mode="gru", bidirectional=True, state_outputs=True),
+    case(U(4, 2, 3), U(200, **_UNIT), U(1, 2, 5), U(1, 2, 5), state_size=5,
+         num_layers=1, mode="lstm", state_outputs=True),
+    case(U(4, 2, 3), U(50, **_UNIT), U(1, 2, 5), state_size=5, num_layers=1,
+         mode="rnn_tanh")]
 
 
 def _slice_names():

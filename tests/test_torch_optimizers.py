@@ -42,6 +42,18 @@ from mxtpu_torch import autograd as ag
 from mxtpu_torch import engine, gluon, nd
 from mxtpu_torch import optimizer as topt
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch CPU thread while this file runs: the suite runs in
+    parallel workers on shared cores, where each worker's own thread pool
+    would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REL = 1e-6
 
 

@@ -67,7 +67,10 @@ def test_no_jax_or_mxtpu_imports(path):
     "gluon/model_zoo/model_store.py", "gluon/model_zoo/__init__.py",
     "parallel/data_parallel.py", "ops/quantization.py", "quant/calibrate.py",
     "quant/train.py", "contrib/__init__.py", "contrib/quantization.py",
-    "ops/nn.py", "profiler.py"])
+    "ops/nn.py", "profiler.py", "ops/sequence.py", "ops/rnn.py",
+    "ops/control_flow.py", "jit.py", "gluon/rnn/__init__.py",
+    "gluon/rnn/rnn_cell.py", "gluon/rnn/rnn_layer.py",
+    "gluon/contrib/rnn.py", "gluon/contrib/__init__.py", "rnn.py"])
 def test_the_counterparts_are_checked(module):
     """Each module that has a counterpart in the JAX package lies where
     its counterpart does, and the import rule above reads it."""

@@ -26,6 +26,18 @@ from mxtpu.quant import kv_quant as jkv
 from mxtpu_torch.ops import quant_attention as tqa
 from mxtpu_torch.quant import kv_quant as tkv
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch CPU thread while this file runs: the suite runs in
+    parallel workers on shared cores, where each worker's own thread pool
+    would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MODES = ["int8", "fp8"]
 SMS = 132   # an H100's SMs, for the chunk-size rule
 # chunk caps for the rule (the kernel library reports the card's, a

@@ -46,6 +46,18 @@ from mxtpu_torch.gluon.model_zoo import transformer_lm
 from mxtpu_torch.ops import nn as ops_nn
 from mxtpu_torch.quant import train
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch CPU thread while this file runs: the suite runs in
+    parallel workers on shared cores, where each worker's own thread pool
+    would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 VOCAB, B, T = 50, 2, 16
 LOSS_RTOL = 1e-4
 W_TOL = dict(rtol=1e-3, atol=1e-4)

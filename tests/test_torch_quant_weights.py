@@ -41,6 +41,18 @@ from mxtpu_torch.quant import kv_quant as tkvq
 from mxtpu_torch.quant import serve
 from mxtpu_torch.serving import ServingEngine
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch CPU thread while this file runs: the suite runs in
+    parallel workers on shared cores, where each worker's own thread pool
+    would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 VOCAB = 50
 TIMEOUT = 300
 TOL = dict(rtol=1e-4, atol=1e-4)    # f32 reassociation between the packages

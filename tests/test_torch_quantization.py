@@ -45,6 +45,18 @@ from mxtpu_torch.gluon import nn
 from mxtpu_torch.ops import quantization as q
 from mxtpu_torch.quant import calibrate as cal
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch CPU thread while this file runs: the suite runs in
+    parallel workers on shared cores, where each worker's own thread pool
+    would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # the float outputs of a quantized net: an input code may round the
 # other way where the packages' f32 activations differ in the last bit
 NET_TOL = 1e-5

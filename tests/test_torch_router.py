@@ -60,6 +60,18 @@ from mxtpu_torch.serving import (QueueFullError, Router, RouterRequest,
                                  ServingEngine)
 from mxtpu_torch.serving.api import CANCELLED, DONE, ServingRequest
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch CPU thread while this file runs: the suite runs in
+    parallel workers on shared cores, where each worker's own thread pool
+    would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 VOCAB = 50
 TIMEOUT = 300
 

@@ -30,6 +30,18 @@ from mxtpu_torch.convert import params_from_mxtpu
 from mxtpu_torch.gluon.model_zoo import transformer_lm
 from mxtpu_torch.serving import SamplingParams, ServingEngine
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch CPU thread while this file runs: the suite runs in
+    parallel workers on shared cores, where each worker's own thread pool
+    would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 VOCAB = 50
 TIMEOUT = 300
 

@@ -25,6 +25,7 @@ import math
 
 import numpy as np
 import pytest
+import torch
 
 import jax.numpy as jnp
 import mxtpu as jmx
@@ -42,6 +43,18 @@ from mxtpu_torch import nd
 from mxtpu_torch import symbol as sym
 from mxtpu_torch.gluon import SymbolBlock
 from mxtpu_torch.symbol.symbol import _reset_names
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch CPU thread while this file runs: the suite runs in
+    parallel workers on shared cores, where each worker's own thread pool
+    would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 

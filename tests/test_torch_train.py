@@ -36,6 +36,18 @@ from mxtpu_torch.gluon.nn import Dropout
 from mxtpu_torch.ops import optimizer_ops as tops
 from mxtpu_torch.parallel import DataParallelTrainer
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch CPU thread while this file runs: the suite runs in
+    parallel workers on shared cores, where each worker's own thread pool
+    would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 VOCAB, B, T, K, STEPS = 50, 4, 16, 2, 5
 LOSS_RTOL = 1e-4                        # f32 reassociation, per step
 W_TOL = dict(rtol=1e-3, atol=1e-4)      # final weights

@@ -45,6 +45,18 @@ from mxtpu_torch.gluon.model_zoo import transformer_lm
 from mxtpu_torch.gluon.nn import Dropout
 from mxtpu_torch.parallel import DataParallelTrainer
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch CPU thread while this file runs: the suite runs in
+    parallel workers on shared cores, where each worker's own thread pool
+    would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 VOCAB, B, T, K = 50, 4, 16, 2
 
 SHAPES = [(60, 70), (13,), (40, 3, 5), (1,), (9, 2)]

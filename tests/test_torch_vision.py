@@ -24,6 +24,7 @@
 
 import numpy as np
 import pytest
+import torch
 
 import mxtpu as jmx
 from mxtpu import autograd as jag
@@ -35,6 +36,18 @@ import mxtpu_torch as mx
 from mxtpu_torch import autograd as ag
 from mxtpu_torch import convert, nd
 from mxtpu_torch.gluon.model_zoo import model_store, vision
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch CPU thread while this file runs: the suite runs in
+    parallel workers on shared cores, where each worker's own thread pool
+    would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

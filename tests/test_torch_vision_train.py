@@ -42,6 +42,18 @@ from mxtpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
 from mxtpu_torch.gluon.model_zoo import vision
 from mxtpu_torch.parallel import DataParallelTrainer
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch CPU thread while this file runs: the suite runs in
+    parallel workers on shared cores, where each worker's own thread pool
+    would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 B, SIZE, CLASSES, STEPS = 8, 64, 10, 3
 LOSS_RTOL = 1e-4
 W_TOL = dict(rtol=1e-3, atol=1e-4)

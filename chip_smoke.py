@@ -4,8 +4,9 @@ main paths on one NVIDIA GPU: serving, training, the imperative ``nd`` +
 ``autograd`` path with runtime-compiled kernels (``rtc``), the Gluon front
 end, the symbolic and Module front ends, the vision path (ResNet-50
 training and the zoo's scoring), int8 quantization (an int8 ResNet-50,
-the quantized fused training step) and recurrent nets (the reference's
-word LM, control flow, ``jit``).
+the quantized fused training step), recurrent nets (the reference's
+word LM, control flow, ``jit``) and the data path (ResNet-50 trained from
+a RecordIO file).
 
     python3 chip_smoke.py
 
@@ -342,19 +343,45 @@ Phases, in order; any failure exits non-zero without a result line:
     ``BucketingModule`` over an NTC LSTM: one epoch, one fused program a
     bucket, the masked cross-entropy falls. K1 to K5 must not launch in
     it.
+18. the data path (``recordio``, ``native``, ``image``, ``io``,
+    ``ops/image_ops.py``, ``gluon.data``; no TPU kernel lies on it: the
+    reference decodes on the host and its image ops are ``jnp``): 384
+    records packed from the committed fixture (``mxtpu_torch/fixtures/
+    jpeg224``: 16 noise JPEGs, 224x224, image i % 16, label i % 10);
+    the JPEG decode route (``image.DECODE_ROUTE``) printed; (a)
+    ``bench.py``'s ``bench_train_e2e``: phase 15's ``bf16_b128`` trainer
+    fed by ``ImageRecordIter(dtype="uint8", rand_mirror=True,
+    preprocess_threads=nproc, prefetch_buffer=2, ctx=gpu(0))``, each uint8
+    batch staged by its ``DeviceFeed`` and normalized on the card, 4
+    epochs (1 warm step, 11 timed; the step captured once, every e2e step
+    a replay, the losses finite): e2e img/s, host feed (the iterator
+    alone), feed+transfer, the synthetic step on a resident batch through
+    the same trainer, overlap efficiency, chip idle (1 - synthetic compute
+    / wall), nproc; (b) each fixture JPEG decoded on the route to its
+    libjpeg SHA-256 and mean error; one shuffled, mirrored epoch staged
+    to the card on nproc threads bit-equal to the host path on one thread,
+    seeded alike; the 8 ``nd.image`` ops card against CPU (1e-5 rel + 1e-6
+    abs; resize 1e-4 abs, uint8 one step) and a p = 0.5 flip's frequency;
+    (c) ``ImageRecordDataset`` through ``transforms.Compose([
+    RandomFlipLeftRight, ToTensor, Normalize])`` and ``DataLoader(
+    num_workers=nproc, ctx=gpu(0))`` scoring f32 ResNet-50 at B32: img/s,
+    the feed's stall share; the first batch's logits bit-equal to the same
+    batch fed from a resident tensor; (d) ``examples/train_mnist.py``'s
+    flow: ``MNISTIter`` (synthetic) into ``Module.fit`` of LeNet, 3 epochs
+    at B64, held-out accuracy > 0.9. K1 to K5 must not launch in it.
 
 ``python3 chip_smoke.py --phase 14`` builds the kernels and runs phase 14
-alone; ``--phase 15`` and ``--phase 17`` run phase 15 or 17 alone,
-building nothing; ``--phase 16`` builds the kernels and runs phase 16
-alone (no kernels line, no result line).
+alone; ``--phase 15``, ``--phase 17`` and ``--phase 18`` run phase 15, 17
+or 18 alone, building nothing; ``--phase 16`` builds the kernels and runs
+phase 16 alone (no kernels line, no result line).
 
 Launch counts are set to 0 just before phases 4, 5, 5c (its first
 burst), 5e (its SLO burst), 5f, 8, 9 (each fused run), 10, saxpy's drive in
 11, the 10 steps of 12, the 12 steps of 13 (a), phase 14 (a)'s fit, (c)'s
 forward and backward and (d)'s chained predict, phase 15 (all
 zero: no kernel of the port on the vision path), phase 16 (d)'s
-quantized fit and phase 17 (all zero: none on the RNN path), and read
-just after.
+quantized fit, phase 17 (all zero: none on the RNN path) and phase 18
+(all zero: none on the data path), and read just after.
 The line before the last is the kernels' JSON record, with one K1, K2, K3
 and K4 record for each route and the path it runs on (the sm90 records of
 K1-K3 count phases 8, 13 (a), 14 (a) and 16 (d), the simt records of
@@ -1255,6 +1282,26 @@ def phase_serving(torch, model, serving, quant_attention, step_cache,
     return launches, L * steps, refs
 
 
+def profile_events(torch, prof):
+    """``(name, on the device, µs)`` of each event of a finished
+    ``torch.profiler`` run, read from its raw results: ``prof.events()``
+    builds a Python object and a tree for every event (~90 µs each on the
+    host), which for a profiled serving wave of ~10^6 kernels took
+    minutes. The events ``prof.events()`` leaves out (hidden ones, the
+    allocator's records, the profiler's own calls) are left out here, so
+    the device events are the same; host ops nested in an op of their own
+    name are not merged as there (the callers count only the host's
+    ``serving/*`` spans)."""
+    from torch.autograd.profiler_util import _filter_name
+    cuda = torch.autograd.DeviceType.CUDA
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if _filter_name(name) or getattr(e, "is_hidden_event",
+                                         lambda: False)():
+            continue
+        yield name, e.device_type() == cuda, e.duration_ns() / 1e3
+
+
 def phase_profile(torch, model, serving):
     """Where the serving time goes: two of the burst's requests (prompts of
     170 and 250 tokens, 128 new) through one engine twice: the first wave
@@ -1292,19 +1339,18 @@ def phase_profile(torch, model, serving):
             tracer.reset()
         stats = eng.stats()
     by_name, k5, spans = {}, {}, {}
-    for e in prof.events():
-        if e.name.startswith("serving/"):
+    for name, on_device, us in profile_events(torch, prof):
+        if name.startswith("serving/"):
             # the spans, on the host and mirrored onto the device's
             # timeline as annotations: not kernels
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                spans[e.name] = spans.get(e.name, 0) + 1
+            if not on_device:
+                spans[name] = spans.get(name, 0) + 1
             continue
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = e.time_range.elapsed_us()
-            by_name[e.name] = by_name.get(e.name, 0.0) + us
-            if "dequant_" in e.name:
-                n, tot = k5.get(e.name, (0, 0.0))
-                k5[e.name] = (n + 1, tot + us)
+        if on_device:
+            by_name[name] = by_name.get(name, 0.0) + us
+            if "dequant_" in name:
+                n, tot = k5.get(name, (0, 0.0))
+                k5[name] = (n + 1, tot + us)
     busy = sum(by_name.values())
     captured = stats.get("programs_captured")
     check(spans.get("serving/decode", 0) > 0
@@ -1432,10 +1478,10 @@ def profile_wave(torch, eng, prompts):
         wall_ms = (time.monotonic() - t0) * 1e3
     st = eng.stats()
     by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            n, us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    for name, on_device, us in profile_events(torch, prof):
+        if on_device:
+            n, tot = by_name.get(name, (0, 0.0))
+            by_name[name] = (n + 1, tot + us)
     busy_ms = sum(us for _, us in by_name.values()) / 1e3
     delta = {key: st[key] - st0.get(key, 0) for key in st
              if isinstance(st[key], (int, float))
@@ -2794,10 +2840,9 @@ def profile_step(torch, dpt, x, y, label="train"):
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
     by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) \
-                + e.time_range.elapsed_us()
+    for name, on_device, us in profile_events(torch, prof):
+        if on_device:
+            by_name[name] = by_name.get(name, 0.0) + us
     busy = sum(by_name.values())
     if not busy:
         print(f"profile {label}: the profiler recorded no device time",
@@ -4240,10 +4285,9 @@ def device_busy(torch, fn, n):
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
     by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) \
-                + e.time_range.elapsed_us()
+    for name, on_device, us in profile_events(torch, prof):
+        if on_device:
+            by_name[name] = by_name.get(name, 0.0) + us
     return sum(by_name.values()) / wall_us, by_name, wall_us
 
 
@@ -6011,6 +6055,382 @@ def phase_rnn(torch, mx, counts, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the data path
+# ---------------------------------------------------------------------------
+
+# bench.py's bench_train_e2e: 384 records of 224x224 noise JPEGs, B128,
+# 4 epochs (3 batches each: 1 warm step and 11 timed), bf16
+DATA_E2E = dict(n_img=384, hw=224, batch=128, epochs=4, syn_steps=11)
+# the e2e leg's on-card normalize (bench.py:828-829)
+E2E_MEAN, E2E_STD = (123.68, 116.78, 103.94), (58.4, 57.12, 57.38)
+# (c): ImageNet's mean and std of [0, 1] pixels
+GLUON_MEAN, GLUON_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+FIXTURE = os.path.join("mxtpu_torch", "fixtures", "jpeg224")
+# (b): nd.image card against CPU, as tests/test_torch_image.py holds the
+# port to the JAX package: 1e-5 rel + 1e-6 abs; resize's float output
+# 1e-5 rel + 1e-4 abs on [0, 255] images, its uint8 output within one step
+IMAGE_RTOL, IMAGE_ATOL, RESIZE_ATOL = 1e-5, 1e-6, 1e-4
+
+
+def fixture_records(tmp):
+    """The committed fixture (``make_jpeg224.py``): its 16 JPEGs, checked
+    against their SHA-256, packed as ``DATA_E2E["n_img"]`` records (image
+    i % 16, label i % 10) by the port's pure-Python ``recordio``.
+    Returns the ``.rec`` path, the fixture's JSON and the JPEG bytes."""
+    import hashlib
+    from mxtpu_torch import recordio
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), FIXTURE)
+    with open(os.path.join(root, "decoded.json")) as f:
+        meta = json.load(f)
+    jpegs = []
+    for im in meta["images"]:
+        with open(os.path.join(root, im["file"]), "rb") as f:
+            jpegs.append(f.read())
+        check(hashlib.sha256(jpegs[-1]).hexdigest() == im["sha256_file"],
+              f"fixture {im['file']} differs from its JSON")
+    path = os.path.join(tmp, "e2e.rec")
+    with recordio.MXRecordIO(path, "w") as w:
+        for i in range(DATA_E2E["n_img"]):
+            w.write(recordio.pack(recordio.IRHeader(0, float(i % 10), i, 0),
+                                  jpegs[i % len(jpegs)]))
+    return path, meta, jpegs
+
+
+def e2e_iter(mx, rec, nproc, ctx, shuffle=False, threads=None):
+    """``bench_train_e2e``'s iterator: uint8 NCHW batches with random
+    mirrors, ``nproc`` decode threads, two batches prefetched; with
+    ``ctx`` a ``DeviceFeed`` staging them there."""
+    hw = DATA_E2E["hw"]
+    return mx.io.ImageRecordIter(
+        path_imgrec=rec, data_shape=(3, hw, hw),
+        batch_size=DATA_E2E["batch"], rand_mirror=True, shuffle=shuffle,
+        dtype="uint8", preprocess_threads=threads or nproc,
+        prefetch_buffer=2, ctx=ctx)
+
+
+def data_train_e2e(torch, mx, rec, nproc):
+    """(a) ``bench_train_e2e`` on the card: ResNet-50 v1 bf16 B128 (phase
+    15's trainer) fed from RecordIO through ``ImageRecordIter`` (uint8 on
+    the wire, normalized on the card), against the same trainer on a
+    resident batch, the iterator alone and the iterator with the
+    transfer."""
+    from mxtpu_torch import image, optimizer, parallel
+    from mxtpu_torch.gluon import loss as loss_mod
+    from mxtpu_torch.gluon.model_zoo import vision
+    B, epochs, syn_steps = DATA_E2E["batch"], DATA_E2E["epochs"], \
+        DATA_E2E["syn_steps"]
+    mean = torch.tensor(E2E_MEAN, device="cuda").view(1, 3, 1, 1)
+    std = torch.tensor(E2E_STD, device="cuda").view(1, 3, 1, 1)
+
+    def batches():
+        it = e2e_iter(mx, rec, nproc, mx.gpu(0))
+        try:
+            for _ in range(epochs):
+                it.reset()
+                for b in it:
+                    if b.pad:
+                        continue            # steady-state batches only
+                    x = ((b.data[0].data.float() - mean) / std).to(
+                        torch.bfloat16)
+                    yield x, b.label[0].data
+        finally:
+            it.close()
+
+    net, dpt = resnet50_trainer(mx, vision, parallel, optimizer, loss_mod,
+                                "bfloat16", 1)
+    # the compute floor: the same trainer and program on a resident batch
+    xs, ys = vision_batch(torch, B, "bfloat16")
+    float(dpt.step_async(xs, ys))           # shapes, body
+    float(dpt.step_async(xs, ys))           # capture, replay
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(syn_steps):
+        loss = dpt.step_async(xs, ys)
+    float(loss)
+    syn_ms = (time.perf_counter() - t0) / syn_steps * 1e3
+    before = dpt.stats()
+
+    gen = batches()
+    x0, y0 = next(gen)
+    warm_loss = float(dpt.step_async(x0, y0))
+    steps, losses = 0, []
+    t0 = time.perf_counter()
+    for x, y in gen:
+        losses.append(dpt.step_async(x, y))   # async: decode overlaps
+        steps += 1
+    losses = [float(v) for v in losses]
+    wall = time.perf_counter() - t0
+    after = dpt.stats()
+    check(steps == epochs * (DATA_E2E["n_img"] // B) - 1,
+          f"(a) e2e: {steps} timed steps")
+    check(all(math.isfinite(v) for v in [warm_loss] + losses),
+          f"(a) e2e losses {[warm_loss] + losses}")
+    check(after["captured"] == 1 and before["captured"] == 1
+          and after["replays"] - before["replays"] == steps + 1,
+          f"(a) e2e: trainer {before} -> {after}: want one capture and "
+          f"{steps + 1} replays")
+    del net, dpt
+
+    # the iterator alone: host uint8 slabs
+    t0 = time.perf_counter()
+    feed_steps = 0
+    it = e2e_iter(mx, rec, nproc, None)
+    for _ in range(epochs):
+        it.reset()
+        for b in it:
+            if b.pad:
+                continue
+            check(b.data[0].data.dtype == torch.uint8,
+                  f"(a) host feed: {b.data[0].data.dtype} slab")
+            feed_steps += 1
+    feed_wall = time.perf_counter() - t0
+    # the iterator through the device boundary, normalized on the card
+    t0 = time.perf_counter()
+    ft_steps = 0
+    for x, _ in batches():
+        ft_steps += 1
+    torch.cuda.synchronize()
+    ft_wall = time.perf_counter() - t0
+
+    out = dict(img_s=steps * B / wall, steps=steps, wall_s=wall,
+               cpu_count=nproc, route=image.DECODE_ROUTE,
+               host_feed_img_s=feed_steps * B / feed_wall,
+               feed_transfer_img_s=ft_steps * B / ft_wall,
+               synthetic_ms=syn_ms, synthetic_img_s=B * 1e3 / syn_ms)
+    out["overlap_efficiency"] = out["img_s"] / out["feed_transfer_img_s"]
+    out["chip_idle"] = max(0.0, 1 - steps * syn_ms / 1e3 / wall)
+    pace = ("the host sets the pace" if out["host_feed_img_s"]
+            < 1.5 * out["synthetic_img_s"] else "the card sets the pace")
+    print(f"data (a) e2e: ResNet-50 v1 bf16 B{B} SGD(0.05, momentum 0.9, "
+          f"wd 1e-4), captured once, fed by ImageRecordIter(uint8, "
+          f"rand_mirror, preprocess_threads={nproc}, prefetch_buffer=2, "
+          f"ctx=gpu(0)) over {DATA_E2E['n_img']} records, normalized on the "
+          f"card; decode route {image.DECODE_ROUTE}; nproc {nproc}: "
+          f"{steps} timed steps {out['img_s']:.1f} img/s end to end (wall "
+          f"{wall:.3f} s; loss {warm_loss:.4f} -> {losses[-1]:.4f}); "
+          f"synthetic (resident batch, same program) {syn_ms:.3f} ms a "
+          f"step = {out['synthetic_img_s']:.1f} img/s; host feed "
+          f"{out['host_feed_img_s']:.1f} img/s; feed+transfer "
+          f"{out['feed_transfer_img_s']:.1f} img/s; overlap efficiency "
+          f"{out['overlap_efficiency']:.3f}; chip idle {out['chip_idle']:.3f}"
+          f"; {pace} (host feed / synthetic "
+          f"{out['host_feed_img_s'] / out['synthetic_img_s']:.2f})",
+          flush=True)
+    return out
+
+
+def data_card_vs_cpu(torch, mx, rec, meta, jpegs, nproc):
+    """(b) the decode route against the fixture's JSON; one epoch of
+    ``ImageRecordIter`` staged to the card against the host path with one
+    thread, seeded alike; every ``nd.image`` op card against CPU."""
+    import hashlib
+    import random as pyrandom
+    import numpy as np
+    from mxtpu_torch import image, nd
+    from mxtpu_torch.ndarray.ndarray import NDArray
+    route = image.DECODE_ROUTE
+    check(route in ("libjpeg", "pillow"), f"(b) decode route {route}")
+    rs = np.random.RandomState(meta["seed"])
+    hw = meta["shape"][0]
+    maes = []
+    for im, buf in zip(meta["images"], jpegs):
+        src = rs.randint(0, 255, (hw, hw, 3)).astype(np.uint8)
+        dec = image.imdecode(buf).asnumpy()
+        check(hashlib.sha256(dec.tobytes()).hexdigest()
+              == im["sha256_decoded"],
+              f"(b) {im['file']} decodes on the {route} route to other "
+              f"bytes than the fixture's libjpeg decode")
+        maes.append(float(np.abs(dec.astype(np.int16) - src).mean()))
+        check(maes[-1] == im["mae_vs_source"], f"(b) {im['file']} MAE")
+    from mxtpu_torch import native
+    try:
+        import PIL
+        pillow = PIL.__version__
+    except ImportError:
+        pillow = "absent"
+    print(f"data (b) decode route {route} (jpeglib.h: "
+          f"{native.jpeg_header()}; Pillow {pillow}; native "
+          f"library built: {native.available()}): the {len(jpegs)} fixture "
+          f"JPEGs decode to the SHA-256 of the fixture's libjpeg decode; MAE "
+          f"against the seeded source {min(maes):.4f}-{max(maes):.4f}",
+          flush=True)
+
+    def epoch(ctx, threads):
+        pyrandom.seed(18)
+        it = e2e_iter(mx, rec, nproc, ctx, shuffle=True, threads=threads)
+        try:
+            return [(b.data[0].data.cpu(), b.label[0].data.cpu(), b.pad)
+                    for b in it]
+        finally:
+            if ctx is not None:
+                it.close()
+
+    card = epoch(mx.gpu(0), nproc)
+    host = epoch(None, 1)
+    check(len(card) == len(host) == DATA_E2E["n_img"] // DATA_E2E["batch"]
+          and all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                  and a[2] == b[2] for a, b in zip(card, host)),
+          "(b) ImageRecordIter staged to the card differs from the host "
+          "path with one thread")
+    print(f"data (b) one shuffled, mirrored epoch ({len(card)} batches) "
+          f"staged to the card through ImageRecordIter(ctx=gpu(0), "
+          f"{nproc} threads) bit-equal to the host path with 1 thread, "
+          f"seeded alike", flush=True)
+
+    g = np.random.RandomState(18)
+    u8 = g.randint(0, 255, (2, 37, 53, 3)).astype(np.uint8)
+    f32 = (g.rand(2, 37, 53, 3) * 255).astype(np.float32)
+    chw = g.rand(2, 3, 37, 53).astype(np.float32)
+    cases = [("to_tensor", u8, {}), ("to_tensor", u8[0], {}),
+             ("normalize", chw, dict(mean=(0.1, 0.2, 0.3),
+                                     std=(0.5, 0.25, 2.0))),
+             ("flip_left_right", f32, {}), ("flip_top_bottom", f32[0], {}),
+             ("crop", u8, dict(x=3, y=5, width=20, height=17)),
+             ("random_flip_left_right", u8, dict(p=1.0)),
+             ("random_flip_top_bottom", u8, dict(p=0.0)),
+             ("resize", f32, dict(size=(20, 14))),
+             ("resize", f32[0], dict(size=100)),
+             ("resize", u8, dict(size=16, keep_ratio=True)),
+             ("resize", u8[0], dict(size=(70, 50), interp=0))]
+    worst = 0.0
+    for name, x, kw in cases:
+        op = getattr(nd.image, name)
+        a = op(NDArray(torch.from_numpy(x).cuda()), **kw).asnumpy()
+        b = op(NDArray(torch.from_numpy(x)), **kw).asnumpy()
+        check(a.shape == b.shape and a.dtype == b.dtype,
+              f"(b) nd.image.{name}: {a.shape} {a.dtype} vs {b.shape} "
+              f"{b.dtype}")
+        if a.dtype == np.uint8:
+            d = int(np.abs(a.astype(np.int16) - b).max())
+            check(d <= (1 if name == "resize" else 0),
+                  f"(b) nd.image.{name} {kw}: uint8 outputs {d} apart")
+            continue
+        atol = RESIZE_ATOL if name == "resize" else IMAGE_ATOL
+        err = np.abs(a - b) - IMAGE_RTOL * np.abs(b)
+        check(float(err.max()) <= atol,
+              f"(b) nd.image.{name} {kw}: card vs CPU beyond "
+              f"{IMAGE_RTOL:g} rel + {atol:g} abs")
+        worst = max(worst, float((np.abs(a - b) / (np.abs(b) + 1)).max()))
+    flips = [bool(torch.equal(nd.image.random_flip_left_right(
+        NDArray(torch.from_numpy(u8[0]).cuda())).data.cpu(),
+        torch.from_numpy(u8[0][:, ::-1].copy()))) for _ in range(64)]
+    check(0 < sum(flips) < 64, f"(b) random_flip_left_right(p=0.5) on the "
+          f"card flipped {sum(flips)} of 64")
+    print(f"data (b) nd.image: {len(cases)} cases of the 8 ops card vs CPU "
+          f"within {IMAGE_RTOL:g} rel + {IMAGE_ATOL:g} abs (resize "
+          f"{RESIZE_ATOL:g} abs, uint8 one step); largest |card - CPU| / "
+          f"(|CPU| + 1) {worst:.3e}; random_flip_left_right(p=0.5) flipped "
+          f"{sum(flips)} of 64 on the card", flush=True)
+
+
+def data_gluon_flow(torch, mx, rec, nproc):
+    """(c) ``ImageRecordDataset`` through the Gluon transforms and
+    ``DataLoader(num_workers=nproc, ctx=gpu(0))``, scoring f32 ResNet-50
+    at B32; one batch's logits against the same batch fed from a resident
+    tensor."""
+    from mxtpu_torch import autograd, profiler
+    from mxtpu_torch.gluon.data import DataLoader
+    from mxtpu_torch.gluon.data.vision import ImageRecordDataset, transforms
+    from mxtpu_torch.gluon.model_zoo import vision
+    from mxtpu_torch.ndarray.ndarray import NDArray
+    B = 32
+    tr = transforms.Compose([transforms.RandomFlipLeftRight(),
+                             transforms.ToTensor(),
+                             transforms.Normalize(GLUON_MEAN, GLUON_STD)])
+    ds = ImageRecordDataset(rec).transform_first(tr)
+    loader = DataLoader(ds, batch_size=B, num_workers=nproc, ctx=mx.gpu(0),
+                        last_batch="discard")
+    mx.random.seed(0)
+    net = vision.resnet50_v1(classes=1000)
+    net.initialize()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    with autograd.predict_mode():
+        net(NDArray(torch.rand((B, 3, 224, 224), generator=g,
+                               device="cuda")))
+    torch.cuda.synchronize()
+    profiler.reset_feed_stats()
+    n, first = 0, None
+    t0 = time.perf_counter()
+    with autograd.predict_mode():
+        for x, _ in loader:
+            out = net(x)
+            if first is None:
+                first = (x.data, out.data)
+            n += x.shape[0]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = profiler.get_feed_stats()
+    check(n == len(loader) * B == DATA_E2E["n_img"],
+          f"(c) scored {n} images")
+    resident = first[0].cpu().to("cuda")
+    with autograd.predict_mode():
+        again = net(NDArray(resident)).data
+    check(tuple(first[1].shape) == (B, 1000)
+          and bool(torch.isfinite(first[1]).all())
+          and torch.equal(first[1], again),
+          "(c) the first batch's logits differ from the same batch fed "
+          "from a resident tensor")
+    stall = stats["stall_ms_total"] / (wall * 1e3)
+    print(f"data (c) Gluon: ImageRecordDataset -> Compose([RandomFlip"
+          f"LeftRight, ToTensor, Normalize]) -> DataLoader(num_workers="
+          f"{nproc}, ctx=gpu(0)) scoring ResNet-50 v1 f32 B{B}: {n} images "
+          f"{n / wall:.1f} img/s (wall {wall:.3f} s); feed stall "
+          f"{stats['stall_ms_total']:.1f} ms = {stall:.3f} of the wall over "
+          f"{stats['batches_consumed']} batches, {stats['transfer_bytes']} "
+          f"bytes staged; the first batch's logits bit-equal to the same "
+          f"batch fed from a resident tensor", flush=True)
+    return dict(img_s=n / wall, stall=stall)
+
+
+def data_mnist_fit(mx):
+    """(d) ``examples/train_mnist.py``'s flow with ``--network lenet``:
+    ``MNISTIter`` (the synthetic source) into ``Module.fit`` on the card,
+    3 epochs at B64, SGD(0.05, momentum 0.9); held-out accuracy > 0.9 (the
+    gate of ``tests/test_examples.py:70-75``)."""
+    from mxtpu_torch.gluon.model_zoo import vision
+    train = mx.io.MNISTIter(batch_size=64, flat=False)
+    val = mx.io.MNISTIter(batch_size=64, flat=False, seed=7)
+    mx.random.seed(0)
+    mod = mx.mod.Module(vision.lenet(classes=10), context=mx.gpu(0))
+    t0 = time.monotonic()
+    mod.fit(train, eval_data=val, optimizer="sgd",
+            optimizer_params={"learning_rate": 0.05, "momentum": 0.9},
+            num_epoch=3)
+    fit_s = time.monotonic() - t0
+    acc = dict(mod.score(val, "acc"))["accuracy"]
+    check(acc > 0.9, f"(d) LeNet on MNISTIter: accuracy {acc:.4f} (gate "
+          f"> 0.9)")
+    print(f"data (d) MNISTIter (synthetic) -> Module.fit(LeNet) on the card, "
+          f"3 epochs B64: {fit_s:.2f} s, held-out accuracy {acc:.4f} (gate "
+          f"> 0.9)", flush=True)
+
+
+def phase_data(torch, mx, counts, smi):
+    """Phase 18: the data path on the card (see the module docstring).
+    Returns (a)'s readings."""
+    import tempfile
+    from mxtpu_torch.ops import attention, quant_attention
+    nproc = os.cpu_count() or 1
+    counts(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        rec, meta, jpegs = fixture_records(tmp)
+        out = data_train_e2e(torch, mx, rec, nproc)
+        torch.cuda.empty_cache()
+        data_card_vs_cpu(torch, mx, rec, meta, jpegs, nproc)
+        out["gluon"] = data_gluon_flow(torch, mx, rec, nproc)
+        torch.cuda.empty_cache()
+    data_mnist_fit(mx)
+    launches = dict(attention_launches(attention),
+                    K5=quant_attention.dequant_decode.launches)
+    check(not any(launches.values()),
+          f"phase 18 launched a TPU kernel's port: {launches} (the data "
+          f"path runs none of K1-K5)")
+    print(f"data: no TPU kernel lies on this path: K1-K5 launches "
+          f"{launches} ({smi})", flush=True)
+    return out
+
+
 def launch_counter(attention, quant_attention):
     """``counts(n)``: every kernel wrapper's launch counts (and the sm90
     route's) set to ``n``."""
@@ -6125,6 +6545,8 @@ def run():
                           smi[0], vision_out["score"])
     torch.cuda.empty_cache()
     timed_phase("rnn", phase_rnn, torch, mx, counts, smi[0])
+    torch.cuda.empty_cache()
+    timed_phase("data", phase_data, torch, mx, counts, smi[0])
     print(f"K1 launches: forward {k1_launches}, training "
           f"{train_launches['K1']}, gluon {glu['K1']}, module {mod_l['K1']}, "
           f"symbolic graph {sym_l['K1']}, quantized module {quant_l['K1']}",
@@ -6304,6 +6726,29 @@ def run_rnn_only():
           flush=True)
 
 
+def run_data_only():
+    """Phase 18 alone (``python3 chip_smoke.py --phase 18``): no kernel of
+    the port lies on the data path, so nothing is built; no kernels line,
+    no result line."""
+    import torch
+    if not torch.cuda.is_available():
+        raise SmokeFailure("no CUDA device: this smoke runs on the card only")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mxtpu_torch.ops import attention, quant_attention
+    import mxtpu_torch as mx
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    print(smi[0], flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    t0 = time.monotonic()
+    phase_data(torch, mx, launch_counter(attention, quant_attention), smi[0])
+    print(f"[data: {time.monotonic() - t0:.1f} s] phase 18 passed",
+          flush=True)
+
+
 def main() -> int:
     try:
         if sys.argv[1:] == ["--phase", "14"]:
@@ -6317,6 +6762,9 @@ def main() -> int:
             return 0
         if sys.argv[1:] == ["--phase", "17"]:
             run_rnn_only()
+            return 0
+        if sys.argv[1:] == ["--phase", "18"]:
+            run_data_only()
             return 0
         run()
     except SmokeFailure as e:

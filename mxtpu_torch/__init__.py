@@ -19,7 +19,10 @@ end: ``sym``/``symbol`` (graphs, ``Executor``), ``mod``/``module``
 (``quant.train``, ``MXTPU_QUANT_STEP``); and recurrent nets and control
 flow: ``gluon.rnn`` (``LSTM``, ``GRU``, ``RNN`` and the cells), the fused
 ``RNN`` op, ``nd.contrib.foreach``/``while_loop``/``cond``, ``jit``
-(``CachedOp``, ``grad``) and ``rnn.BucketSentenceIter``. Module paths
+(``CachedOp``, ``grad``) and ``rnn.BucketSentenceIter``; and the data
+path: ``recordio``, ``native`` (the native IO library), ``image``
+(``ImageIter``), ``io.ImageRecordIter``, ``nd.image`` and
+``gluon.data`` (datasets, transforms, ``DataLoader``). Module paths
 mirror ``mxtpu/`` so each module's counterpart is easy to find.
 
 The package imports ``torch`` and never JAX or ``mxtpu``. Entry points run
@@ -64,11 +67,13 @@ from .module import Module  # noqa: E402
 from . import contrib  # noqa: E402
 from . import jit  # noqa: E402
 from . import rnn  # noqa: E402
+from . import recordio  # noqa: E402
+from . import image  # noqa: E402
 
 __all__ = ["AttrScope", "Context", "Module", "NDArray", "Symbol", "attribute",
            "autograd", "callback", "contrib", "cpu", "current_context",
-           "engine", "gluon", "gpu", "init", "initializer", "io", "kvstore",
-           "load_checkpoint", "metric", "mod", "model", "module", "monitor",
-           "jit", "nd", "num_gpus", "operator", "optimizer", "random",
-           "resolve_device", "rnn", "rtc", "save_checkpoint", "sym",
-           "symbol"]
+           "engine", "gluon", "gpu", "image", "init", "initializer", "io",
+           "kvstore", "load_checkpoint", "metric", "mod", "model", "module",
+           "monitor", "jit", "nd", "num_gpus", "operator", "optimizer",
+           "random", "recordio", "resolve_device", "rnn", "rtc",
+           "save_checkpoint", "sym", "symbol"]

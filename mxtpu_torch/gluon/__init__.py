@@ -1,6 +1,7 @@
 """mxtpu_torch.gluon — the Gluon front end (``Block``, ``Parameter``,
-``Trainer``, layers, recurrent layers and cells, losses, utilities) and
-the model zoo, as torch modules."""
+``Trainer``, layers, recurrent layers and cells, losses, utilities), the
+model zoo, as torch modules, and ``data`` (datasets, samplers, vision
+transforms, ``DataLoader``)."""
 
 from . import loss
 from . import nn
@@ -12,7 +13,8 @@ from .trainer import Trainer
 
 from . import contrib  # noqa: E402
 from . import model_zoo  # noqa: E402
+from . import data  # noqa: E402
 
 __all__ = ["Block", "Constant", "HybridBlock", "Parameter", "ParameterDict",
-           "SymbolBlock", "Trainer", "contrib", "loss", "model_zoo", "nn",
-           "rnn", "utils"]
+           "SymbolBlock", "Trainer", "contrib", "data", "loss", "model_zoo",
+           "nn", "rnn", "utils"]

@@ -1,17 +1,19 @@
 """Data iterators: ``DataDesc``, ``DataBatch``, the ``DataIter`` base
 (which :class:`~mxtpu_torch.device_feed.DeviceFeed` extends),
-``NDArrayIter``, ``ResizeIter`` and ``PrefetchingIter``.
+``NDArrayIter``, ``CSVIter``, ``MNISTIter``, ``ResizeIter``,
+``PrefetchingIter`` and ``ImageRecordIter``.
 
-Port of ``mxtpu/io.py``. The host pipeline is numpy and threads: an
-``NDArrayIter`` batch is a set of NDArrays over CPU tensors, and the
-device boundary is the consumer's (``Module.fit`` stages batches on its
-device through a ``DeviceFeed``; ``Module.forward`` copies a host batch
-there). ``CSVIter``, ``LibSVMIter``, ``MNISTIter`` and
-``ImageRecordIter`` are not ported.
+Port of ``mxtpu/io.py``. The host pipeline is numpy and threads: a batch
+is a set of NDArrays over CPU tensors, and the device boundary is the
+consumer's (``Module.fit`` stages batches on its device through a
+``DeviceFeed``; ``Module.forward`` copies a host batch there;
+``ImageRecordIter(ctx=...)`` returns the ``DeviceFeed`` itself).
+``LibSVMIter`` yields CSR batches and waits for the sparse NDArray.
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 from collections import namedtuple
@@ -20,8 +22,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
-           "PrefetchingIter"]
+__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "CSVIter",
+           "MNISTIter", "ResizeIter", "PrefetchingIter", "ImageRecordIter"]
 
 DataDesc = namedtuple("DataDesc", ["name", "shape", "dtype", "layout"])
 DataDesc.__new__.__defaults__ = (np.float32, "NCHW")
@@ -167,6 +169,86 @@ class NDArrayIter(DataIter):
     def getpad(self) -> int:
         end = self.cursor + self.batch_size
         return max(0, end - self.num_data)
+
+
+class CSVIter(DataIter):
+    """Rows of a CSV file reshaped to ``data_shape``, labels from
+    ``label_csv`` (zeros without one); ``round_batch`` pads the last batch
+    (else it is dropped)."""
+
+    def __init__(self, data_csv: str, data_shape,
+                 label_csv: Optional[str] = None, label_shape=(1,),
+                 batch_size: int = 1,
+                 round_batch: bool = True):
+        super().__init__(batch_size)
+        data = np.loadtxt(data_csv, delimiter=",", dtype=np.float32, ndmin=2)
+        data = data.reshape((-1,) + tuple(data_shape))
+        label = (np.loadtxt(label_csv, delimiter=",", dtype=np.float32,
+                            ndmin=2) if label_csv
+                 else np.zeros((len(data), 1), np.float32))
+        self._inner = NDArrayIter(
+            data, label.squeeze(-1) if label.shape[-1] == 1 else label,
+            batch_size, last_batch_handle="pad" if round_batch else "discard",
+            label_name="label")
+
+    def reset(self):
+        self._inner.reset()
+
+    def next(self):
+        return self._inner.next()
+
+    @property
+    def provide_data(self):
+        return self._inner.provide_data
+
+    @property
+    def provide_label(self):
+        return self._inner.provide_label
+
+
+class MNISTIter(DataIter):
+    """MNIST from its IDX files (``image``, ``label``), scaled to [0, 1],
+    NCHW or ``flat`` (N, 784). Without the files, the JAX package's
+    learnable stand-in: 1024 images from ``RandomState(seed or 42)``, each
+    class a bright patch at its own place over noise."""
+
+    def __init__(self, image: str = "", label: str = "",
+                 batch_size: int = 128, shuffle: bool = True,
+                 flat: bool = False, seed: int = 0, silent: bool = False,
+                 synthetic: bool = False, **kwargs):
+        super().__init__(batch_size)
+        if image and (os.path.exists(image) or os.path.exists(image + ".gz")):
+            from .gluon.data.vision.datasets import (read_idx_images,
+                                                     read_idx_labels)
+            imgs = read_idx_images(image).astype(np.float32) / 255.0
+            lbls = read_idx_labels(label).astype(np.float32)
+        else:
+            rs = np.random.RandomState(seed or 42)
+            n = 1024
+            lbls = rs.randint(0, 10, (n,)).astype(np.float32)
+            imgs = rs.rand(n, 28, 28, 1).astype(np.float32) * 0.3
+            for i, c in enumerate(lbls.astype(int)):
+                r0, c0 = 2 + (c // 5) * 12, 2 + (c % 5) * 5
+                imgs[i, r0:r0 + 8, c0:c0 + 4, 0] += 0.7
+        if flat:
+            imgs = imgs.reshape(len(imgs), -1)
+        else:
+            imgs = imgs.transpose(0, 3, 1, 2)
+        self._inner = NDArrayIter(imgs, lbls, batch_size, shuffle=shuffle)
+
+    def reset(self):
+        self._inner.reset()
+
+    def next(self):
+        return self._inner.next()
+
+    @property
+    def provide_data(self):
+        return self._inner.provide_data
+
+    @property
+    def provide_label(self):
+        return self._inner.provide_label
 
 
 class ResizeIter(DataIter):
@@ -315,3 +397,74 @@ class PrefetchingIter(DataIter):
     @property
     def provide_label(self):
         return self.iter.provide_label
+
+
+def ImageRecordIter(path_imgrec: str, data_shape, batch_size: int,
+                    label_width: int = 1, shuffle: bool = False,
+                    preprocess_threads: int = 4, prefetch_buffer: int = 2,
+                    rand_crop: bool = False, rand_mirror: bool = False,
+                    mean_r: float = 0, mean_g: float = 0, mean_b: float = 0,
+                    std_r: float = 1, std_g: float = 1, std_b: float = 1,
+                    resize: int = 0, dtype: str = "float32",
+                    ctx=None, device_feed: Optional[bool] = None,
+                    **kwargs) -> DataIter:
+    """RecordIO images through decode and augmentation on
+    ``preprocess_threads`` threads (:class:`~mxtpu_torch.image.ImageIter`),
+    NCHW batches, with a producer thread ``prefetch_buffer`` batches ahead
+    (the reference's ``iter_image_recordio_2.cc`` and prefetcher).
+
+    ``dtype="uint8"`` gives raw NCHW uint8 batches, to be normalized on the
+    device. The iterator advertises ``device_feed_depth`` (=
+    ``prefetch_buffer``), which ``device_feed.maybe_device_feed`` (and so
+    ``Module.fit``) takes as its depth. ``ctx=`` (a device or ``Context``)
+    or ``device_feed=True`` (the card) returns the pipeline wrapped in a
+    :class:`~mxtpu_torch.device_feed.DeviceFeed` that stages each batch
+    there; without CUDA that raises."""
+    from .image import ImageIter
+    mean = None
+    if mean_r or mean_g or mean_b:
+        mean = np.array([mean_r, mean_g, mean_b], np.float32)
+    std = None
+    if (std_r, std_g, std_b) != (1, 1, 1):
+        std = np.array([std_r, std_g, std_b], np.float32)
+    it = ImageIter(batch_size, data_shape, label_width,
+                   path_imgrec=path_imgrec, shuffle=shuffle, resize=resize,
+                   rand_crop=rand_crop, rand_mirror=rand_mirror, mean=mean,
+                   std=std, preprocess_threads=preprocess_threads,
+                   dtype=dtype)
+    out = PrefetchingIter(_ImageIterAdapter(it, batch_size),
+                          prefetch=prefetch_buffer)
+    out.device_feed_depth = prefetch_buffer
+    out.preprocess_threads = preprocess_threads
+    if ctx is not None or device_feed:
+        from .context import Context
+        from .device_feed import DeviceFeed
+        return DeviceFeed(out, depth=prefetch_buffer,
+                          device=None if ctx is None else Context(ctx))
+    return out
+
+
+class _ImageIterAdapter(DataIter):
+    """An ``ImageIter`` as a ``DataIter`` that restarts it when iterated."""
+
+    def __init__(self, it, batch_size):
+        super().__init__(batch_size)
+        self._it = it
+
+    def reset(self):
+        self._it.reset()
+
+    def next(self):
+        return next(self._it)
+
+    def __iter__(self):
+        self._it.reset()
+        return self._it
+
+    @property
+    def provide_data(self):
+        return self._it.provide_data
+
+    @property
+    def provide_label(self):
+        return self._it.provide_label

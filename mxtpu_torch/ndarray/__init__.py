@@ -1,10 +1,10 @@
 """``mx.nd``-equivalent namespace, generated from the op registry.
 
 Port of ``mxtpu/ndarray/__init__.py``: one wrapper per registered op name,
-with the sub-namespaces ``nd.random`` and ``nd.contrib`` (which also
-holds the control flow: ``foreach``, ``while_loop``, ``cond``). A wrapper's
-``ctx=`` runs the op in that context (creation and random ops land there)
-and moves a result made elsewhere onto it.
+with the sub-namespaces ``nd.random``, ``nd.image`` and ``nd.contrib``
+(which also holds the control flow: ``foreach``, ``while_loop``,
+``cond``). A wrapper's ``ctx=`` runs the op in that context (creation and
+random ops land there) and moves a result made elsewhere onto it.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from ..ops import registry as _reg
 # registration side effects: the ops of this slice
 from ..ops import attention as _attention  # noqa: F401
 from ..ops import elementwise as _elementwise  # noqa: F401
+from ..ops import image_ops as _image_ops  # noqa: F401
 from ..ops import init_ops as _init_ops  # noqa: F401
 from ..ops import matrix as _matrix  # noqa: F401
 from ..ops import nn as _nn  # noqa: F401

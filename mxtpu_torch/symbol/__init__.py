@@ -1,6 +1,6 @@
 """``mx.sym`` / ``mx.symbol``: the op wrappers generated from the registry
-that drives ``nd``, with the ``contrib`` and ``random`` sub-namespaces, as
-``mxtpu/symbol/__init__.py`` generates them."""
+that drives ``nd``, with the ``contrib``, ``random`` and ``image``
+sub-namespaces, as ``mxtpu/symbol/__init__.py`` generates them."""
 
 from __future__ import annotations
 

@@ -54,6 +54,9 @@ SLICE_MODULES = ("elementwise", "reduce", "matrix", "init_ops", "random",
 # ops of those modules that wait for a later slice (SyncBatchNorm needs
 # parallel/collectives)
 WAITING = {"contrib.SyncBatchNorm", "contrib._contrib_SyncBatchNorm"}
+# every module whose ops the port registers: the slice's, and the
+# ``nd.image`` ops, held to the JAX package in tests/test_torch_image.py
+REGISTERED_MODULES = SLICE_MODULES + ("image_ops",)
 
 
 @pytest.fixture(autouse=True)
@@ -518,22 +521,23 @@ CASES["RNN"] = [
          mode="rnn_tanh")]
 
 
-def _slice_names():
+def _slice_names(modules=SLICE_MODULES):
     names = []
     for k in jreg.list_ops():
         mod = jreg.get_op(k).fn.__module__.rsplit(".", 1)[-1]
-        if mod in SLICE_MODULES and k not in WAITING:
+        if mod in modules and k not in WAITING:
             names.append(k)
     return names
 
 
 def test_registry_lists_the_slice():
-    """The port registers exactly the JAX package's ops of this slice's
+    """The port registers exactly the JAX package's ops of the registered
     modules (and their aliases), less those that wait."""
-    assert sorted(treg.list_ops()) == sorted(_slice_names())
-    for ns in ("random", "contrib"):
+    names = _slice_names(REGISTERED_MODULES)
+    assert sorted(treg.list_ops()) == sorted(names)
+    for ns in ("random", "contrib", "image"):
         assert treg.list_ops(ns) == sorted(
-            k[len(ns) + 1:] for k in _slice_names() if k.startswith(ns + "."))
+            k[len(ns) + 1:] for k in names if k.startswith(ns + "."))
 
 
 def _build(rs, spec):

@@ -9,7 +9,9 @@
   Gluon ``initialize()`` of a block (a vision zoo net too) or a parameter
   with no ``ctx``, a ``Symbol.simple_bind`` with no ``ctx``, a ``Module``
   with no ``context`` or a ``DataParallelTrainer`` with no ``device`` over
-  a ``get_model`` net raises instead of running on the CPU.
+  a ``get_model`` net, an ``ImageRecordIter`` that stages to the card
+  (``device_feed=True`` or a CUDA ``ctx``) or a ``DataLoader`` with a
+  CUDA ``ctx`` raises instead of running on the CPU.
 * Each ported module with a counterpart in the JAX package lies at the
   counterpart's path.
 """
@@ -70,7 +72,12 @@ def test_no_jax_or_mxtpu_imports(path):
     "ops/nn.py", "profiler.py", "ops/sequence.py", "ops/rnn.py",
     "ops/control_flow.py", "jit.py", "gluon/rnn/__init__.py",
     "gluon/rnn/rnn_cell.py", "gluon/rnn/rnn_layer.py",
-    "gluon/contrib/rnn.py", "gluon/contrib/__init__.py", "rnn.py"])
+    "gluon/contrib/rnn.py", "gluon/contrib/__init__.py", "rnn.py",
+    "recordio.py", "native.py", "image/__init__.py", "image/image.py",
+    "ops/image_ops.py", "gluon/data/__init__.py", "gluon/data/sampler.py",
+    "gluon/data/dataset.py", "gluon/data/dataloader.py",
+    "gluon/data/vision/__init__.py", "gluon/data/vision/datasets.py",
+    "gluon/data/vision/transforms.py"])
 def test_the_counterparts_are_checked(module):
     """Each module that has a counterpart in the JAX package lies where
     its counterpart does, and the import rule above reads it."""
@@ -132,3 +139,22 @@ def test_entry_points_refuse_the_cpu_without_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DataParallelTrainer(get_model("resnet50_v1"),
                             gluon.loss.SoftmaxCrossEntropyLoss(), Adam())
+
+
+def test_the_data_path_refuses_the_cpu_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the feeds stage there")
+    import numpy as np
+    import mxtpu_torch as mx
+    from mxtpu_torch import recordio
+    from mxtpu_torch.gluon.data import ArrayDataset, DataLoader
+    rec = str(tmp_path / "a.rec")
+    img = np.zeros((8, 8, 3), np.uint8)
+    with recordio.MXRecordIO(rec, "w") as w:
+        w.write(recordio.pack_img(recordio.IRHeader(0, 1.0, 0, 0), img))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mx.io.ImageRecordIter(rec, (3, 8, 8), 1, device_feed=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mx.io.ImageRecordIter(rec, (3, 8, 8), 1, ctx=mx.gpu(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DataLoader(ArrayDataset(np.zeros((4, 2))), 2, ctx=mx.gpu(0))

@@ -5,8 +5,9 @@ main paths on one NVIDIA GPU: serving, training, the imperative ``nd`` +
 end, the symbolic and Module front ends, the vision path (ResNet-50
 training and the zoo's scoring), int8 quantization (an int8 ResNet-50,
 the quantized fused training step), recurrent nets (the reference's
-word LM, control flow, ``jit``) and the data path (ResNet-50 trained from
-a RecordIO file).
+word LM, control flow, ``jit``), the data path (ResNet-50 trained from
+a RecordIO file) and detection (the SSD and Faster R-CNN toys, the
+detection ops at SSD300's and Faster R-CNN's full sizes).
 
     python3 chip_smoke.py
 
@@ -369,19 +370,51 @@ Phases, in order; any failure exits non-zero without a result line:
     batch fed from a resident tensor; (d) ``examples/train_mnist.py``'s
     flow: ``MNISTIter`` (synthetic) into ``Module.fit`` of LeNet, 3 epochs
     at B64, held-out accuracy > 0.9. K1 to K5 must not launch in it.
+19. detection (``ops/{order,contrib_ops,detection,spatial}.py``,
+    ``image/detection.py``; no TPU kernel lies on it: the reference's
+    detection ops are ``jnp``/``lax``): (a) ``examples/train_ssd_toy.py``
+    on the port's Gluon at its defaults (150 steps, B16, SGD lr 0.4,
+    momentum 0.9): mean IoU of the top detections > 0.3; the first
+    step's ``MultiBoxTarget`` equal to the CPU's on the same inputs
+    (class targets and masks exact, box targets within 1e-6); the first 3
+    losses within 1e-5 x max(|CPU|, 1) of a CPU run from the same
+    weights; ms a step; (b) ``ImageDetIter`` (``rand_crop``,
+    ``rand_mirror``) over a ``.rec`` of 64 toy PNGs packed in the phase
+    (labels ``[2, 5, cls, x1, y1, x2, y2]``), staged to the card and fed
+    to ``MultiBoxTarget``: batches bit-equal to the CPU path's under the
+    same seed, every box within one pixel of its rectangle's extent, the
+    targets card = CPU; (c) ``examples/train_rcnn_toy.py``'s graph through
+    ``simple_bind`` (B8, 150 steps, lr 0.05, from the example's own
+    initial weights): the last step's rpn_acc > 0.75, roi_acc > 0.5,
+    pos_frac > 0.25; ``Proposal`` card against CPU;
+    (d) full size, f32, each op eager: SSD300's detection layer (6 maps
+    38-1, 8732 anchors, 21 classes, B32, labels padded to 50): the 3x3
+    heads, ``MultiBoxPrior`` a map, ``MultiBoxTarget`` (mining ratio 3;
+    also replayed on a CUDA graph, bit-equal), both losses and backward,
+    ``MultiBoxDetection`` (NMS 0.45, top 400); Faster R-CNN's
+    ``Proposal`` on (2, 18, 38, 63) (21546 anchors, 6000 -> 300) and
+    ``ROIPooling`` of its rois on (2, 512, 38, 63), 7x7 at 1/16, forward
+    and backward, peak memory < 2 GiB; each op's ms; (e) every op of the
+    four op modules card against CPU at the CPU tests' shapes (outputs
+    and gradients within 1e-5 rel + 1e-6 abs, ``ctc_loss`` 1e-4;
+    indices, masks, keep sets and integers exact). In (c) and (d) a keep
+    decision that differs between card and CPU must be a pair whose IoU
+    lies within 1e-5 of the threshold (printed), and the rows after it
+    are not compared. K1 to K5 must not launch in it.
 
 ``python3 chip_smoke.py --phase 14`` builds the kernels and runs phase 14
-alone; ``--phase 15``, ``--phase 17`` and ``--phase 18`` run phase 15, 17
-or 18 alone, building nothing; ``--phase 16`` builds the kernels and runs
-phase 16 alone (no kernels line, no result line).
+alone; ``--phase 15``, ``--phase 17``, ``--phase 18`` and ``--phase 19``
+run that phase alone, building nothing; ``--phase 16`` builds the
+kernels and runs phase 16 alone (no kernels line, no result line).
 
 Launch counts are set to 0 just before phases 4, 5, 5c (its first
 burst), 5e (its SLO burst), 5f, 8, 9 (each fused run), 10, saxpy's drive in
 11, the 10 steps of 12, the 12 steps of 13 (a), phase 14 (a)'s fit, (c)'s
 forward and backward and (d)'s chained predict, phase 15 (all
 zero: no kernel of the port on the vision path), phase 16 (d)'s
-quantized fit, phase 17 (all zero: none on the RNN path) and phase 18
-(all zero: none on the data path), and read just after.
+quantized fit, phase 17 (all zero: none on the RNN path), phase 18
+(all zero: none on the data path) and phase 19 (all zero: none on the
+detection path), and read just after.
 The line before the last is the kernels' JSON record, with one K1, K2, K3
 and K4 record for each route and the path it runs on (the sm90 records of
 K1-K3 count phases 8, 13 (a), 14 (a) and 16 (d), the simt records of
@@ -6431,6 +6464,1130 @@ def phase_data(torch, mx, counts, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: detection
+# ---------------------------------------------------------------------------
+
+# examples/train_ssd_toy.py's defaults
+SSD_TOY = dict(classes=3, sizes=(0.35, 0.6), ratios=(1.0, 2.0), steps=150,
+               batch=16, lr=0.4, momentum=0.9, eval_n=32, eval_iou=0.4,
+               iou_bar=0.3, cpu_steps=3, loss_rel=1e-5)
+# tests/test_examples.py's configuration of examples/train_rcnn_toy.py
+RCNN_TOY = dict(batch=8, steps=150, lr=0.05, size=64, stride=8,
+                scales=(2.0, 4.0), ratios=(1.0,), post=8, rpn_acc=0.75,
+                roi_acc=0.5, pos_frac=0.25, tail=10)
+DET_REC = dict(n=64, batch=16, size=64, seed=5)
+# SSD300's detection layer (VGG16-reduced, MXNet's example/ssd)
+SSD300 = dict(maps=(38, 19, 10, 5, 3, 1),
+              channels=(512, 1024, 512, 256, 256, 256),
+              sizes=((0.1, 0.141), (0.2, 0.272), (0.37, 0.447),
+                     (0.54, 0.619), (0.71, 0.79), (0.88, 0.961)),
+              ratios=((1, 2, 0.5), (1, 2, 0.5, 3, 1 / 3),
+                      (1, 2, 0.5, 3, 1 / 3), (1, 2, 0.5, 3, 1 / 3),
+                      (1, 2, 0.5), (1, 2, 0.5)),
+              classes=21, batch=32, gts=50, nms=0.45, nms_topk=400,
+              anchors=8732)
+# Faster R-CNN's RPN and pooling (VGG16, stride 16, a 600 x 1000 image)
+FRCNN = dict(batch=2, h=38, w=63, channels=512, scales=(8, 16, 32),
+             ratios=(0.5, 1, 2), stride=16, im=(600, 1000), pre=6000,
+             post=300, thr=0.7, pooled=(7, 7), anchors=21546,
+             roi_bytes=2 << 30)
+DET_RTOL, DET_ATOL = 1e-5, 1e-6      # (e)'s tolerances, as the CPU tests'
+DET_KEEP_TOL = 1e-5                  # a differing keep: |IoU - thr| bound
+
+
+def ssd_toy_net(gluon, num_classes=3, num_anchors=3):
+    """examples/train_ssd_toy.py's net: three stride-2 3x3 convs and the
+    class and box heads, in the Gluon package ``gluon``."""
+    nn = gluon.nn
+
+    class ToySSD(nn.HybridSequential):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.backbone = nn.HybridSequential()
+                for ch in (16, 32, 64):
+                    self.backbone.add(nn.Conv2D(ch, 3, strides=2, padding=1,
+                                                activation="relu"))
+                self.cls_head = nn.Conv2D(num_anchors * (num_classes + 1), 3,
+                                          padding=1)
+                self.loc_head = nn.Conv2D(num_anchors * 4, 3, padding=1)
+
+        def forward(self, x):
+            feat = self.backbone(x)
+            return feat, self.cls_head(feat), self.loc_head(feat)
+
+    return ToySSD()
+
+
+def ssd_toy_batch(rs, n, size=64):
+    """The example's ``make_batch``: images with one rectangle in the
+    channel of its class; labels (n, 1, 5) [cls, x1, y1, x2, y2]."""
+    import numpy as np
+    x = np.zeros((n, 3, size, size), np.float32)
+    labels = np.zeros((n, 1, 5), np.float32)
+    for i in range(n):
+        w = rs.randint(size // 4, size // 2)
+        h = rs.randint(size // 4, size // 2)
+        x0 = rs.randint(0, size - w)
+        y0 = rs.randint(0, size - h)
+        cls = rs.randint(0, 3)
+        x[i, cls, y0:y0 + h, x0:x0 + w] = 1.0
+        labels[i, 0] = [cls, x0 / size, y0 / size, (x0 + w) / size,
+                        (y0 + h) / size]
+    return x, labels
+
+
+def ssd_toy_heads(nd, net, xb, classes=3):
+    """Anchors (1, A, 4), class predictions (B, classes + 1, A) and box
+    predictions (B, 4A), position-major as the priors."""
+    feat, cls_raw, loc_raw = net(xb)
+    B = cls_raw.shape[0]
+    anchors = nd.contrib.MultiBoxPrior(feat, sizes=SSD_TOY["sizes"],
+                                       ratios=SSD_TOY["ratios"])
+    cp = cls_raw.transpose((0, 2, 3, 1)).reshape((B, -1, classes + 1))
+    return (anchors, cp.transpose((0, 2, 1)),
+            loc_raw.transpose((0, 2, 3, 1)).reshape((B, -1)))
+
+
+def ssd_toy_objective(nd, gluon, net, xb, lb):
+    """The example's loss; returns it and ``MultiBoxTarget``'s inputs and
+    outputs."""
+    cls_loss = gluon.loss.SoftmaxCrossEntropyLoss()
+    loc_loss = gluon.loss.HuberLoss()
+    anchors, cls_preds, loc_preds = ssd_toy_heads(nd, net, xb)
+    loc_t, loc_m, cls_t = nd.contrib.MultiBoxTarget(
+        anchors, lb, cls_preds, negative_mining_ratio=3.0)
+    valid = cls_t >= 0
+    lc = cls_loss(cls_preds.transpose((0, 2, 1)), nd.relu(cls_t),
+                  sample_weight=valid)
+    ll = loc_loss(loc_preds * loc_m, loc_t * loc_m)
+    A = cls_t.shape[1]
+    num_pos = nd.sum(loc_m) / 4.0 + 1.0
+    loss = (nd.sum(lc) + nd.sum(ll)) * A / (num_pos * cls_t.shape[0])
+    return loss, (anchors, lb, cls_preds, loc_t, loc_m, cls_t)
+
+
+def ssd_toy_loss(nd, autograd, gluon, net, xb, lb):
+    """One recorded step of the example's loss and its backward; returns
+    the loss and ``MultiBoxTarget``'s inputs and outputs."""
+    with autograd.record():
+        loss, mbt = ssd_toy_objective(nd, gluon, net, xb, lb)
+    loss.backward()
+    return loss, mbt
+
+
+def ssd_toy_eval(nd, autograd, net, xe, le, eval_iou):
+    """The example's evaluation: each image's top detection against its
+    box; (mean IoU, class-and-IoU hits)."""
+    import numpy as np
+    with autograd.predict_mode():
+        anchors, cls_preds, loc_preds = ssd_toy_heads(nd, net, xe)
+        det = nd.contrib.MultiBoxDetection(nd.softmax(cls_preds, axis=1),
+                                           loc_preds, anchors,
+                                           nms_threshold=0.45)
+    d = det.asnumpy()
+    ious, hits = [], 0
+    for i in range(d.shape[0]):
+        rows = d[i][d[i][:, 0] >= 0]
+        if not len(rows):
+            ious.append(0.0)
+            continue
+        best, gt = rows[0], le[i, 0]
+        x1, y1 = max(best[2], gt[1]), max(best[3], gt[2])
+        x2, y2 = min(best[4], gt[3]), min(best[5], gt[4])
+        inter = max(0, x2 - x1) * max(0, y2 - y1)
+        a1 = (best[4] - best[2]) * (best[5] - best[3])
+        a2 = (gt[3] - gt[1]) * (gt[4] - gt[2])
+        iou = inter / max(a1 + a2 - inter, 1e-9)
+        ious.append(iou)
+        hits += int(best[0] == gt[0] and iou > eval_iou)
+    return float(np.mean(ious)), hits
+
+
+def gluon_copy(src, dst):
+    """``dst``'s parameters set to ``src``'s (matched by name past the
+    top-level prefix), copied to ``dst``'s device."""
+    from mxtpu_torch import nd
+    sp = {k.split("_", 1)[1]: v for k, v in src.collect_params().items()}
+    for k, v in dst.collect_params().items():
+        v.set_data(nd.array(sp[k.split("_", 1)[1]].data().asnumpy(),
+                            ctx=v.data().context))
+
+
+def det_ssd_toy(torch, mx, ctx):
+    """(a) examples/train_ssd_toy.py on ``ctx``: 150 steps of B16 SGD
+    (momentum 0.9, lr 0.4); the first step's ``MultiBoxTarget`` and the
+    first 3 losses against the CPU from the same weights."""
+    import numpy as np
+    from mxtpu_torch import autograd, gluon, nd
+    from mxtpu_torch.ops import detection as td
+    c = SSD_TOY
+    B, A = c["batch"], len(c["sizes"]) + len(c["ratios"]) - 1
+    mx.rng.seed(0)
+    rs = np.random.RandomState(0)
+    batches = [ssd_toy_batch(rs, B) for _ in range(c["steps"])]
+    xe, le = ssd_toy_batch(rs, c["eval_n"])
+    net = ssd_toy_net(gluon, c["classes"], A)
+    net.initialize(ctx=ctx)
+    net(nd.array(batches[0][0], ctx=ctx))          # complete the shapes
+    cpu_net = ssd_toy_net(gluon, c["classes"], A)
+    cpu_net.initialize(ctx=mx.cpu())
+    with mx.Context("cpu"):
+        cpu_net(nd.array(batches[0][0]))
+    gluon_copy(net, cpu_net)
+    sgd = {"learning_rate": c["lr"], "momentum": c["momentum"]}
+    tr = gluon.Trainer(net.collect_params(), "sgd", dict(sgd))
+    losses, t0 = [], None
+    for step, (xb, lb) in enumerate(batches):
+        if step == 3:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+        loss, mbt = ssd_toy_loss(nd, autograd, gluon, net,
+                                 nd.array(xb, ctx=ctx), nd.array(lb, ctx=ctx))
+        tr.step(B)
+        losses.append(float(loss.asscalar()))
+        if step == 0:
+            anchors, lbl, cls_preds, loc_t, loc_m, cls_t = [
+                a.data for a in mbt]
+            ref = td._multibox_target(anchors.cpu(), lbl.cpu(),
+                                      cls_preds.detach().cpu(),
+                                      negative_mining_ratio=3.0)
+            check(torch.equal(cls_t.cpu(), ref[2]) and
+                  torch.equal(loc_m.cpu(), ref[1]),
+                  "ssd toy: step 1's MultiBoxTarget class targets or masks "
+                  "differ between card and CPU")
+            lerr = float((loc_t.cpu() - ref[0]).abs().max())
+            check(lerr <= 1e-6, f"ssd toy: step 1's loc targets differ by "
+                                f"{lerr} (> 1e-6)")
+    torch.cuda.synchronize()
+    step_ms = (time.monotonic() - t0) * 1e3 / (c["steps"] - 3)
+    check(all(math.isfinite(v) for v in losses), f"ssd toy: loss {losses}")
+    with mx.Context("cpu"):
+        ctr = gluon.Trainer(cpu_net.collect_params(), "sgd", dict(sgd))
+        cpu_losses = []
+        for xb, lb in batches[:c["cpu_steps"]]:
+            loss, _ = ssd_toy_loss(nd, autograd, gluon, cpu_net,
+                                   nd.array(xb), nd.array(lb))
+            ctr.step(B)
+            cpu_losses.append(float(loss.asscalar()))
+    for i, (g, h) in enumerate(zip(losses, cpu_losses)):
+        check(abs(g - h) <= c["loss_rel"] * max(abs(h), 1.0),
+              f"ssd toy: step {i + 1} loss {g} on the card, {h} on the CPU")
+    iou, hits = ssd_toy_eval(nd, autograd, net, nd.array(xe, ctx=ctx), le,
+                             c["eval_iou"])
+    check(iou > c["iou_bar"], f"ssd toy: mean IoU {iou:.3f} <= "
+                              f"{c['iou_bar']}")
+    print(f"detection (a) ssd toy: {c['steps']} steps B{B}, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, {step_ms:.2f} ms a step, "
+          f"mean IoU {iou:.3f} (> {c['iou_bar']}), hits {hits}/"
+          f"{c['eval_n']}; step 1 MultiBoxTarget card = CPU (loc_t max "
+          f"err {lerr:.2e}); losses 1-3 card {losses[:3]} CPU {cpu_losses}",
+          flush=True)
+    return dict(step_ms=step_ms, iou=iou, hits=hits)
+
+
+def det_records(tmp):
+    """(b)'s ``.rec``: 64 toy images (``make_batch``) as PNGs through the
+    port's ``pack_img``, labels ``[2, 5, cls, x1, y1, x2, y2]``."""
+    import numpy as np
+    from mxtpu_torch import recordio
+    c = DET_REC
+    x, labels = ssd_toy_batch(np.random.RandomState(c["seed"]), c["n"],
+                              c["size"])
+    path = os.path.join(tmp, "det.rec")
+    with recordio.MXRecordIO(path, "w") as w:
+        for i in range(c["n"]):
+            img = (x[i].transpose(1, 2, 0) * 255).astype(np.uint8)
+            raw = np.concatenate([[2, 5], labels[i].ravel()])
+            w.write(recordio.pack_img(recordio.IRHeader(
+                0, raw.astype(np.float32), i, 0), img, img_fmt=".png"))
+    return path
+
+
+def det_box_extent(torch, data, label):
+    """The worst distance, in pixels, between each label's box and the
+    extent of its rectangle (channel ``cls``, pixels over half) in the
+    image."""
+    worst = 0.0
+    size = data.shape[-1]
+    for img, lab in zip(data, label):
+        for row in lab[lab[:, 0] >= 0]:
+            on = img[int(row[0])] > 127.5
+            ys = torch.nonzero(on.any(1)).flatten()
+            xs = torch.nonzero(on.any(0)).flatten()
+            check(len(ys) and len(xs), "image det: a label's rectangle is "
+                                       "not in its image")
+            got = [float(xs[0]), float(ys[0]), float(xs[-1]) + 1,
+                   float(ys[-1]) + 1]
+            want = [float(v) * size for v in row[1:5]]
+            worst = max(worst, max(abs(a - b) for a, b in zip(got, want)))
+    return worst
+
+
+def det_image_iter(torch, mx, tmp, ctx):
+    """(b) ``ImageDetIter`` with ``rand_mirror`` and ``rand_crop`` over
+    the ``.rec``, staged to ``ctx`` and fed to ``MultiBoxTarget``; the
+    batches against the CPU path's under the same seed, and every label's
+    box against its rectangle in the image."""
+    import random
+    from mxtpu_torch import image, nd
+    c = DET_REC
+    rec = det_records(tmp)
+
+    def epoch(stage):
+        random.seed(c["seed"])
+        t0 = time.monotonic()
+        it = image.ImageDetIter(c["batch"], (3, c["size"], c["size"]),
+                                path_imgrec=rec, rand_mirror=True,
+                                rand_crop=1.0, shuffle=True,
+                                preprocess_threads=4)
+        t1 = time.monotonic()
+        out = []
+        for b in it:
+            d, l = b.data[0].data, b.label[0].data
+            out.append((d.to(ctx), l.to(ctx)) if stage else (d, l))
+        return out, it, (t1 - t0) * 1e3, (time.monotonic() - t1) * 1e3
+
+    card, it, build_ms, ms = epoch(True)
+    ms /= len(card)
+    host = epoch(False)[0]
+    anchors = nd.contrib.MultiBoxPrior(nd.zeros((1, 1, 8, 8), ctx=ctx),
+                                       sizes=SSD_TOY["sizes"],
+                                       ratios=SSD_TOY["ratios"])
+    cls_preds = nd.zeros((c["batch"], SSD_TOY["classes"] + 1,
+                          anchors.shape[1]), ctx=ctx)
+    worst, positives = 0.0, 0
+    for (d, l), (dh, lh) in zip(card, host):
+        check(torch.equal(d.cpu(), dh) and torch.equal(l.cpu(), lh),
+              "image det: a staged batch differs from the CPU path's")
+        worst = max(worst, det_box_extent(torch, dh, lh))
+        t = nd.contrib.MultiBoxTarget(anchors, nd.NDArray(l), cls_preds,
+                                      negative_mining_ratio=3.0)
+        h = nd.contrib.MultiBoxTarget(
+            anchors.as_in_context(mx.cpu()), nd.NDArray(lh),
+            cls_preds.as_in_context(mx.cpu()), negative_mining_ratio=3.0)
+        lerr = float((t[0].data.cpu() - h[0].data).abs().max())
+        check(torch.equal(t[1].data.cpu(), h[1].data) and
+              torch.equal(t[2].data.cpu(), h[2].data) and lerr <= 1e-6,
+              "image det: MultiBoxTarget differs between card and CPU")
+        positives += int((t[2].data > 0).sum())
+    check(worst <= 1.0, f"image det: a label's box is {worst:.2f} px from "
+                        f"its rectangle's extent (> 1)")
+    check(positives > 0, "image det: MultiBoxTarget matched nothing")
+    print(f"detection (b) ImageDetIter: {c['n']} PNG records, "
+          f"{len(card)} batches of {c['batch']} (rand_crop, rand_mirror), "
+          f"{ms:.1f} ms a batch read, augmented and staged (the iterator "
+          f"built in {build_ms:.1f} ms), label shape "
+          f"{it.label_shape}; staged batches = the CPU path's; boxes within "
+          f"{worst:.2f} px of their rectangles; {positives} positive "
+          f"anchors", flush=True)
+    return ms
+
+
+def rcnn_batch(rs, n):
+    """examples/train_rcnn_toy.py's ``make_batch``: one rectangle an
+    image; images, gt corner boxes (pixels), classes."""
+    import numpy as np
+    size = RCNN_TOY["size"]
+    x = np.zeros((n, 3, size, size), np.float32)
+    boxes = np.zeros((n, 4), np.float32)
+    cls = np.zeros((n,), np.float32)
+    for i in range(n):
+        w = rs.randint(size // 4, size // 2)
+        h = rs.randint(size // 4, size // 2)
+        x0 = rs.randint(0, size - w)
+        y0 = rs.randint(0, size - h)
+        c = rs.randint(0, 3)
+        x[i, c, y0:y0 + h, x0:x0 + w] = 1.0
+        boxes[i] = [x0, y0, x0 + w - 1, y0 + h - 1]
+        cls[i] = c
+    return x, boxes, cls
+
+
+def rcnn_targets(anchors, gt_boxes, feat, A):
+    """The example's host-side RPN targets (AnchorLoader): objectness
+    labels {1, 0, -1} and box targets and weights in the heads' layouts."""
+    import numpy as np
+    n, K = gt_boxes.shape[0], anchors.shape[0]
+    aw = anchors[:, 2] - anchors[:, 0] + 1.0
+    ah = anchors[:, 3] - anchors[:, 1] + 1.0
+    ax = anchors[:, 0] + 0.5 * (aw - 1)
+    ay = anchors[:, 1] + 0.5 * (ah - 1)
+    labels = np.full((n, K), -1.0, np.float32)
+    targets = np.zeros((n, K, 4), np.float32)
+    weights = np.zeros((n, K, 4), np.float32)
+    for i in range(n):
+        g = gt_boxes[i]
+        ix1 = np.maximum(anchors[:, 0], g[0])
+        iy1 = np.maximum(anchors[:, 1], g[1])
+        ix2 = np.minimum(anchors[:, 2], g[2])
+        iy2 = np.minimum(anchors[:, 3], g[3])
+        inter = np.clip(ix2 - ix1 + 1, 0, None) * \
+            np.clip(iy2 - iy1 + 1, 0, None)
+        area_g = (g[2] - g[0] + 1) * (g[3] - g[1] + 1)
+        iou = inter / (aw * ah + area_g - inter)
+        neg = iou < 0.3
+        pos = iou >= 0.5
+        pos[np.argmax(iou)] = True
+        neg_idx = np.flatnonzero(neg & ~pos)
+        keep = min(len(neg_idx), 3 * int(pos.sum()) + 4)
+        neg_keep = np.random.RandomState(i + 1).choice(neg_idx, keep,
+                                                       replace=False)
+        labels[i, neg_keep] = 0.0
+        labels[i, pos] = 1.0
+        gw, gh = g[2] - g[0] + 1.0, g[3] - g[1] + 1.0
+        gx, gy = g[0] + 0.5 * (gw - 1), g[1] + 0.5 * (gh - 1)
+        targets[i, :, 0] = (gx - ax) / aw
+        targets[i, :, 1] = (gy - ay) / ah
+        targets[i, :, 2] = np.log(gw / aw)
+        targets[i, :, 3] = np.log(gh / ah)
+        weights[i, pos] = 1.0
+    lab = labels.reshape(n, feat, feat, A).transpose(0, 3, 1, 2).reshape(
+        n, -1)
+    tgt = targets.reshape(n, feat, feat, A * 4).transpose(0, 3, 1, 2)
+    wgt = weights.reshape(n, feat, feat, A * 4).transpose(0, 3, 1, 2)
+    return lab, tgt, wgt
+
+
+def rcnn_symbol(sym, batch, num_classes=3):
+    """examples/train_rcnn_toy.py's ``build_symbol`` in the port's
+    ``sym``: backbone, RPN losses, ``contrib.Proposal``, the in-graph
+    proposal targets, ``ROIPooling`` and the classifier head."""
+    c = RCNN_TOY
+    A = len(c["scales"]) * len(c["ratios"])
+    feat_n = c["size"] // c["stride"]
+    data = sym.Variable("data")
+    im_info = sym.Variable("im_info")
+    rpn_label = sym.Variable("rpn_label")
+    bbox_target = sym.Variable("bbox_target")
+    bbox_weight = sym.Variable("bbox_weight")
+    gt_boxes = sym.Variable("gt_boxes")
+    gt_cls = sym.Variable("gt_cls")
+    x = data
+    for i, ch in enumerate((16, 32, 64)):
+        x = sym.Convolution(x, num_filter=ch, kernel=(3, 3), stride=(2, 2),
+                            pad=(1, 1), name=f"conv{i}")
+        x = sym.Activation(x, act_type="relu")
+    feat = x
+    rpn = sym.Activation(
+        sym.Convolution(feat, num_filter=32, kernel=(3, 3), pad=(1, 1),
+                        name="rpn_conv"), act_type="relu")
+    score = sym.Convolution(rpn, num_filter=2 * A, kernel=(1, 1),
+                            name="rpn_cls_score")
+    bbox = sym.Convolution(rpn, num_filter=4 * A, kernel=(1, 1),
+                           name="rpn_bbox_pred")
+    score_rs = sym.reshape(score, shape=(batch, 2, A * feat_n * feat_n))
+    rpn_cls_loss = sym.SoftmaxOutput(score_rs, rpn_label, multi_output=True,
+                                     use_ignore=True, ignore_label=-1,
+                                     normalization="valid",
+                                     name="rpn_cls_loss")
+    rpn_bbox_loss = sym.make_loss(
+        sym.sum(sym.smooth_l1((bbox - bbox_target) * bbox_weight,
+                              scalar=3.0)),
+        grad_scale=1.0 / batch, name="rpn_bbox_loss")
+    prob = sym.softmax(score_rs, axis=1)
+    prob4 = sym.reshape(prob, shape=(batch, 2 * A, feat_n, feat_n))
+    rois = sym.contrib.Proposal(
+        cls_prob=sym.BlockGrad(prob4), bbox_pred=sym.BlockGrad(bbox),
+        im_info=im_info, feature_stride=c["stride"], scales=c["scales"],
+        ratios=c["ratios"], rpn_pre_nms_top_n=32,
+        rpn_post_nms_top_n=c["post"], threshold=0.7, rpn_min_size=4,
+        name="proposal")
+    roi_boxes = sym.slice_axis(rois, axis=1, begin=1, end=5)
+    roi_img = sym.reshape(sym.slice_axis(rois, axis=1, begin=0, end=1),
+                          shape=(batch * c["post"],))
+    iou = sym.contrib.box_iou(roi_boxes, gt_boxes, format="corner")
+    own_iou = sym.pick(iou, roi_img)
+    roi_gt = sym.take(gt_cls, roi_img)
+    roi_label = sym.where(own_iou > 0.5, roi_gt + 1.0,
+                          sym.zeros_like(roi_gt))
+    pooled = sym.ROIPooling(sym.BlockGrad(feat), rois, pooled_size=(4, 4),
+                            spatial_scale=1.0 / c["stride"])
+    h1 = sym.Activation(sym.FullyConnected(sym.Flatten(pooled),
+                                           num_hidden=64, name="fc6"),
+                        act_type="relu")
+    cls_score = sym.FullyConnected(h1, num_hidden=num_classes + 1,
+                                   name="cls")
+    roi_cls_loss = sym.SoftmaxOutput(cls_score, sym.BlockGrad(roi_label),
+                                     grad_scale=1.0, normalization="batch",
+                                     name="roi_cls_loss")
+    return sym.Group([rpn_cls_loss, rpn_bbox_loss, roi_cls_loss,
+                      sym.BlockGrad(rois), sym.BlockGrad(roi_label)])
+
+
+def threefry2x32(key, x1, x2):
+    """Threefry-2x32 (20 rounds) of the counter pairs ``(x1, x2)`` under
+    ``key``, in numpy uint32: the generator behind JAX's default key."""
+    import numpy as np
+    u = np.uint32
+    ks = (u(key[0]), u(key[1]), u(key[0]) ^ u(key[1]) ^ u(0x1BD11BDA))
+    x = [x1 + ks[0], x2 + ks[1]]
+    for i in range(5):
+        for r in ((13, 15, 26, 6), (17, 29, 16, 24))[i % 2]:
+            x[0] = x[0] + x[1]
+            x[1] = ((x[1] << u(r)) | (x[1] >> u(32 - r))) ^ x[0]
+        x[0] = x[0] + ks[(i + 1) % 3]
+        x[1] = x[1] + ks[(i + 2) % 3] + u(i + 1)
+    return x
+
+
+def example_xavier(shapes, seed, magnitude):
+    """The weights the JAX package's ``mx.rng.seed(seed)`` and then
+    ``Xavier(magnitude=magnitude)`` (uniform, averaged fans) draw for
+    ``shapes`` in order, reproduced in numpy, bit for bit: each draw
+    splits the global key and fills the shape with the subkey's uniform
+    bits, as ``jax.random`` does with partitionable threefry; the scale
+    and shift are one fused multiply-add, as XLA compiles them."""
+    import numpy as np
+
+    def bits(key, n):
+        i = np.arange(n, dtype=np.uint64)
+        return threefry2x32(key, (i >> np.uint64(32)).astype(np.uint32),
+                            (i & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+
+    key, out = (0, seed), []
+    for shape in shapes:
+        k1, k2 = bits(key, 2)
+        key, sub = (k1[0], k2[0]), (k1[1], k2[1])
+        b1, b2 = bits(sub, int(np.prod(shape)))
+        unit = (((b1 ^ b2) >> np.uint32(9)) | np.uint32(0x3F800000)).view(
+            np.float32) - np.float32(1.0)
+        hw = int(np.prod(shape[2:]))
+        fans = (shape[1] * hw + shape[0] * hw) / 2.0
+        scale = math.sqrt(magnitude / max(fans, 1.0))
+        lo, hi = np.float32(-scale), np.float32(scale)
+        w = (unit.astype(np.float64) * np.float64(hi - lo)
+             + np.float64(lo)).astype(np.float32)
+        out.append(np.maximum(lo, w).reshape(shape))
+    return out
+
+
+def rcnn_toy_train(torch, mx, ctx, steps, start=None):
+    """examples/train_rcnn_toy.py's ``main`` on ``ctx``: its graph through
+    ``simple_bind``, its initial weights (``example_xavier`` of
+    ``mx.rng.seed(0)``, zero biases), its batches, and plain SGD on the
+    executor's arrays. ``start``, where given, holds for each step the
+    weights (numpy, by name) that the step starts from in place of the
+    run's own. Returns each step's (rpn_acc, roi_acc, pos_frac), the
+    final weights as numpy arrays and the ms a step."""
+    import numpy as np
+    from mxtpu_torch import nd, symbol
+    from mxtpu_torch.ops import detection as td
+    c = RCNN_TOY
+    N, A = c["batch"], len(c["scales"]) * len(c["ratios"])
+    feat_n = c["size"] // c["stride"]
+    rs = np.random.RandomState(0)
+    out = rcnn_symbol(symbol, N)
+    anchors = td._rpn_anchors(feat_n, feat_n, c["stride"], c["scales"],
+                              c["ratios"]).numpy()
+    shapes = {"data": (N, 3, c["size"], c["size"]), "im_info": (N, 3),
+              "rpn_label": (N, A * feat_n * feat_n),
+              "bbox_target": (N, 4 * A, feat_n, feat_n),
+              "bbox_weight": (N, 4 * A, feat_n, feat_n),
+              "gt_boxes": (N, 4), "gt_cls": (N,)}
+    grad_req = {n: ("null" if n in shapes else "write")
+                for n in out.list_arguments()}
+    ex = out.simple_bind(ctx=ctx, grad_req=grad_req, **shapes)
+    weights = [n for n in out.list_arguments() if n not in shapes]
+    drawn = [n for n in weights if not n.endswith("_bias")]
+    init = dict(zip(drawn, example_xavier(
+        [ex.arg_dict[n].shape for n in drawn], 0, 2.0)))
+    for n in weights:
+        w0 = init.get(n, np.zeros(ex.arg_dict[n].shape, np.float32))
+        ex.arg_dict[n]._set_data(torch.from_numpy(w0).to(
+            ex.arg_dict[n].data.device))
+    im_info = np.tile([c["size"], c["size"], 1.0], (N, 1)).astype(np.float32)
+    hist = []
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (
+        lambda: None)
+    sync()
+    t0 = time.monotonic()
+    for step in range(steps):
+        for n, v in (start[step] if start else {}).items():
+            ex.arg_dict[n]._set_data(torch.from_numpy(v).to(
+                ex.arg_dict[n].data.device))
+        imgs, gtb, gtc = rcnn_batch(rs, N)
+        lab, tgt, wgt = rcnn_targets(anchors, gtb, feat_n, A)
+        feed = dict(data=imgs, im_info=im_info, rpn_label=lab,
+                    bbox_target=tgt, bbox_weight=wgt, gt_boxes=gtb,
+                    gt_cls=gtc)
+        ex.forward(is_train=True, **{k: nd.array(v, ctx=ctx)
+                                     for k, v in feed.items()})
+        ex.backward()
+        for n in weights:
+            ex.arg_dict[n]._set_data(
+                ex.arg_dict[n].data - c["lr"] * ex.grad_dict[n].data)
+        rpn_prob, _, roi_prob, _, roi_label = [o.asnumpy()
+                                               for o in ex.outputs]
+        labeled = lab >= 0
+        hist.append((
+            float((((rpn_prob[:, 1, :] > 0.5) == (lab > 0.5))
+                   & labeled).sum() / max(labeled.sum(), 1)),
+            float((roi_prob.argmax(axis=1) == roi_label).mean()),
+            float((roi_label > 0).mean())))
+    step_ms = (time.monotonic() - t0) * 1e3 / steps
+    return hist, {n: ex.arg_dict[n].asnumpy() for n in weights}, step_ms
+
+
+def det_rcnn_toy(torch, mx, ctx):
+    """(c) examples/train_rcnn_toy.py on ``ctx`` from its own initial
+    weights: B8, 150 steps of SGD at lr 0.05; the last step's accuracies
+    against ``tests/test_examples.py``'s bars."""
+    import numpy as np
+    from mxtpu_torch.ops import detection as td
+    c = RCNN_TOY
+    N, A = c["batch"], len(c["scales"]) * len(c["ratios"])
+    feat_n = c["size"] // c["stride"]
+    hist, _, step_ms = rcnn_toy_train(torch, mx, ctx, c["steps"])
+    # the same run on the CPU: the first step whose accuracies differ
+    # (a last-bit difference can move a proposal across the IoU bound and
+    # send the runs their own ways), printed, not held
+    cpu_hist, _, _ = rcnn_toy_train(torch, mx, mx.cpu(), c["steps"])
+    apart = next((i + 1 for i, (a, b) in enumerate(zip(hist, cpu_hist))
+                  if a != b), None)
+    rpn_acc, roi_acc, pos_frac = hist[-1]
+    tail = [sum(v) / c["tail"] for v in zip(*hist[-c["tail"]:])]
+    check(rpn_acc > c["rpn_acc"] and roi_acc > c["roi_acc"]
+          and pos_frac > c["pos_frac"],
+          f"rcnn toy: the last step's rpn_acc {rpn_acc:.3f} "
+          f"(> {c['rpn_acc']}), roi_acc {roi_acc:.3f} (> {c['roi_acc']}), "
+          f"pos_frac {pos_frac:.3f} (> {c['pos_frac']})")
+    print(f"detection (c) rcnn toy (simple_bind, B{N}, {c['steps']} steps, "
+          f"lr {c['lr']}): the last step's rpn_acc {rpn_acc:.3f} roi_acc "
+          f"{roi_acc:.3f} pos_frac {pos_frac:.3f} (over the last "
+          f"{c['tail']} steps {tail[0]:.3f} {tail[1]:.3f} {tail[2]:.3f}), "
+          f"{step_ms:.1f} ms a step (host feed and targets included); "
+          f"the CPU's run from the same weights "
+          + (f"reads the same accuracies at all {c['steps']} steps"
+             if apart is None else
+             f"first reads other accuracies at step {apart} and ends at "
+             f"{cpu_hist[-1][0]:.3f} {cpu_hist[-1][1]:.3f} "
+             f"{cpu_hist[-1][2]:.3f}"), flush=True)
+    # Proposal on the card against the CPU, on the toy's shapes
+    g = torch.Generator().manual_seed(19)
+    prob = torch.rand(N, 2 * A, feat_n, feat_n, generator=g)
+    bb = torch.randn(N, 4 * A, feat_n, feat_n, generator=g) * 0.3
+    im_info = torch.tensor([[c["size"], c["size"], 1.0]] * N)
+    kw = dict(feature_stride=c["stride"], scales=c["scales"],
+              ratios=c["ratios"], rpn_pre_nms_top_n=32,
+              rpn_post_nms_top_n=c["post"], threshold=0.7, rpn_min_size=4)
+    proposal_card_vs_cpu(torch, td, [prob, bb, im_info], kw, "rcnn toy")
+    return dict(step_ms=step_ms, rpn_acc=rpn_acc, roi_acc=roi_acc,
+                pos_frac=pos_frac)
+
+
+def keep_root(torch, what, boxes, keep_c, keep_h, thr, same=None):
+    """Card and CPU keep masks (B, n) of one greedy suppression over the
+    CPU's sorted ``boxes`` (B, n, 4). Where they differ, the first differing
+    row must be one whose largest IoU with an earlier kept row (of its class
+    where ``same`` (B, n) gives classes) lies within ``DET_KEEP_TOL`` of
+    ``thr``: the two devices' boxes differ in their last bits, and only such
+    a pair can take another side of the threshold. Returns the batch rows
+    whose masks agree."""
+    from mxtpu_torch.ops import detection as td
+    keep_c = keep_c.cpu()
+    agree = []
+    for b in range(keep_h.shape[0]):
+        diff = torch.nonzero(keep_c[b] != keep_h[b]).flatten()
+        if not len(diff):
+            agree.append(b)
+            continue
+        i = int(diff[0])
+        prev = torch.nonzero(keep_h[b, :i]).flatten()
+        iou = td._pair_iou(boxes[b, i][None], boxes[b, prev])[0]
+        if same is not None:
+            iou = torch.where(same[b, prev] == same[b, i], iou,
+                              torch.zeros_like(iou))
+        top = float(iou.max()) if len(prev) else 0.0
+        check(abs(top - thr) <= DET_KEEP_TOL,
+              f"{what}: batch {b} row {i} kept on one device only, its "
+              f"IoU {top:.8f} is not within {DET_KEEP_TOL} of {thr}")
+        print(f"{what}: batch {b} row {i}'s keep differs between card and "
+              f"CPU at IoU {top:.8f} (threshold {thr})", flush=True)
+    return agree
+
+
+def close(torch, what, got, ref, rtol=DET_RTOL, atol=DET_ATOL):
+    """``got`` (card) within ``rtol`` relative + ``atol`` absolute of
+    ``ref`` (CPU); returns the largest absolute difference."""
+    got = got.detach().cpu()
+    ref = ref.detach()
+    check(got.shape == ref.shape, f"{what}: shape {tuple(got.shape)} on "
+                                  f"the card, {tuple(ref.shape)} on the CPU")
+    err = (got - ref).abs()
+    check(bool((err <= atol + rtol * ref.abs()).all()),
+          f"{what}: card and CPU differ by {float(err.max()):.3e}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def proposal_card_vs_cpu(torch, td, inputs, kw, what):
+    """``Proposal`` on the card against the CPU on ``inputs`` (CPU
+    tensors): the sorted boxes within 1e-5 x max, the keep masks under
+    ``keep_root``, the rois of agreeing batch rows within 1e-5 x max."""
+    pre = dict(rpn_pre_nms_top_n=kw.get("rpn_pre_nms_top_n", 6000),
+               threshold=kw.get("threshold", 0.7),
+               rpn_min_size=kw.get("rpn_min_size", 16),
+               scales=kw["scales"], ratios=kw["ratios"],
+               feature_stride=kw["feature_stride"])
+    card = [x.cuda() for x in inputs]
+    bc, sc, kc = td._proposal_keep(*card, **pre)
+    bh, sh, kh = td._proposal_keep(*inputs, **pre)
+    scale = float(bh.abs().max())
+    close(torch, f"{what} Proposal boxes", bc, bh, 0.0, 1e-5 * scale)
+    check(torch.equal(sc.cpu(), sh), f"{what} Proposal: the pre-NMS scores "
+                                     f"differ between card and CPU")
+    agree = keep_root(torch, f"{what} Proposal", bh, kc, kh, pre["threshold"])
+    rc = td._proposal(*card, **kw)
+    rh = td._proposal(*inputs, **kw)
+    post = kw.get("rpn_post_nms_top_n", 300)
+    rows = torch.cat([torch.arange(b * post, (b + 1) * post)
+                      for b in agree]) if agree else torch.zeros(0).long()
+    err = close(torch, f"{what} Proposal rois", rc.cpu()[rows], rh[rows],
+                0.0, 1e-5 * scale)
+    return err, len(agree)
+
+
+def event_ms(torch, fn, reps=3):
+    """``timed_ms`` of ``fn`` over ``reps`` calls after one call, and that
+    call's result: an eager op's time with its launches and host work."""
+    out = fn()
+    return timed_ms(torch, fn, reps, warmup=0), out
+
+
+def ssd300_inputs(torch, g):
+    """Random f32 feature maps, 3x3 head weights and padded labels of
+    SSD300's detection layer, on the card."""
+    c = SSD300
+    B, K = c["batch"], c["classes"] + 1
+    feats, heads = [], []
+    for m, ch, r, s in zip(c["maps"], c["channels"], c["ratios"],
+                           c["sizes"]):
+        a = len(s) + len(r) - 1
+        feats.append(torch.randn(B, ch, m, m, device="cuda", generator=g))
+        std = (2.0 / (9 * ch)) ** 0.5
+        heads.append([torch.randn(a * K, ch, 3, 3, device="cuda",
+                                  generator=g) * std,
+                      torch.zeros(a * K, device="cuda"),
+                      torch.randn(a * 4, ch, 3, 3, device="cuda",
+                                  generator=g) * std,
+                      torch.zeros(a * 4, device="cuda")])
+    n = torch.randint(1, 13, (B,), generator=g, device="cuda")
+    xy = torch.rand(B, c["gts"], 2, device="cuda", generator=g) * 0.7
+    wh = torch.rand(B, c["gts"], 2, device="cuda", generator=g) * 0.28 + 0.02
+    cls = torch.randint(0, c["classes"], (B, c["gts"], 1), generator=g,
+                        device="cuda").float()
+    lab = torch.cat([cls, xy, xy + wh], -1)
+    pad = torch.arange(c["gts"], device="cuda")[None] >= n[:, None]
+    lab[pad] = -1.0
+    return feats, heads, lab
+
+
+def ssd300_layer(torch, mx, smi):
+    """(d) SSD300's detection layer at full size on the card: the heads,
+    ``MultiBoxPrior`` a map, ``MultiBoxTarget`` (mining ratio 3; eager and
+    replayed on a CUDA graph, bit-equal), both losses and backward, then
+    ``MultiBoxDetection`` (NMS 0.45, top 400); each op against the CPU on
+    the same inputs."""
+    from mxtpu_torch import autograd, gluon, nd
+    from mxtpu_torch.ops import detection as td
+    c = SSD300
+    B, K = c["batch"], c["classes"] + 1
+    g = torch.Generator(device="cuda").manual_seed(300)
+    feats, heads, lab = ssd300_inputs(torch, g)
+    feats = [nd.NDArray(f) for f in feats]
+    heads = [[nd.NDArray(t) for t in h] for h in heads]
+    for h in heads:
+        for t in h:
+            t.attach_grad()
+    ms = {}
+
+    def priors():
+        return [nd.contrib.MultiBoxPrior(f, sizes=s, ratios=r)
+                for f, s, r in zip(feats, c["sizes"], c["ratios"])]
+
+    ms["MultiBoxPrior"], anc = event_ms(torch, priors)
+    anchors = nd.concat(*anc, dim=1)
+    A = anchors.shape[1]
+    check(A == c["anchors"], f"ssd300: {A} anchors, not {c['anchors']}")
+    for a, f, s, r in zip(anc, feats, c["sizes"], c["ratios"]):
+        close(torch, "ssd300 MultiBoxPrior", a.data, td._multibox_prior(
+            f.data[:1, :1].cpu(), sizes=s, ratios=r))
+
+    def heads_fwd():
+        cp, lp = [], []
+        for f, (wc, bc, wl, bl) in zip(feats, heads):
+            cp.append(nd.Convolution(
+                f, wc, bc, kernel=(3, 3), pad=(1, 1),
+                num_filter=wc.shape[0]).transpose((0, 2, 3, 1)).reshape(
+                    (B, -1, K)))
+            lp.append(nd.Convolution(
+                f, wl, bl, kernel=(3, 3), pad=(1, 1),
+                num_filter=wl.shape[0]).transpose((0, 2, 3, 1)).reshape(
+                    (B, -1)))
+        return (nd.concat(*cp, dim=1).transpose((0, 2, 1)),
+                nd.concat(*lp, dim=1))
+
+    labels = nd.NDArray(lab)
+    cls_preds, loc_preds = heads_fwd()
+
+    def target():
+        return nd.contrib.MultiBoxTarget(anchors, labels, cls_preds,
+                                         negative_mining_ratio=3.0)
+
+    ms["MultiBoxTarget"], (loc_t, loc_m, cls_t) = event_ms(torch, target)
+    tin = [anchors.data, lab, cls_preds.data]
+    graph, (gout,) = capture(torch, lambda: td._multibox_target(
+        *tin, negative_mining_ratio=3.0), 1)
+    check(all(torch.equal(a, b.data) for a, b in zip(gout,
+                                                      (loc_t, loc_m, cls_t))),
+          "ssd300: MultiBoxTarget's CUDA-graph replay differs from the "
+          "eager call")
+    ms["MultiBoxTarget_graph"] = graph_ms(torch, lambda: td._multibox_target(
+        *tin, negative_mining_ratio=3.0), 2)
+    href = td._multibox_target(*[t.cpu() for t in tin],
+                               negative_mining_ratio=3.0)
+    check(torch.equal(loc_m.data.cpu(), href[1]) and
+          torch.equal(cls_t.data.cpu(), href[2]),
+          "ssd300: MultiBoxTarget's masks or class targets differ between "
+          "card and CPU")
+    close(torch, "ssd300 MultiBoxTarget loc_t", loc_t.data, href[0])
+    cls_loss = gluon.loss.SoftmaxCrossEntropyLoss()
+    loc_loss = gluon.loss.HuberLoss()
+
+    def step():
+        with autograd.record():
+            cp, lp = heads_fwd()
+            lt, lm, ct = nd.contrib.MultiBoxTarget(
+                anchors, labels, cp, negative_mining_ratio=3.0)
+            lc = cls_loss(cp.transpose((0, 2, 1)), nd.relu(ct),
+                          sample_weight=ct >= 0)
+            ll = loc_loss(lp * lm, lt * lm)
+            num_pos = nd.sum(lm) / 4.0 + 1.0
+            loss = (nd.sum(lc) + nd.sum(ll)) * A / (num_pos * B)
+        loss.backward()
+        return loss
+
+    ms["layer_step"], loss = event_ms(torch, step)
+    check(math.isfinite(float(loss.asscalar())) and all(
+        bool(torch.isfinite(t.grad.data).all()) for h in heads for t in h),
+        "ssd300: the layer's loss or gradients are not finite")
+    probs = nd.softmax(cls_preds, axis=1)
+    kw = dict(nms_threshold=c["nms"], nms_topk=c["nms_topk"])
+
+    def detect():
+        return nd.contrib.MultiBoxDetection(probs, loc_preds, anchors, **kw)
+
+    ms["MultiBoxDetection"], det = event_ms(torch, detect)
+    din = [probs.data, loc_preds.data, anchors.data]
+    dk = dict(clip=True, threshold=0.01, background_id=0,
+              nms_threshold=c["nms"], force_suppress=False,
+              nms_topk=c["nms_topk"], variances=(0.1, 0.1, 0.2, 0.2))
+    cs_c, ss_c, bs_c, keep_c = td._detection_keep(*din, **dk)
+    cs_h, ss_h, bs_h, keep_h = td._detection_keep(*[t.cpu() for t in din],
+                                                  **dk)
+    check(torch.equal(cs_c.cpu(), cs_h) and torch.equal(ss_c.cpu(), ss_h),
+          "ssd300: MultiBoxDetection's sorted classes or scores differ "
+          "between card and CPU")
+    close(torch, "ssd300 MultiBoxDetection boxes", bs_c, bs_h)
+    agree = keep_root(torch, "ssd300 MultiBoxDetection", bs_h, keep_c,
+                      keep_h, c["nms"], same=cs_h)
+    href = td._multibox_detection(*[t.cpu() for t in din], **kw)
+    close(torch, "ssd300 MultiBoxDetection rows", det.data[agree],
+          href[agree])
+    kept = int((det.data[..., 0] >= 0).sum())
+    print(f"detection (d) SSD300 layer (B{B}, A {A}, {c['classes']} "
+          f"classes, labels padded to {c['gts']}): MultiBoxPrior (6 maps) "
+          f"{ms['MultiBoxPrior']:.3f} ms, MultiBoxTarget "
+          f"{ms['MultiBoxTarget']:.2f} ms eager, "
+          f"{ms['MultiBoxTarget_graph']:.2f} ms replayed (bit-equal), "
+          f"heads + target + losses + backward {ms['layer_step']:.2f} ms, "
+          f"MultiBoxDetection (top {c['nms_topk']}) "
+          f"{ms['MultiBoxDetection']:.2f} ms, {kept} rows kept; card = CPU "
+          f"({smi})", flush=True)
+    return ms
+
+
+def frcnn_legs(torch, mx, smi):
+    """(d) Faster R-CNN's RPN and pooling at full size: ``Proposal`` on
+    (2, 18, 38, 63) (6000 before NMS, 300 after) and ``ROIPooling`` of its
+    rois on (2, 512, 38, 63), 7x7 at 1/16, forward and backward; each
+    against the CPU; ROIPooling's peak memory."""
+    from mxtpu_torch import nd
+    from mxtpu_torch.ops import detection as td
+    c = FRCNN
+    N, A = c["batch"], len(c["scales"]) * len(c["ratios"])
+    g = torch.Generator().manual_seed(16)
+    logits = torch.randn(N, 2, A, c["h"], c["w"], generator=g)
+    prob = torch.softmax(logits, 1).reshape(N, 2 * A, c["h"], c["w"])
+    bbox = torch.randn(N, 4 * A, c["h"], c["w"], generator=g) * 0.2
+    im_info = torch.tensor([[c["im"][0], c["im"][1], 1.0]] * N)
+    kw = dict(feature_stride=c["stride"], scales=c["scales"],
+              ratios=c["ratios"], rpn_pre_nms_top_n=c["pre"],
+              rpn_post_nms_top_n=c["post"], threshold=c["thr"],
+              rpn_min_size=16)
+    ms = {}
+    card = [nd.NDArray(t.cuda()) for t in (prob, bbox, im_info)]
+    ms["Proposal"], rois = event_ms(
+        torch, lambda: nd.contrib.Proposal(*card, **kw))
+    check(rois.shape == (N * c["post"], 5), f"frcnn: rois {rois.shape}")
+    perr, agree = proposal_card_vs_cpu(torch, td, [prob, bbox, im_info], kw,
+                                       "frcnn")
+    feat = torch.relu(torch.randn(N, c["channels"], c["h"], c["w"],
+                                  generator=g))
+    cot = torch.randn(N * c["post"], c["channels"], *c["pooled"],
+                      generator=g)
+    rk = dict(pooled_size=c["pooled"], spatial_scale=1.0 / c["stride"])
+    r = rois.data.detach()
+    fc, cc = feat.cuda().requires_grad_(True), cot.cuda()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms["ROIPooling"], out = event_ms(
+        torch, lambda: td._roi_pooling(fc.detach(), r, **rk))
+
+    def fwd_bwd():
+        o = td._roi_pooling(fc, r, **rk)
+        return torch.autograd.grad(o, fc, cc)[0]
+
+    ms["ROIPooling_fwd_bwd"], grad = event_ms(torch, fwd_bwd)
+    peak = torch.cuda.max_memory_allocated() - base
+    check(peak < c["roi_bytes"], f"frcnn: ROIPooling's peak memory "
+                                 f"{peak / 2**30:.2f} GiB >= 2 GiB")
+    fh = feat.clone().requires_grad_(True)
+    oh = td._roi_pooling(fh, r.cpu(), **rk)
+    gh = torch.autograd.grad(oh, fh, cot)[0]
+    check(torch.equal(out.cpu(), oh.detach()),
+          "frcnn: ROIPooling's forward differs between card and CPU")
+    # the gradient sums each cell's shares over up to 600 overlapping
+    # rois, by atomic adds on the card: reassociation, held at 1e-6 of
+    # the largest entry. The spread of two card runs, and each float32
+    # gradient's distance from a float64 one on the card, show it.
+    gbound = DET_ATOL * float(gh.abs().max())
+    gerr = close(torch, "frcnn ROIPooling gradient", grad, gh, DET_RTOL,
+                 gbound)
+    spread = float((fwd_bwd() - grad).abs().max())
+    f64 = fc.detach().double().requires_grad_(True)
+    g64 = torch.autograd.grad(td._roi_pooling(f64, r, **rk), f64,
+                              cc.double())[0]
+    e_card = float((grad.double() - g64).abs().max())
+    e_cpu = float((gh.double() - g64.cpu()).abs().max())
+    print(f"detection (d) Faster R-CNN (VGG16, 600x1000): Proposal "
+          f"({N}x{A}x{c['h']}x{c['w']} = {c['anchors']} anchors, "
+          f"{c['pre']} -> NMS -> {c['post']}) {ms['Proposal']:.1f} ms, "
+          f"rois within {perr:.2e} of the CPU ({agree}/{N} images' keep "
+          f"masks equal); ROIPooling {tuple(out.shape)} "
+          f"{ms['ROIPooling']:.2f} ms forward, "
+          f"{ms['ROIPooling_fwd_bwd']:.2f} ms forward + backward, peak "
+          f"{peak / 2**20:.0f} MiB above its inputs, forward = CPU, gradient "
+          f"within {gerr:.2e} of the CPU (bound {gbound:.2e}), two card "
+          f"runs {spread:.2e} apart, card and CPU {e_card:.2e} and "
+          f"{e_cpu:.2e} from float64 ({smi})", flush=True)
+    return dict(ms, roi_peak_mib=peak / 2**20)
+
+
+def det_op_cases(torch):
+    """(e)'s cases, at the CPU tests' shapes: (name, op, inputs, attrs,
+    inputs to differentiate, outputs compared exactly, rtol, atol relative
+    to the largest entry)."""
+    from mxtpu_torch.ops import contrib_ops as tc
+    from mxtpu_torch.ops import detection as td
+    from mxtpu_torch.ops import order as to
+    from mxtpu_torch.ops import spatial as ts
+    g = torch.Generator().manual_seed(41)
+
+    def rn(*s, scale=1.0):
+        return torch.randn(*s, generator=g) * scale
+
+    def un(lo, hi, *s):
+        return torch.rand(*s, generator=g) * (hi - lo) + lo
+
+    def rois(n, hi):
+        xy, wh = un(0, hi * 0.7, n, 2), un(1.5, hi * 0.6, n, 2)
+        return torch.cat([torch.randint(0, 2, (n, 1), generator=g).float(),
+                          xy, xy + wh], 1)
+
+    ties = torch.randint(0, 4, (3, 7), generator=g).float()
+    anchors = td._multibox_prior(torch.zeros(1, 1, 4, 4), sizes=(0.3, 0.5),
+                                 ratios=(1.0, 2.0))
+    A = anchors.shape[1]
+    xy, wh = un(0, 0.6, 3, 4, 2), un(0.15, 0.4, 3, 4, 2)
+    labels = torch.cat([torch.randint(0, 3, (3, 4, 1), generator=g).float(),
+                        xy, xy + wh], -1)
+    labels[0, 3:] = -1
+    labels[2] = -1
+    ctr = un(2, 8, 2, 12, 2)
+    wh2 = un(1.0, 3.0, 2, 12, 2)
+    det_rows = torch.cat([torch.randint(0, 2, (2, 12, 1), generator=g).float(),
+                          torch.round(un(0, 1, 2, 12, 1) * 10) / 10,
+                          ctr - wh2 / 2, ctr + wh2 / 2], -1)
+    rpn = [torch.round(un(0, 1, 2, 12, 5, 6) * 10) / 10, rn(2, 24, 5, 6,
+                                                            scale=0.3),
+           torch.tensor([[40.0, 48.0, 1.0], [36.0, 44.0, 1.5]])]
+    rpn_kw = dict(scales=(2, 4), ratios=(0.5, 1, 2), feature_stride=8,
+                  rpn_pre_nms_top_n=40, rpn_post_nms_top_n=12,
+                  threshold=0.6, rpn_min_size=4, output_score=True)
+    box_a = torch.cat([un(0, 5, 2, 4, 2), un(5.5, 9, 2, 4, 2)], -1)
+    box_b = torch.cat([un(0, 5, 2, 3, 2), un(5.5, 9, 2, 3, 2)], -1)
+    theta = torch.tensor([[1.0, 0, 0, 0, 1.0, 0]] * 2) + rn(2, 6, scale=0.2)
+    E = 1e-5
+    return [
+        ("sort", to._sort, [ties], dict(axis=-1), (0,), (), E, 0),
+        ("sort desc", to._sort, [ties], dict(axis=None, is_ascend=False),
+         (0,), (), E, 0),
+        ("argsort", to._argsort, [ties], dict(axis=0, is_ascend=False), (),
+         (0,), E, 0),
+        ("topk both", to._topk, [ties], dict(k=3, ret_typ="both"), (0,),
+         (1,), E, 0),
+        ("topk mask", to._topk, [ties], dict(k=2, axis=0, ret_typ="mask"),
+         (), (0,), E, 0),
+        ("ctc_loss", tc._ctc_loss, [rn(10, 3, 5), torch.tensor(
+            [[1.0, 1, 2], [3, 4, 0], [2, 3, 2]]), torch.tensor(
+            [10.0, 8, 9]), torch.tensor([3.0, 2, 3])], {}, (0,), (), 1e-4, 0),
+        ("BilinearResize2D", tc._bilinear_resize, [rn(2, 3, 9, 8)],
+         dict(height=4, width=11), (0,), (), E, 0),
+        ("AdaptiveAvgPooling2D", tc._adaptive_avg_pool, [rn(2, 3, 5, 7)],
+         dict(output_size=(2, 3)), (0,), (), E, 0),
+        ("ROIAlign", tc._roi_align, [rn(2, 3, 8, 9), rois(4, 8)],
+         dict(pooled_size=(3, 2), spatial_scale=0.9), (0, 1), (), E, 0),
+        ("box_iou", tc._box_iou, [box_a, box_b], dict(format="center"),
+         (0, 1), (), E, 0),
+        ("box_nms", tc._box_nms, [det_rows], dict(
+            overlap_thresh=0.4, valid_thresh=0.05, id_index=0), (), (0,), E,
+         0),
+        ("bipartite_matching", tc._bipartite_matching,
+         [torch.round(un(0, 1, 2, 5, 4) * 10) / 10], dict(threshold=0.1),
+         (), (0, 1), E, 0),
+        ("count_sketch", tc._count_sketch, [rn(3, 6), torch.randint(
+            0, 4, (6,), generator=g).float(), torch.ones(6)],
+         dict(out_dim=4), (0,), (), E, 0),
+        ("getnnz", tc._getnnz, [torch.relu(rn(3, 6))], dict(axis=1), (),
+         (0,), E, 0),
+        ("quadratic", tc._quadratic, [rn(3, 6)], dict(a=0.5, b=-2.0, c=1.5),
+         (0,), (), E, 0),
+        ("MultiBoxPrior", td._multibox_prior, [torch.zeros(1, 2, 5, 4)],
+         dict(sizes=(0.3, 0.5), ratios=(1.0, 2.0, 0.5)), (), (), E, 0),
+        ("MultiBoxTarget", td._multibox_target, [anchors, labels,
+                                                 rn(3, 4, A)],
+         dict(negative_mining_ratio=3.0), (), (1, 2), E, 0),
+        ("MultiBoxDetection", td._multibox_detection, [
+            torch.round(un(0, 1, 2, 4, A) * 100) / 100, rn(2, 4 * A,
+                                                            scale=0.5),
+            anchors], dict(nms_threshold=0.3, nms_topk=12), (), (), E, 0),
+        ("Proposal", td._proposal, rpn, rpn_kw, (), (1,), E, 0),
+        ("ROIPooling", td._roi_pooling, [torch.relu(rn(2, 3, 9, 11)),
+                                         rois(5, 18)],
+         dict(pooled_size=(3, 4), spatial_scale=0.5), (0,), (0,), E, 0),
+        ("PSROIPooling", td._psroi_pooling, [rn(2, 18, 8, 8), rois(4, 16)],
+         dict(spatial_scale=0.5, output_dim=2, pooled_size=3), (0,), (), E,
+         0),
+        ("DeformableConvolution", td._deformable_convolution,
+         [rn(2, 4, 6, 6), rn(2, 16, 7, 7, scale=0.7), rn(6, 2, 2, 2,
+                                                          scale=0.3), rn(6)],
+         dict(kernel=(2, 2), pad=(1, 1), num_filter=6, num_group=2,
+              num_deformable_group=2), (0, 1, 2, 3), (), E, 0),
+        ("DeformablePSROIPooling", td._deformable_psroi_pooling,
+         [rn(2, 18, 8, 8), rois(3, 16), rn(3, 2, 3, 3, scale=0.5)],
+         dict(spatial_scale=0.5, output_dim=2, group_size=3, pooled_size=3,
+              sample_per_part=2, trans_std=0.1), (0, 2), (), E, 0),
+        ("GridGenerator", ts._grid_generator, [theta],
+         dict(transform_type="affine", target_shape=(4, 5)), (0,), (), E, 0),
+        ("GridGenerator warp", ts._grid_generator, [rn(2, 2, 4, 5)],
+         dict(transform_type="warp"), (0,), (), E, 0),
+        ("BilinearSampler", ts._bilinear_sampler, [rn(2, 3, 5, 6),
+                                                   un(-1.2, 1.2, 2, 2, 4, 4)],
+         {}, (0, 1), (), E, 0),
+        ("SpatialTransformer", ts._spatial_transformer, [rn(2, 3, 5, 6),
+                                                         theta],
+         dict(target_shape=(4, 4)), (0, 1), (), E, 0),
+        ("Correlation", ts._correlation, [rn(2, 3, 7, 8), rn(2, 3, 7, 8)],
+         dict(kernel_size=3, max_displacement=2, stride2=2, pad_size=2),
+         (0, 1), (), E, 0),
+        ("fft", ts._fft, [rn(3, 8)], {}, (0,), (), E, 1),
+        ("ifft", ts._ifft, [rn(3, 16)], {}, (0,), (), E, 1),
+    ]
+
+
+def det_ops_card_vs_cpu(torch, smi):
+    """(e) every op of ``order``, ``contrib_ops``, ``detection`` and
+    ``spatial`` on the card against the CPU on the same inputs: outputs
+    and gradients of ``sum(out * c)`` within rtol + 1e-6 absolute (that
+    times the largest entry for ``fft``/``ifft``), indices, masks, keep
+    sets and integer outputs exact."""
+    n = 0
+    for name, fn, ins, kw, grad, exact, rtol, scaled in det_op_cases(torch):
+        res = {}
+        g = torch.Generator().manual_seed(n)
+        for dev in ("cuda", "cpu"):
+            xs = [t.detach().to(dev).requires_grad_(i in grad)
+                  for i, t in enumerate(ins)]
+            with torch.set_grad_enabled(bool(grad)):
+                out = fn(*xs, **kw)
+            out = tuple(out) if isinstance(out, (tuple, list)) else (out,)
+            gs = ()
+            if grad:
+                if dev == "cuda":
+                    cots = [torch.randn(o.shape, generator=g) for o in out]
+                loss = sum((o * c.to(dev)).sum() for o, c in zip(out, cots)
+                           if o.requires_grad)
+                gs = torch.autograd.grad(loss, [xs[i] for i in grad],
+                                         allow_unused=True)
+            res[dev] = (out, gs)
+        (oc, gc), (oh, gh) = res["cuda"], res["cpu"]
+        for k, (a, b) in enumerate(zip(oc, oh)):
+            if k in exact:
+                check(torch.equal(a.detach().cpu(), b.detach()),
+                      f"(e) {name}: output {k} differs between card and CPU")
+            else:
+                s = max(float(b.detach().abs().max()), 1.0) if scaled else 1.0
+                close(torch, f"(e) {name} output {k}", a, b, rtol,
+                      DET_ATOL * s)
+        for i, a, b in zip(grad, gc, gh):
+            if a is None or b is None:
+                check(a is None and b is None, f"(e) {name}: gradient {i}")
+                continue
+            s = max(float(b.abs().max()), 1.0) if scaled else 1.0
+            close(torch, f"(e) {name} gradient {i}", a, b, rtol, DET_ATOL * s)
+        n += 1
+    print(f"detection (e): {n} op cases of order, contrib_ops, detection "
+          f"and spatial, card = CPU (outputs and gradients; indices, masks "
+          f"and keep sets exact) ({smi})", flush=True)
+    return n
+
+
+def phase_detection(torch, mx, counts, smi):
+    """Phase 19: the detection slice on the card (see the module
+    docstring). Returns the readings PERF.md keeps."""
+    import tempfile
+    from mxtpu_torch.ops import attention, quant_attention
+    ctx = mx.gpu(0)
+    counts(0)
+
+    def leg(name, fn, *args):
+        t = time.monotonic()
+        res = fn(*args)
+        torch.cuda.empty_cache()
+        print(f"[19 {name}: {time.monotonic() - t:.1f} s]", flush=True)
+        return res
+
+    out = {"ssd": leg("(a)", det_ssd_toy, torch, mx, ctx)}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["image_det_ms"] = leg("(b)", det_image_iter, torch, mx, tmp, ctx)
+    out["rcnn"] = leg("(c)", det_rcnn_toy, torch, mx, ctx)
+    out["ssd300"] = leg("(d) ssd300", ssd300_layer, torch, mx, smi)
+    out["frcnn"] = leg("(d) frcnn", frcnn_legs, torch, mx, smi)
+    out["ops"] = leg("(e)", det_ops_card_vs_cpu, torch, smi)
+    launches = dict(attention_launches(attention),
+                    K5=quant_attention.dequant_decode.launches)
+    check(not any(launches.values()),
+          f"phase 19 launched a TPU kernel's port: {launches} (the "
+          f"detection path runs none of K1-K5)")
+    print(f"detection: no TPU kernel lies on this path: K1-K5 launches "
+          f"{launches} ({smi})", flush=True)
+    return out
+
+
 def launch_counter(attention, quant_attention):
     """``counts(n)``: every kernel wrapper's launch counts (and the sm90
     route's) set to ``n``."""
@@ -6547,6 +7704,8 @@ def run():
     timed_phase("rnn", phase_rnn, torch, mx, counts, smi[0])
     torch.cuda.empty_cache()
     timed_phase("data", phase_data, torch, mx, counts, smi[0])
+    torch.cuda.empty_cache()
+    timed_phase("detection", phase_detection, torch, mx, counts, smi[0])
     print(f"K1 launches: forward {k1_launches}, training "
           f"{train_launches['K1']}, gluon {glu['K1']}, module {mod_l['K1']}, "
           f"symbolic graph {sym_l['K1']}, quantized module {quant_l['K1']}",
@@ -6749,6 +7908,30 @@ def run_data_only():
           flush=True)
 
 
+def run_detection_only():
+    """Phase 19 alone (``python3 chip_smoke.py --phase 19``): no kernel of
+    the port lies on the detection path, so nothing is built; no kernels
+    line, no result line."""
+    import torch
+    if not torch.cuda.is_available():
+        raise SmokeFailure("no CUDA device: this smoke runs on the card only")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mxtpu_torch.ops import attention, quant_attention
+    import mxtpu_torch as mx
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    print(smi[0], flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    t0 = time.monotonic()
+    phase_detection(torch, mx, launch_counter(attention, quant_attention),
+                    smi[0])
+    print(f"[detection: {time.monotonic() - t0:.1f} s] phase 19 passed",
+          flush=True)
+
+
 def main() -> int:
     try:
         if sys.argv[1:] == ["--phase", "14"]:
@@ -6765,6 +7948,9 @@ def main() -> int:
             return 0
         if sys.argv[1:] == ["--phase", "18"]:
             run_data_only()
+            return 0
+        if sys.argv[1:] == ["--phase", "19"]:
+            run_detection_only()
             return 0
         run()
     except SmokeFailure as e:

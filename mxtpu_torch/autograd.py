@@ -206,8 +206,15 @@ class _CustomNode(torch.autograd.Function):
     def backward(ctx, *out_grads):
         saved = ctx.saved_tensors
         ins, outs = saved[:ctx.n_in], saved[ctx.n_in:]
-        with pause():
-            gs = ctx.backward_fn(list(out_grads), ins, outs)
+        # torch runs a backward with grad mode on only under create_graph;
+        # a backward_fn that can replay then returns recorded gradients
+        higher = torch.is_grad_enabled() and \
+            getattr(ctx.backward_fn, "replays", False)
+        if higher:
+            gs = ctx.backward_fn(list(out_grads), ins, outs, replay=True)
+        else:
+            with pause():
+                gs = ctx.backward_fn(list(out_grads), ins, outs)
         res = []
         for need, g, x in zip(ctx.needs_input_grad[2:], gs, ins):
             if not need or g is None:
@@ -215,7 +222,8 @@ class _CustomNode(torch.autograd.Function):
                 continue
             g = g.data if hasattr(g, "asnumpy") else torch.as_tensor(
                 g, device=x.device)
-            res.append(g.detach().to(x.device, x.dtype).reshape(x.shape))
+            g = g.to(x.device, x.dtype).reshape(x.shape)
+            res.append(g if higher else g.detach())
         return (None, None, *res)
 
 
@@ -382,8 +390,13 @@ class Function:
     Subclass and implement ``forward(self, *inputs)`` and ``backward(self,
     *output_grads)`` on NDArrays; ``save_for_backward`` stashes arrays.
     The forward runs under ``pause()``; inside ``record()`` one node with
-    the user's backward joins the graph (first order only: the backward
-    itself is not recorded).
+    the user's backward joins the graph. A first-order backward calls the
+    user's backward on the saved arrays. A backward under
+    ``create_graph=True`` runs ``forward`` again on the recorded inputs and
+    then ``backward``, both recorded (as the JAX package's replay does), so
+    the arrays saved in ``forward`` carry their dependence on the inputs
+    into the second derivative; arrays saved outside ``forward`` stay
+    constants, and ``saved_tensors`` is restored afterwards.
     """
 
     def __init__(self):
@@ -402,6 +415,25 @@ class Function:
     def backward(self, *output_grads):
         raise NotImplementedError
 
+    def _replay(self, out_grads, inputs):
+        """The recorded backward of ``create_graph``: forward again on the
+        live inputs, then backward on the live cotangents."""
+        from .ndarray.ndarray import NDArray
+        epoch = _st().epoch
+
+        def live(t):
+            h = NDArray(t)
+            h._epoch = epoch
+            return h
+
+        prev = self._saved
+        try:
+            with _Scope(True, False):
+                self.forward(*[live(t) for t in inputs])
+                return self.backward(*[live(g) for g in out_grads])
+        finally:
+            self._saved = prev
+
     def __call__(self, *inputs):
         from .ndarray.ndarray import NDArray
         with pause():
@@ -409,9 +441,13 @@ class Function:
         single = not isinstance(outputs, (tuple, list))
         outs = [outputs] if single else list(outputs)
         if is_recording():
-            def backward_fn(out_grads, inputs, outs):
-                gs = self.backward(*[NDArray(g) for g in out_grads])
+            def backward_fn(out_grads, inputs, outs, replay=False):
+                if replay:
+                    gs = self._replay(out_grads, inputs)
+                else:
+                    gs = self.backward(*[NDArray(g) for g in out_grads])
                 return [gs] if not isinstance(gs, (tuple, list)) else gs
 
+            backward_fn.replays = True
             record_custom_node(list(inputs), outs, backward_fn)
         return outs[0] if single else tuple(outs)

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import rng
+from .elementwise import _relu
 from .registry import alias, register
 
 # ---------------------------------------------------------------------------
@@ -247,7 +248,7 @@ def _lrn(data, nsize: int = 5, alpha: float = 1e-4, beta: float = 0.75,
 # ---------------------------------------------------------------------------
 
 _ACTS = {
-    "relu": lambda x: torch.clamp_min(x, 0),
+    "relu": _relu,
     "sigmoid": torch.sigmoid,
     "tanh": torch.tanh,
     "softrelu": lambda x: torch.logaddexp(x, torch.zeros_like(x)),

@@ -54,9 +54,11 @@ SLICE_MODULES = ("elementwise", "reduce", "matrix", "init_ops", "random",
 # ops of those modules that wait for a later slice (SyncBatchNorm needs
 # parallel/collectives)
 WAITING = {"contrib.SyncBatchNorm", "contrib._contrib_SyncBatchNorm"}
-# every module whose ops the port registers: the slice's, and the
-# ``nd.image`` ops, held to the JAX package in tests/test_torch_image.py
-REGISTERED_MODULES = SLICE_MODULES + ("image_ops",)
+# every module whose ops the port registers: the slice's, the ``nd.image``
+# ops, held to the JAX package in tests/test_torch_image.py, and the
+# detection slice's, held to it in tests/test_torch_detection.py
+REGISTERED_MODULES = SLICE_MODULES + ("image_ops", "order", "contrib_ops",
+                                      "detection", "spatial")
 
 
 @pytest.fixture(autouse=True)

@@ -77,7 +77,8 @@ def test_no_jax_or_mxtpu_imports(path):
     "ops/image_ops.py", "gluon/data/__init__.py", "gluon/data/sampler.py",
     "gluon/data/dataset.py", "gluon/data/dataloader.py",
     "gluon/data/vision/__init__.py", "gluon/data/vision/datasets.py",
-    "gluon/data/vision/transforms.py"])
+    "gluon/data/vision/transforms.py", "ops/order.py", "ops/contrib_ops.py",
+    "ops/detection.py", "ops/spatial.py", "image/detection.py"])
 def test_the_counterparts_are_checked(module):
     """Each module that has a counterpart in the JAX package lies where
     its counterpart does, and the import rule above reads it."""

@@ -6,8 +6,10 @@ end, the symbolic and Module front ends, the vision path (ResNet-50
 training and the zoo's scoring), int8 quantization (an int8 ResNet-50,
 the quantized fused training step), recurrent nets (the reference's
 word LM, control flow, ``jit``), the data path (ResNet-50 trained from
-a RecordIO file) and detection (the SSD and Faster R-CNN toys, the
-detection ops at SSD300's and Faster R-CNN's full sizes).
+a RecordIO file), detection (the SSD and Faster R-CNN toys, the
+detection ops at SSD300's and Faster R-CNN's full sizes) and sparse
+storage with ``linalg`` and the reference's binary format (the
+factorization machine at Criteo width, a row-sparse word-LM embedding).
 
     python3 chip_smoke.py
 
@@ -401,10 +403,47 @@ Phases, in order; any failure exits non-zero without a result line:
     decision that differs between card and CPU must be a pair whose IoU
     lies within 1e-5 of the threshold (printed), and the rows after it
     are not compared. K1 to K5 must not launch in it.
+20. sparse storage, ``linalg`` and the reference's binary format
+    (``ndarray/{sparse,legacy_io}.py``, ``ops/linalg.py``,
+    ``io.LibSVMIter``, the lazy row-sparse updates, the kvstore's sparse
+    surface; no TPU kernel lies on it: the JAX package's sparse ops are
+    ``segment_sum``s, its linalg ``jnp.linalg``): (a)
+    ``examples/train_sparse_fm.py``'s flow at ``tests/test_examples.py``'s
+    configuration (1200 rows, 5000 features, rank 8, nnz 20, batch 128,
+    lr 0.5, 4 epochs), ``fm_train``: ``LibSVMIter`` -> ``sparse.dot`` ->
+    three transposed dots (row-sparse gradients) -> ``kv.push`` into a
+    ``local`` store with SGD's lazy update -> ``row_sparse_pull``, every
+    step in ``nd`` ops on the card: final accuracy > 0.78; w and V after
+    epoch 1 within 1e-5 x max(|CPU|, 1) of the CPU's; (b) the same flow
+    at Criteo width (a LibSVM file written from a seed: 39 hashed fields
+    a row over 1,000,000 features, each field uniform over its published
+    cardinality, rank 16, batch 1000, 20 batches): ``LibSVMIter``'s
+    rows/s, ms a batch (the first pass, the warm step, then dot, the
+    transposed dots, push and ``row_sparse_pull`` synchronised), rows
+    touched, peak memory; rows no batch touched bit-equal to their start;
+    w and V within 1e-5 x max(|CPU|, 1) of the CPU's; (c) the word LM's
+    net (``Embedding(10000, 650, sparse_grad=True)`` -> ``LSTM(650, 2
+    layers)`` -> ``Dense(10000)``, f32, T35 B128) through
+    ``gluon.Trainer("sgd", momentum=0.9)``, eager: the table's gradient
+    row-sparse over exactly the batch's ids; step 1 equal to the
+    ``sparse_grad=False`` net's within 1e-6 of each tensor's largest
+    entry; after 3 steps the rows outside the batches keep their weight
+    and a zero momentum bit for bit; one step card against CPU (loss
+    1e-5, gradient ids exact, values 5e-5 of the largest entry); (d)
+    the 20 ``linalg`` ops at (4, 64, 64) f32, card against CPU (outputs
+    and the gradients of a sign-invariant loss within 1e-4 x max(|CPU|,
+    1), the five factorizations 3e-4), ``potrf`` and ``potri`` at 1024^2
+    timed; (e) ``resnet50_v1``'s
+    parameters through ``nd.save(..., fmt="reference")`` and
+    ``load_parameters`` into a fresh net on the card: logits bit-equal;
+    a row-sparse and a csr entry through NDARRAY_V2; (f) ``sparse.dot``
+    and the transposed dot at (b)'s shapes timed beside
+    ``torch.sparse.mm`` (a yardstick, not on the path). K1 to K5 must not
+    launch in it.
 
 ``python3 chip_smoke.py --phase 14`` builds the kernels and runs phase 14
-alone; ``--phase 15``, ``--phase 17``, ``--phase 18`` and ``--phase 19``
-run that phase alone, building nothing; ``--phase 16`` builds the
+alone; ``--phase 15``, ``--phase 17``, ``--phase 18``, ``--phase 19``
+and ``--phase 20`` run that phase alone, building nothing; ``--phase 16`` builds the
 kernels and runs phase 16 alone (no kernels line, no result line).
 
 Launch counts are set to 0 just before phases 4, 5, 5c (its first
@@ -413,8 +452,9 @@ burst), 5e (its SLO burst), 5f, 8, 9 (each fused run), 10, saxpy's drive in
 forward and backward and (d)'s chained predict, phase 15 (all
 zero: no kernel of the port on the vision path), phase 16 (d)'s
 quantized fit, phase 17 (all zero: none on the RNN path), phase 18
-(all zero: none on the data path) and phase 19 (all zero: none on the
-detection path), and read just after.
+(all zero: none on the data path), phase 19 (all zero: none on the
+detection path) and phase 20 (all zero: none on the sparse, linalg or
+reference-format paths), and read just after.
 The line before the last is the kernels' JSON record, with one K1, K2, K3
 and K4 record for each route and the path it runs on (the sm90 records of
 K1-K3 count phases 8, 13 (a), 14 (a) and 16 (d), the simt records of
@@ -7588,6 +7628,735 @@ def phase_detection(torch, mx, counts, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: sparse storage, linalg and the reference's binary format
+# ---------------------------------------------------------------------------
+
+# (a): examples/train_sparse_fm.py at tests/test_examples.py:53's
+# configuration; the gate is that test's
+FM_EXAMPLE = dict(rows=1200, epochs=4, features=5000, rank=8, nnz=20,
+                  batch=128, lr=0.5, acc_gate=0.78)
+# (b): Criteo's Kaggle click logs in LIBSVM's form (39 fields a row, 13
+# integer and 26 categorical, hashed to 1,000,000 features, value 1), at
+# the reference FM example's factor size and batch; 20 batches of a file
+# written from the seed, the (a) flow's lazy SGD. Each field's value is
+# drawn uniformly over the values the field takes: the 26 categorical
+# fields over their distinct values in the Kaggle train set as DLRM counts
+# them, the 13 integer fields over the 462 values that the Kaggle winners'
+# rule (a count v > 2 becomes floor(ln(v)^2)) gives counts below 2^31.
+# Uniform draws touch the most rows these cardinalities allow a batch: the
+# set's own skew (not published per field) touches fewer. Labels are drawn
+# at the train set's click rate and move no measured number.
+CRITEO_KAGGLE_CARDINALITY = (
+    1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3, 93145, 5683,
+    8351593, 3194, 27, 14992, 5461306, 10, 5652, 2173, 4, 7046547, 18, 15,
+    286181, 105, 142572)
+FM_CRITEO = dict(
+    features=1_000_000, int_fields=13, int_values=462,
+    cat_cardinality=CRITEO_KAGGLE_CARDINALITY, click_rate=0.256, rank=16,
+    batch=1000, batches=20, lr=0.5, seed=20,
+    source="Criteo Kaggle display-ads train set; categorical cardinalities: "
+           "DLRM's Kaggle table sizes (facebookresearch/dlrm); features, "
+           "rank and batch: MXNet example/sparse/factorization_machine")
+# card against CPU for the FM's w and V: the sums run in another order
+# (atomics on the card), so within this share of max(|CPU|, 1)
+FM_TOL = 1e-5
+# (c): the word LM's net with a row-sparse embedding gradient (WORD_LM's
+# widths); step 1 against the dense-gradient net within this share of each
+# tensor's largest entry; one step card against CPU: the loss within
+# RNN_FWD_TOL, the embedding gradient's values within RNN_STEP_TOL of its
+# largest entry
+SPARSE_LM_STEP_TOL = 1e-6
+# (d): each linalg op at this batched shape, card against CPU (outputs and
+# gradients of a sign-invariant loss) within this share of max(|CPU|, 1);
+# the five factorizations within LINALG_FACTOR_TOL, about 3x the largest
+# share they read on an H100 80GB HBM3 at 700 W (svd 9.0e-5, syevd 4.7e-5,
+# eigh 2.8e-5) and well below what cuSOLVER's default Jacobi svd driver
+# reads there (1.05e-3; ops/linalg.py asks for gesvd)
+LINALG_SHAPE = (4, 64, 64)
+LINALG_TOL = 1e-4
+LINALG_FACTORIZATIONS = ("qr", "svd", "eigh", "gelqf", "syevd")
+LINALG_FACTOR_TOL = 3e-4
+
+
+def fm_write_example(path, rows, D, nnz, F, seed=0):
+    """``examples/train_sparse_fm.py``'s data and initial V (numpy only,
+    the example's draws in its order): a planted sparse logistic model
+    over D features, rows of ``nnz`` sorted features valued in [0.5,
+    1.5). Returns V0 (D, F) float32."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    w_true = np.zeros(D, np.float32)
+    active = rs.choice(D, D // 10, replace=False)
+    w_true[active] = rs.randn(len(active)).astype(np.float32) * 2.0
+    with open(path, "w") as f:
+        for _ in range(rows):
+            idx = np.sort(rs.choice(D, nnz, replace=False))
+            val = rs.rand(nnz).astype(np.float32) + 0.5
+            label = 1 if float((val * w_true[idx]).sum()) > 0 else 0
+            cols = " ".join(f"{i}:{v:.4f}" for i, v in zip(idx, val))
+            f.write(f"{label} {cols}\n")
+    return (rs.randn(D, F).astype(np.float32) * 0.01)
+
+
+def fm_write_criteo(path, c):
+    """A Criteo-shaped LibSVM file from ``c["seed"]``: each row's fields
+    drawn uniformly over their values (``c["int_values"]`` for each integer
+    field, ``c["cat_cardinality"]`` for the categorical ones), every
+    (field, value) hashed to one of ``c["features"]`` ids, value 1; labels
+    at ``c["click_rate"]``. Returns V0 (features, rank) float32 and the
+    number of rows."""
+    import numpy as np
+    rs = np.random.RandomState(c["seed"])
+    n, D = c["batch"] * c["batches"], c["features"]
+    card = np.array((c["int_values"],) * c["int_fields"]
+                    + tuple(c["cat_cardinality"]), np.float64)
+    vals = (rs.rand(n, len(card)) * card).astype(np.uint64)
+    fields = np.arange(len(card), dtype=np.uint64)
+    ids = ((fields * np.uint64(100_000_007) + vals) * np.uint64(2654435761)
+           % np.uint64(2 ** 32) % np.uint64(D)).astype(np.int64)
+    ids.sort(axis=1)
+    label = (rs.rand(n) < c["click_rate"]).astype(np.int64)
+    with open(path, "w") as f:
+        for y, row in zip(label, ids):
+            f.write(f"{y} " + " ".join(f"{i}:1" for i in row) + "\n")
+    return rs.randn(D, c["rank"]).astype(np.float32) * 0.01, n
+
+
+@contextlib.contextmanager
+def _section(torch, sections, name):
+    """Add the synchronised wall time of the block to ``sections[name]``
+    (nothing when ``sections`` is None)."""
+    if sections is None:
+        yield
+        return
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    yield
+    torch.cuda.synchronize()
+    sections[name] = sections.get(name, 0.0) + time.perf_counter() - t
+
+
+def fm_train(torch, mx, it, V0, epochs, lr, ctx, sections=None,
+             keep_epochs=True):
+    """``examples/train_sparse_fm.py``'s flow on the port, every step on
+    ``ctx`` in ``nd`` ops: the ``LibSVMIter`` ``it``'s host batches staged
+    to ``ctx``; the FM score from ``sparse.dot(csr, dense)``; the
+    row-sparse gradients of w and V from three transposed dots;
+    ``kv.push`` into a ``local`` store whose updater is SGD's lazy
+    row-sparse update; the updated rows back by ``row_sparse_pull`` into
+    the dense w and V. The host reads the accuracy count once an epoch.
+    ``sections`` (a dict) takes the synchronised seconds of ``dot``,
+    ``dot_t`` (the transposed dots), ``push`` and ``pull``. Returns w, V
+    (NDArrays), each epoch's accuracy and seconds (synchronised), the rows
+    touched a batch, every touched row (a tensor) and, when
+    ``keep_epochs``, (w, V) as numpy after each epoch."""
+    from mxtpu_torch import kvstore, nd, optimizer
+    from mxtpu_torch.ndarray import sparse
+    D, F = it.provide_data[0].shape[1], V0.shape[1]
+    w = nd.zeros((D, 1), ctx=ctx)
+    V = nd.array(V0, ctx=ctx)
+    kv = kvstore.create("local")
+    kv.init("w", w)
+    kv.init("V", V)
+    kv.set_optimizer(optimizer.SGD(learning_rate=lr))
+    acc, secs, rows_a_batch, touched, epochs_wv = [], [], [], [], []
+    for _ in range(epochs):
+        it.reset()
+        if ctx.type == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        correct, seen = nd.zeros((1,), ctx=ctx), 0
+        for b in it:
+            X = b.data[0].as_in_context(ctx)
+            y = b.label[0].as_in_context(ctx)
+            n = X.shape[0] - b.pad
+            with _section(torch, sections, "dot"):
+                xw = sparse.dot(X, w)
+                xv = sparse.dot(X, V)
+                x2 = sparse.csr_matrix((X.data * X.data, X.indices,
+                                        X.indptr), shape=X.shape)
+                x2v2 = sparse.dot(x2, V * V)
+            score = xw[:, 0] + 0.5 * (xv * xv - x2v2).sum(axis=1)
+            prob = 1.0 / (1.0 + nd.exp(-score))
+            correct = correct + ((prob > 0.5) == (y > 0.5))[:n].sum()
+            seen += n
+            delta = (prob - y) / max(n, 1)
+            if b.pad:
+                delta[n:] = 0.0
+            d = delta.reshape((-1, 1))
+            with _section(torch, sections, "dot_t"):
+                grad_w = sparse.dot(X, d, transpose_a=True)
+                grad_v1 = sparse.dot(X, d * xv, transpose_a=True)
+                g2 = sparse.dot(x2, d, transpose_a=True)
+            rows = g2.indices
+            grad_v = sparse.row_sparse_array(
+                (grad_v1.data - g2.data * V[rows], grad_v1.indices),
+                shape=(D, F))
+            with _section(torch, sections, "push"):
+                kv.push("w", grad_w)
+                kv.push("V", grad_v)
+            with _section(torch, sections, "pull"):
+                kv.row_sparse_pull("w", out=w, row_ids=rows)
+                kv.row_sparse_pull("V", out=V, row_ids=rows)
+            rows_a_batch.append(rows.shape[0])
+            touched.append(rows.data.long())
+        acc.append(float(correct.asscalar()) / max(seen, 1))
+        secs.append(time.perf_counter() - t)
+        if keep_epochs:
+            epochs_wv.append((w.asnumpy(), V.asnumpy()))
+    return dict(w=w, V=V, acc=acc, secs=secs, rows=rows_a_batch,
+                touched=torch.unique(torch.cat(touched)), epochs=epochs_wv)
+
+
+def fm_example_leg(torch, mx, tmp, smi):
+    """(a) the FM example's flow at its test configuration on the card:
+    the accuracy gate, and w and V after epoch 1 against the CPU's."""
+    import numpy as np
+    from mxtpu_torch.io import LibSVMIter
+    c = FM_EXAMPLE
+    path = os.path.join(tmp, "fm.libsvm")
+    V0 = fm_write_example(path, c["rows"], c["features"], c["nnz"],
+                          c["rank"])
+    it = LibSVMIter(data_libsvm=path, data_shape=(c["features"],),
+                    batch_size=c["batch"])
+    card = fm_train(torch, mx, it, V0, c["epochs"], c["lr"], mx.gpu(0))
+    cpu = fm_train(torch, mx, it, V0, 1, c["lr"], mx.cpu())
+    errs = [float(np.abs(a - b).max()) / max(float(np.abs(b).max()), 1.0)
+            for a, b in zip(card["epochs"][0], cpu["epochs"][0])]
+    acc = card["acc"][-1]
+    check(acc > c["acc_gate"],
+          f"fm (a): final accuracy {acc:.4f} <= {c['acc_gate']}")
+    check(max(errs) <= FM_TOL,
+          f"fm (a): w, V after epoch 1 card vs CPU {errs} > {FM_TOL:g} x "
+          f"max(|CPU|, 1)")
+    per_epoch = len(card["rows"]) // c["epochs"]
+    ms = [s * 1e3 / per_epoch for s in card["secs"]]
+    print(f"fm (a): examples/train_sparse_fm.py at {c['rows']} rows, "
+          f"{c['features']} features, rank {c['rank']}, batch {c['batch']}, "
+          f"{c['epochs']} epochs on the card: accuracy by epoch "
+          f"{[round(a, 4) for a in card['acc']]} (gate > {c['acc_gate']}); "
+          f"w, V after epoch 1 card vs CPU {errs[0]:.3e}, {errs[1]:.3e} of "
+          f"max(|CPU|, 1) (tol {FM_TOL:g}); ms a batch by epoch "
+          f"{[round(m, 3) for m in ms]}; {np.mean(card['rows']):.1f} rows "
+          f"touched a batch ({smi})", flush=True)
+    return dict(acc=card["acc"], err=errs, ms=ms)
+
+
+def fm_criteo_leg(torch, mx, tmp, smi):
+    """(b) the FM at Criteo width on the card: parse rate, ms a batch (the
+    first pass over the file, one-time costs in its first batch; the whole
+    step warm; then each part in a synchronised run), rows touched, peak
+    memory; untouched rows keep their initial values bit for bit; w and V
+    against the CPU's after the 20 batches."""
+    import numpy as np
+    from mxtpu_torch.io import LibSVMIter
+    c = FM_CRITEO
+    path = os.path.join(tmp, "criteo.libsvm")
+    t = time.perf_counter()
+    V0, n = fm_write_criteo(path, c)
+    gen_s = time.perf_counter() - t
+    t = time.perf_counter()
+    it = LibSVMIter(data_libsvm=path, data_shape=(c["features"],),
+                    batch_size=c["batch"])
+    parse_s = time.perf_counter() - t
+    nnz = int(it._indptr[-1])
+    D, F = c["features"], c["rank"]
+
+    def card_run(sections=None):
+        out = fm_train(torch, mx, it, V0, 1, c["lr"], mx.gpu(0),
+                       sections=sections, keep_epochs=False)
+        return out, out["secs"][0]
+
+    _, cold = card_run()               # warm: cuBLAS, allocator, kernels
+    torch.cuda.reset_peak_memory_stats()
+    card, wall = card_run()
+    peak = torch.cuda.max_memory_allocated()
+    sections = {}
+    card_run(sections)
+    cpu = fm_train(torch, mx, it, V0, 1, c["lr"], mx.cpu(),
+                   keep_epochs=False)
+    check(len(card["rows"]) == c["batches"],
+          f"fm (b): {len(card['rows'])} batches, not {c['batches']}")
+    w, Vc = card["w"].data, card["V"].data
+    untouched = torch.ones(D, dtype=torch.bool, device=w.device)
+    untouched[card["touched"]] = False
+    V0_t = torch.from_numpy(V0).to(w.device)
+    same_w = bool((w[untouched] == 0).all())
+    same_V = torch.equal(Vc[untouched], V0_t[untouched])
+    check(same_w and same_V,
+          f"fm (b): rows no batch touched moved (w {same_w}, V {same_V})")
+    check(torch.equal(card["touched"].cpu(), cpu["touched"]),
+          "fm (b): card and CPU touched other rows")
+    errs = [rel_err(torch, card["w"].data, cpu["w"].data),
+            rel_err(torch, card["V"].data, cpu["V"].data)]
+    check(max(errs) <= FM_TOL,
+          f"fm (b): w, V after {c['batches']} batches card vs CPU {errs} > "
+          f"{FM_TOL:g} x max(|CPU|, 1)")
+    nb = c["batches"]
+    parts = {k: v * 1e3 / nb for k, v in sections.items()}
+    out = dict(gen_s=gen_s, parse_rows_s=n / parse_s, nnz_batch=nnz / nb,
+               cold_ms=cold * 1e3 / nb, step_ms=wall * 1e3 / nb,
+               parts_ms=parts, rows=float(np.mean(card["rows"])),
+               touched=int(card["touched"].numel()), peak_mib=peak / 2**20,
+               err=errs)
+    print(f"fm (b) Criteo width ({D} features, {c['int_fields']} + "
+          f"{len(c['cat_cardinality'])} fields, rank {F}, batch {c['batch']}, {nb} "
+          f"batches, {nnz / nb:.0f} non-zeros a batch): file written in "
+          f"{gen_s:.2f} s; LibSVMIter parse {n / parse_s:.0f} rows/s; first "
+          f"pass {out['cold_ms']:.3f} ms a batch (one-time costs in its "
+          f"first batch); {out['step_ms']:.3f} ms a batch (the whole step, "
+          f"warm); synchronised "
+          f"parts: dot {parts['dot']:.3f}, transposed dots "
+          f"{parts['dot_t']:.3f}, push {parts['push']:.3f}, row_sparse_pull "
+          f"{parts['pull']:.3f} ms a batch; {out['rows']:.0f} rows touched a "
+          f"batch ({out['touched']} in all, untouched rows bit-equal to "
+          f"their start); peak memory {out['peak_mib']:.0f} MiB; w, V card "
+          f"vs CPU {errs[0]:.3e}, {errs[1]:.3e} of max(|CPU|, 1) (tol "
+          f"{FM_TOL:g}) ({smi})", flush=True)
+    return out, card
+
+
+def sparse_lm_net(mx, gluon, ctx, sparse_grad, src=None):
+    """``word_lm_net``'s inner block (Embedding -> LSTM -> Dense, TNC) at
+    WORD_LM's widths, its embedding's gradient row-sparse when
+    ``sparse_grad``; its weights ``src``'s (or Uniform(0.1) from seed
+    0)."""
+    c = WORD_LM
+    V = c["vocab"]
+
+    class LMBlock(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__(prefix="lm_")
+            with self.name_scope():
+                self.embedding = gluon.nn.Embedding(V, c["embed"],
+                                                    sparse_grad=sparse_grad)
+                self.lstm = gluon.rnn.LSTM(
+                    c["hidden"], num_layers=c["layers"], layout="TNC",
+                    input_size=c["embed"])
+                self.decoder = gluon.nn.Dense(V, in_units=c["hidden"],
+                                              flatten=False)
+
+        def forward(self, x):
+            return self.decoder(self.lstm(self.embedding(x)))
+
+    mx.random.seed(0)
+    net = LMBlock()
+    net.initialize(mx.init.Uniform(0.1), ctx=ctx)
+    if src is not None:
+        for p, q in zip(src.collect_params().values(),
+                        net.collect_params().values()):
+            q.set_data(p.data().as_in_context(ctx))
+    return net
+
+
+def sparse_lm_batches(c, n):
+    """``n`` (T, B) token batches (RandomState(i)) and their next tokens,
+    flattened T-major, as numpy."""
+    import numpy as np
+    out = []
+    for i in range(n):
+        rs = np.random.RandomState(i)
+        tok = rs.randint(0, c["vocab"], (c["T"], c["B"])).astype(np.int32)
+        out.append((tok, np.roll(tok, -1, axis=0).reshape(-1)
+                    .astype(np.float32)))
+    return out
+
+
+def sparse_lm_step(mx, net, trainer, tok, y, ctx):
+    """One eager Gluon step: forward under ``record``, softmax
+    cross-entropy, backward, ``trainer.step``. Returns the mean loss (a
+    float) and the embedding's gradient after the backward."""
+    from mxtpu_torch import autograd, gluon, nd
+    x, yy = nd.array(tok, ctx=ctx), nd.array(y, ctx=ctx)
+    with autograd.record():
+        out = net(x)
+        loss = gluon.loss.SoftmaxCrossEntropyLoss()(
+            out.reshape((-1, WORD_LM["vocab"])), yy)
+    loss.backward()
+    grad = net.embedding.params.get("weight").grad()
+    if trainer is not None:
+        trainer.step(tok.size)
+    return float(loss.mean().asscalar()), grad
+
+
+def sparse_lm_leg(torch, mx, smi):
+    """(c) the word LM's net with ``Embedding(sparse_grad=True)`` through
+    ``gluon.Trainer("sgd", momentum=0.9)``, eager, on the card."""
+    import numpy as np
+    from mxtpu_torch import gluon
+    c = WORD_LM
+    gpu = mx.gpu(0)
+    batches = sparse_lm_batches(c, 3)
+    net = sparse_lm_net(mx, gluon, gpu, True)
+    dense = sparse_lm_net(mx, gluon, gpu, False, src=net)
+    emb = net.embedding.params.get("weight")
+    w0 = emb.data().data.detach().clone()
+    opt = {"learning_rate": 1.0, "momentum": 0.9}
+    tr = gluon.Trainer(net.collect_params(), "sgd", opt)
+    trd = gluon.Trainer(dense.collect_params(), "sgd", opt)
+    tok, y = batches[0]
+    times = []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loss, grad = sparse_lm_step(mx, net, tr, tok, y, gpu)
+    torch.cuda.synchronize()
+    times.append(time.perf_counter() - t)
+    uniq = np.unique(tok)
+    check(grad.stype == "row_sparse"
+          and np.array_equal(grad.indices.asnumpy(), uniq),
+          f"sparse LM (c): the table's gradient is {grad.stype} over "
+          f"{grad.indices.shape[0] if grad.stype != 'default' else 'all'} "
+          f"rows, not row-sparse over the batch's {len(uniq)} ids")
+    t = time.perf_counter()
+    dloss, _ = sparse_lm_step(mx, dense, trd, tok, y, gpu)
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t
+    step_err = max(share_err(torch, p.data().data, q.data().data)
+                   for p, q in zip(net.collect_params().values(),
+                                   dense.collect_params().values()))
+    check(step_err <= SPARSE_LM_STEP_TOL and abs(loss - dloss) <= 1e-6 *
+          max(abs(dloss), 1.0),
+          f"sparse LM (c): step 1 against sparse_grad=False: weights "
+          f"{step_err:.3e} of each tensor's largest entry (tol "
+          f"{SPARSE_LM_STEP_TOL:g}), losses {loss} vs {dloss}")
+    for tok_i, y_i in batches[1:]:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sparse_lm_step(mx, net, tr, tok_i, y_i, gpu)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    seen = np.unique(np.concatenate([b[0].ravel() for b in batches]))
+    out_rows = torch.from_numpy(np.setdiff1d(np.arange(c["vocab"]), seen)) \
+        .to(w0.device)
+    idx = [i for i, p in enumerate(tr._params) if p is emb][0]
+    mom = tr._states[idx][0]
+    w3 = emb.data().data.detach()
+    check(torch.equal(w3[out_rows], w0[out_rows])
+          and not bool(mom[out_rows].any()),
+          f"sparse LM (c): after 3 steps, rows outside the batches moved or "
+          f"hold momentum ({len(out_rows)} rows)")
+    cpu = sparse_lm_net(mx, gluon, mx.cpu(), True)
+    card1 = sparse_lm_net(mx, gluon, gpu, True, src=cpu)
+    lc, gc = sparse_lm_step(mx, card1, None, tok, y, gpu)
+    lh, gh = sparse_lm_step(mx, cpu, None, tok, y, mx.cpu())
+    gerr = share_err(torch, gc.data.data, gh.data.data)
+    lerr = abs(lc - lh) / max(abs(lh), 1.0)
+    check(np.array_equal(gc.indices.asnumpy(), gh.indices.asnumpy())
+          and gerr <= RNN_STEP_TOL and lerr <= RNN_FWD_TOL,
+          f"sparse LM (c): one step card vs CPU: loss {lerr:.3e} (tol "
+          f"{RNN_FWD_TOL:g}), gradient ids equal "
+          f"{np.array_equal(gc.indices.asnumpy(), gh.indices.asnumpy())}, "
+          f"values {gerr:.3e} of the largest entry (tol {RNN_STEP_TOL:g})")
+    ms = [s * 1e3 for s in times]
+    print(f"sparse LM (c): Embedding({c['vocab']}, {c['embed']}, "
+          f"sparse_grad=True) -> LSTM({c['hidden']}, {c['layers']} layers) "
+          f"-> Dense({c['vocab']}), f32, T{c['T']} B{c['B']}, SGD momentum "
+          f"0.9 through gluon.Trainer, eager: the table's gradient "
+          f"row-sparse over the batch's {len(uniq)} ids; step 1 = "
+          f"sparse_grad=False within {step_err:.3e} (tol "
+          f"{SPARSE_LM_STEP_TOL:g}); after 3 steps {len(out_rows)} rows "
+          f"outside the batches bit-equal, momentum 0; ms a step "
+          f"{[round(m, 3) for m in ms]} (dense-gradient step 1: "
+          f"{dense_s * 1e3:.3f}); one step card vs CPU: loss {lerr:.3e}, "
+          f"gradient values {gerr:.3e} ({smi})", flush=True)
+    return dict(ms=ms, dense_ms=dense_s * 1e3, rows=len(uniq),
+                untouched=len(out_rows), step_err=step_err, gerr=gerr,
+                lerr=lerr)
+
+
+def linalg_inputs(name, shape, seed):
+    """Well-conditioned f32 inputs of a linalg op at ``shape`` (B, n, n):
+    general matrices I + noise, SPD, Cholesky factors, symmetric with
+    spread eigenvalues, and for the factorizations Q1 diag(s) Q2^T with s
+    spread over [1, 4]."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    B, n, _ = shape
+
+    def general():
+        return np.eye(n) + rs.randn(B, n, n) / (2 * np.sqrt(n))
+
+    def spd():
+        a = rs.randn(B, n, n)
+        return a @ a.transpose(0, 2, 1) / n + np.eye(n)
+
+    def orth():
+        return np.linalg.qr(rs.randn(B, n, n))[0]
+
+    def spread(lo, hi):
+        return np.linspace(lo, hi, n) * (1 + 0.01 * rs.rand(B, n))
+
+    def factored():
+        return np.einsum("bij,bj,bkj->bik", orth(), spread(1, 4), orth())
+
+    def symmetric():
+        q = orth()
+        return np.einsum("bij,bj,bkj->bik", q, spread(1, n), q)
+
+    make = {
+        "gemm": lambda: [general(), general(), general()],
+        "gemm2": lambda: [general(), general()],
+        "potrf": lambda: [spd()],
+        "potri": lambda: [np.linalg.cholesky(spd())],
+        "trsm": lambda: [np.linalg.cholesky(spd()), general()],
+        "trmm": lambda: [general(), general()],
+        "syrk": lambda: [general()],
+        "sumlogdiag": lambda: [spd()],
+        "extractdiag": lambda: [general()],
+        "makediag": lambda: [rs.randn(B, n)],
+        "extracttrian": lambda: [general()],
+        "maketrian": lambda: [rs.randn(B, n * (n + 1) // 2)],
+        "inverse": lambda: [general()],
+        "det": lambda: [general()],
+        "slogdet": lambda: [general()],
+        "svd": lambda: [factored()],
+        "eigh": lambda: [symmetric()],
+        "qr": lambda: [factored()],
+        "gelqf": lambda: [factored()],
+        "syevd": lambda: [symmetric()],
+    }[name]
+    return [a.astype(np.float32) for a in make()]
+
+
+def linalg_sign_fixed(nd, name, outs):
+    """A factorization's outputs with each vector's sign fixed (by R's or
+    L's diagonal, or the vector's sum), which makes them and a loss over
+    them sign-invariant; other ops' outputs as they are."""
+    def ex(x, axis):
+        return nd.expand_dims(x, axis=axis)
+
+    if name == "qr":
+        q, r = outs
+        d = nd.sign(nd.linalg.extractdiag(r))
+        return [q * ex(d, -2), r * ex(d, -1)]
+    if name == "gelqf":
+        q, l = outs
+        d = nd.sign(nd.linalg.extractdiag(l))
+        return [q * ex(d, -1), l * ex(d, -2)]
+    if name == "svd":
+        u, s, vt = outs
+        d = nd.sign(nd.sum(u, axis=-2))
+        return [u * ex(d, -2), s, vt * ex(d, -1)]
+    if name == "eigh":
+        w, v = outs
+        return [w, v * ex(nd.sign(nd.sum(v, axis=-2)), -2)]
+    if name == "syevd":
+        u, w = outs
+        return [u * ex(nd.sign(nd.sum(u, axis=-1)), -1), w]
+    return list(outs)
+
+
+def linalg_run(torch, mx, name, xs, ctx, seed):
+    """``nd.linalg.<name>`` on ``ctx`` under ``record``: its (sign-fixed)
+    outputs and the gradients of sum(out * c) for its inputs, as CPU
+    tensors."""
+    import numpy as np
+    from mxtpu_torch import autograd, nd
+    args = [nd.array(x, ctx=ctx) for x in xs]
+    for a in args:
+        a.attach_grad()
+    with autograd.record():
+        out = getattr(nd.linalg, name)(*args)
+        outs = linalg_sign_fixed(nd, name, out if isinstance(out, tuple)
+                                 else (out,))
+    rs = np.random.RandomState(seed)
+    cots = [nd.array(rs.uniform(-1, 1, o.shape).astype(np.float32),
+                     ctx=ctx) for o in outs]
+    autograd.backward(outs, head_grads=cots)
+    return ([o.data.detach().cpu() for o in outs],
+            [a.grad.data.detach().cpu() for a in args])
+
+
+def linalg_leg(torch, mx, smi):
+    """(d) the 20 linalg ops at LINALG_SHAPE, card against CPU, forward and
+    the gradients of a sign-invariant loss; potrf + potri at 1024^2
+    timed."""
+    import numpy as np
+    from mxtpu_torch import nd
+    from mxtpu_torch.ops import linalg as ops_linalg  # noqa: F401
+    names = ["gemm", "gemm2", "potrf", "potri", "trsm", "trmm", "syrk",
+             "sumlogdiag", "extractdiag", "makediag", "extracttrian",
+             "maketrian", "inverse", "det", "slogdet", "svd", "eigh", "qr",
+             "gelqf", "syevd"]
+    worst, parts = {}, {}
+    for i, name in enumerate(names):
+        xs = linalg_inputs(name, LINALG_SHAPE, 100 + i)
+        co, cg = linalg_run(torch, mx, name, xs, mx.gpu(0), 200 + i)
+        ho, hg = linalg_run(torch, mx, name, xs, mx.cpu(), 200 + i)
+        errs = [rel_err(torch, a, b) for a, b in zip(co + cg, ho + hg)]
+        worst[name] = max(errs)
+        parts[name] = ", ".join(f"{e:.2e}" for e in errs)
+        tol = LINALG_FACTOR_TOL if name in LINALG_FACTORIZATIONS \
+            else LINALG_TOL
+        check(worst[name] <= tol,
+              f"linalg (d) {name}: card vs CPU outputs and gradients "
+              f"{parts[name]} (tol {tol:g} x max(|CPU|, 1))")
+    spd = linalg_inputs("potrf", (1, 1024, 1024), 7)[0]
+    a = nd.array(spd, ctx=mx.gpu(0))
+    chol_ms = timed_ms(torch, lambda: nd.linalg.potrf(a), 10)
+    L = nd.linalg.potrf(a)
+    inv_ms = timed_ms(torch, lambda: nd.linalg.potri(L), 10)
+    inv = nd.linalg.potri(L).data.double().cpu().numpy()[0]
+    resid = float(np.abs(inv @ spd[0].astype(np.float64)
+                         - np.eye(1024)).max())
+    check(resid < 1e-2, f"linalg (d): potri(potrf(A)) A - I at 1024^2 "
+          f"{resid:.3e}")
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:4]
+    print(f"linalg (d): 20 ops at {LINALG_SHAPE} f32, card vs CPU "
+          f"(outputs, then gradients, of a sign-invariant loss; tol "
+          f"{LINALG_TOL:g} x max(|CPU|, 1), the factorizations "
+          f"{LINALG_FACTOR_TOL:g}): largest "
+          f"{'; '.join(f'{k} [{parts[k]}]' for k, _ in top)}; the other "
+          f"ops at most {sorted(worst.values())[-5]:.2e}; at 1024^2: potrf "
+          f"{chol_ms:.3f} ms, potri {inv_ms:.3f} ms, |potri(potrf(A)) A - "
+          f"I| {resid:.2e} ({smi})", flush=True)
+    return dict(worst=worst, potrf_ms=chol_ms, potri_ms=inv_ms)
+
+
+def reference_binary_leg(torch, mx, tmp, smi):
+    """(e) ``resnet50_v1``'s parameters through ``nd.save(...,
+    fmt="reference")`` into a fresh net on the card: the logits bit-equal;
+    a row-sparse and a csr entry of the card through V2."""
+    import numpy as np
+    from mxtpu_torch import nd
+    from mxtpu_torch.gluon.model_zoo import get_model
+    from mxtpu_torch.ndarray import sparse
+    gpu = mx.gpu(0)
+    mx.random.seed(0)
+    net = get_model("resnet50_v1")
+    net.initialize(mx.init.Xavier(), ctx=gpu)
+    g = torch.Generator().manual_seed(20)
+    x = torch.randn(4, 3, 224, 224, generator=g).to("cuda")
+    with torch.no_grad():
+        ref = net(x)
+        again = net(x)
+    check(torch.equal(ref, again), "reference (e): the source net's two "
+          "forwards differ: bit-equality cannot be read")
+    path = os.path.join(tmp, "resnet50_v1.params")
+    arrays = {k[len(net.prefix):]: p.data()
+              for k, p in net.collect_params().items()}
+    t = time.perf_counter()
+    nd.save(path, arrays, fmt="reference")
+    save_s = time.perf_counter() - t
+    size = os.path.getsize(path)
+    fresh = get_model("resnet50_v1")
+    fresh.initialize(ctx=gpu)
+    t = time.perf_counter()
+    fresh.load_parameters(path, ctx=gpu)
+    load_s = time.perf_counter() - t
+    with torch.no_grad():
+        got = fresh(x)
+    check(torch.equal(got, ref), "reference (e): resnet50_v1 loaded from "
+          f"the reference format: logits differ by "
+          f"{(got - ref).abs().max().item():.3e}")
+    rs = np.random.RandomState(2)
+    rsp = sparse.row_sparse_array((rs.randn(3, 5).astype(np.float32),
+                                   [2, 9, 40]), shape=(64, 5), ctx=gpu)
+    dense = rs.randn(6, 7).astype(np.float32)
+    dense[rs.rand(6, 7) > 0.3] = 0
+    csr = sparse.csr_matrix(dense, ctx=gpu)
+    spath = os.path.join(tmp, "sparse.params")
+    nd.save(spath, {"rsp": rsp, "csr": csr}, fmt="reference")
+    back = nd.load(spath)
+    same = (back["rsp"].stype == "row_sparse" and back["csr"].stype == "csr"
+            and back["rsp"].context == mx.Context(gpu)
+            and np.array_equal(back["rsp"].indices.asnumpy(),
+                               rsp.indices.asnumpy())
+            and np.array_equal(back["rsp"].data.asnumpy(),
+                               rsp.data.asnumpy())
+            and all(np.array_equal(getattr(back["csr"], k).asnumpy(),
+                                   getattr(csr, k).asnumpy())
+                    for k in ("data", "indices", "indptr")))
+    check(same, "reference (e): a row-sparse or csr entry changed through "
+          "NDARRAY_V2")
+    print(f"reference (e): resnet50_v1's {len(arrays)} parameters "
+          f"({size / 2**20:.1f} MiB) written as NDARRAY_V2 in {save_s:.2f} "
+          f"s, loaded into a fresh net on the card in {load_s:.2f} s: "
+          f"logits (B4, 224) bit-equal; a row-sparse and a csr entry of "
+          f"the card round-trip, ids and values equal ({smi})", flush=True)
+    return dict(mib=size / 2**20, save_s=save_s, load_s=load_s)
+
+
+def sparse_dot_times(torch, mx, path, V, smi):
+    """(f) ``sparse.dot`` and its transposed form at (b)'s shapes (the
+    file's first batch, (b)'s trained V) beside ``torch.sparse.mm`` on the
+    same operands (a yardstick only, not on the path)."""
+    import numpy as np
+    from mxtpu_torch import nd
+    from mxtpu_torch.io import LibSVMIter
+    from mxtpu_torch.ndarray import sparse
+    c = FM_CRITEO
+    D, F = c["features"], c["rank"]
+    it = LibSVMIter(data_libsvm=path, data_shape=(D,), batch_size=c["batch"])
+    X = next(iter(it)).data[0].as_in_context(mx.gpu(0))
+    G = nd.array(np.random.RandomState(3).randn(c["batch"], F)
+                 .astype(np.float32), ctx=mx.gpu(0))
+    rows = X._row_ids()
+    Xt = torch.sparse_csr_tensor(X._indptr, X._indices, X._values,
+                                 size=X.shape)
+    XtT = torch.sparse_coo_tensor(torch.stack([X._indices, rows]),
+                                  X._values, (D, c["batch"])).coalesce()
+    Vt, Gt = V.data, G.data
+    ours = timed_ms(torch, lambda: sparse.dot(X, V), 20)
+    lib = timed_ms(torch, lambda: torch.sparse.mm(Xt, Vt), 20)
+    ours_t = timed_ms(torch, lambda: sparse.dot(X, G, transpose_a=True), 20)
+    lib_t = timed_ms(torch, lambda: torch.sparse.mm(XtT, Gt), 20)
+    check(rel_err(torch, sparse.dot(X, V).data, torch.sparse.mm(Xt, Vt))
+          <= FM_TOL, "dot (f): sparse.dot and torch.sparse.mm disagree")
+    nnz = X.nnz
+    # each input read once, each output written once: values and columns,
+    # the nnz gathered rows of V (G), the output
+    b_dot = nnz * (4 + 8) + nnz * F * 4 + c["batch"] * F * 4
+    b_dot_t = nnz * (4 + 8) + c["batch"] * F * 4 + nnz * F * 4
+    print(f"dot (f) at (b)'s shapes (({c['batch']}, {D}) csr, {nnz} "
+          f"non-zeros, "
+          f"rank {F}): sparse.dot {ours:.4f} ms, torch.sparse.mm (CSR) "
+          f"{lib:.4f} ms, byte bound {b_dot / HBM_BYTES_PER_S * 1e3:.5f} ms; "
+          f"transposed (row-sparse out) {ours_t:.4f} ms, torch.sparse.mm "
+          f"(COO of X^T, dense (D, F) out) {lib_t:.4f} ms, byte bound "
+          f"{b_dot_t / HBM_BYTES_PER_S * 1e3:.5f} ms ({smi})", flush=True)
+    return dict(dot_ms=ours, lib_ms=lib, dot_t_ms=ours_t, lib_t_ms=lib_t)
+
+
+def phase_sparse(torch, mx, counts, smi):
+    """Phase 20: sparse storage, linalg and the reference binary on the
+    card (see the module docstring). Returns the readings PERF.md
+    keeps."""
+    import tempfile
+    from mxtpu_torch.ops import attention, quant_attention
+    counts(0)
+
+    def leg(name, fn, *args):
+        t = time.monotonic()
+        res = fn(*args)
+        torch.cuda.empty_cache()
+        print(f"[20 {name}: {time.monotonic() - t:.1f} s]", flush=True)
+        return res
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["fm"] = leg("(a)", fm_example_leg, torch, mx, tmp, smi)
+        out["criteo"], criteo = leg("(b)", fm_criteo_leg, torch, mx, tmp,
+                                    smi)
+        out["dot"] = leg("(f)", sparse_dot_times, torch, mx,
+                         os.path.join(tmp, "criteo.libsvm"), criteo["V"],
+                         smi)
+        del criteo
+        out["lm"] = leg("(c)", sparse_lm_leg, torch, mx, smi)
+        out["linalg"] = leg("(d)", linalg_leg, torch, mx, smi)
+        out["reference"] = leg("(e)", reference_binary_leg, torch, mx, tmp,
+                               smi)
+    launches = dict(attention_launches(attention),
+                    K5=quant_attention.dequant_decode.launches)
+    check(not any(launches.values()),
+          f"phase 20 launched a TPU kernel's port: {launches} (the sparse, "
+          f"linalg and reference-format paths run none of K1-K5)")
+    print(f"sparse: no TPU kernel lies on this path: K1-K5 launches "
+          f"{launches} ({smi})", flush=True)
+    return out
+
+
 def launch_counter(attention, quant_attention):
     """``counts(n)``: every kernel wrapper's launch counts (and the sm90
     route's) set to ``n``."""
@@ -7706,6 +8475,8 @@ def run():
     timed_phase("data", phase_data, torch, mx, counts, smi[0])
     torch.cuda.empty_cache()
     timed_phase("detection", phase_detection, torch, mx, counts, smi[0])
+    torch.cuda.empty_cache()
+    timed_phase("sparse", phase_sparse, torch, mx, counts, smi[0])
     print(f"K1 launches: forward {k1_launches}, training "
           f"{train_launches['K1']}, gluon {glu['K1']}, module {mod_l['K1']}, "
           f"symbolic graph {sym_l['K1']}, quantized module {quant_l['K1']}",
@@ -7932,6 +8703,30 @@ def run_detection_only():
           flush=True)
 
 
+def run_sparse_only():
+    """Phase 20 alone (``python3 chip_smoke.py --phase 20``): no kernel of
+    the port lies on the sparse, linalg or reference-format paths, so
+    nothing is built; no kernels line, no result line."""
+    import torch
+    if not torch.cuda.is_available():
+        raise SmokeFailure("no CUDA device: this smoke runs on the card only")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mxtpu_torch.ops import attention, quant_attention
+    import mxtpu_torch as mx
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    print(smi[0], flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    t0 = time.monotonic()
+    phase_sparse(torch, mx, launch_counter(attention, quant_attention),
+                 smi[0])
+    print(f"[sparse: {time.monotonic() - t0:.1f} s] phase 20 passed",
+          flush=True)
+
+
 def main() -> int:
     try:
         if sys.argv[1:] == ["--phase", "14"]:
@@ -7951,6 +8746,9 @@ def main() -> int:
             return 0
         if sys.argv[1:] == ["--phase", "19"]:
             run_detection_only()
+            return 0
+        if sys.argv[1:] == ["--phase", "20"]:
+            run_sparse_only()
             return 0
         run()
     except SmokeFailure as e:

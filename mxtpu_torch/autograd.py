@@ -291,14 +291,39 @@ def _heads(heads, head_grads):
     return outs, cots
 
 
+def _row_sparse(g: torch.Tensor, dtype):
+    """A torch sparse gradient (``F.embedding(..., sparse=True)``'s, rows
+    repeated and unsorted) as a RowSparseNDArray over its sorted unique
+    rows."""
+    from .ndarray.sparse import RowSparseNDArray
+    g = g.detach().coalesce()
+    return RowSparseNDArray._trusted(g.indices()[0], g.values().to(dtype),
+                                     g.shape)
+
+
 def _flush_grad(h, g: torch.Tensor):
     """Write a backward result into a variable's ``.grad``, honouring
-    grad_req ``add``."""
+    grad_req ``add``. A row-sparse gradient stays row-sparse (added to a
+    row-sparse ``.grad`` it stays so; to a dense one it densifies); a
+    dense one replaces a row-sparse ``.grad``, as in the JAX package."""
     from .ndarray.ndarray import NDArray
+    from .ndarray import sparse
+    dense_grad = h._grad is not None and h._grad.stype == "default"
+    if g.is_sparse:
+        rsp = _row_sparse(g, h._data.dtype)
+        if h._grad_req == "add" and h._grad is not None:
+            if isinstance(h._grad, sparse.RowSparseNDArray):
+                h._grad = sparse.add(h._grad, rsp)
+            else:
+                h._grad._set_data(h._grad._data + rsp._dense())
+            return
+        h._grad = rsp
+        return
     g = g.detach().to(h._data.dtype)
-    if h._grad is None:
+    if not dense_grad:
         h._grad = NDArray(torch.zeros_like(g))
-    if h._grad_req == "add":
+        h._grad._set_data(g)
+    elif h._grad_req == "add":
         h._grad._set_data(h._grad._data + g)
     else:
         h._grad._set_data(g)
@@ -366,6 +391,8 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     for v, g in zip(variables, grads):
         if g is None:
             results.append(NDArray(torch.zeros_like(v.data.detach())))
+        elif g.is_sparse:
+            results.append(_row_sparse(g, v.data.dtype))
         elif create_graph and g.requires_grad:
             out = NDArray(g)
             out._epoch = st.epoch

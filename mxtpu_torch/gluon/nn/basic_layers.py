@@ -43,7 +43,8 @@ from ..block import Block, HybridBlock, in_nd_call
 __all__ = ["Sequential", "HybridSequential", "Dense", "Activation",
            "LeakyReLU", "PReLU", "ELU", "SELU", "GELU", "Swish", "Dropout",
            "Flatten", "Lambda", "HybridLambda", "Embedding", "BatchNorm",
-           "LayerNorm", "InstanceNorm", "frozen_running_stats"]
+           "LayerNorm", "InstanceNorm", "frozen_running_stats",
+           "dense_grads"]
 
 _stats = threading.local()
 
@@ -58,6 +59,18 @@ def frozen_running_stats():
         yield
     finally:
         _stats.frozen = prev
+
+
+@contextmanager
+def dense_grads():
+    """``Embedding(sparse_grad=True)`` layers give dense gradients on this
+    thread (a training step whose program takes dense gradients)."""
+    prev = getattr(_stats, "dense_grads", False)
+    _stats.dense_grads = True
+    try:
+        yield
+    finally:
+        _stats.dense_grads = prev
 
 
 class _Layer(HybridBlock):
@@ -288,24 +301,34 @@ class HybridLambda(HybridBlock):
 
 
 class Embedding(_Layer):
-    """Token lookup into an ``(input_dim, output_dim)`` table."""
+    """Token lookup into an ``(input_dim, output_dim)`` table.
+
+    ``sparse_grad=True``: called with NDArrays under ``autograd.record()``,
+    the lookup is ``F.embedding(..., sparse=True)``, so the table's
+    ``grad()`` is a ``RowSparseNDArray`` over the batch's unique ids
+    (``autograd._flush_grad`` merges torch's repeated rows) and the
+    optimizers update only those rows. Otherwise, and inside
+    :func:`dense_grads` (the captured training steps enter it), the
+    gradient is dense, as the JAX package's is inside a trace."""
 
     def __init__(self, input_dim: int, output_dim: int, dtype="float32",
                  weight_initializer=None, sparse_grad: bool = False,
                  prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
-        if sparse_grad:
-            raise NotImplementedError(
-                "Embedding(sparse_grad=True) needs row-sparse gradients "
-                "(ndarray/sparse.py), which are not ported yet")
         self._input_dim, self._output_dim = input_dim, output_dim
         with self.name_scope():
             self.weight = self.params.get(
                 "weight", shape=(input_dim, output_dim), dtype=dtype,
-                init=weight_initializer)
+                init=weight_initializer,
+                grad_stype="row_sparse" if sparse_grad else "default")
 
     def forward(self, tokens):
-        return self._ready("weight")[tokens.long()]
+        w = self._ready("weight")
+        if self._gparam("weight").grad_stype == "row_sparse" \
+                and in_nd_call() and torch.is_grad_enabled() \
+                and not getattr(_stats, "dense_grads", False):
+            return F.embedding(tokens.long(), w, sparse=True)
+        return w[tokens.long()]
 
 
 class BatchNorm(_Layer):

@@ -14,7 +14,9 @@ owning block's attribute, so ``state_dict()``, ``named_parameters()`` and
 it (``set_data``, an optimizer's update, a kvstore ``pull``, ``[:] =``)
 lands in place, so the torch module, a captured CUDA graph and the Gluon
 side always read the same memory. ``grad()`` is the handle's gradient,
-which ``autograd.backward`` fills for a recorded forward.
+which ``autograd.backward`` fills for a recorded forward: a
+``RowSparseNDArray`` over the batch's rows for the table of an
+``Embedding(sparse_grad=True)`` (``grad_stype="row_sparse"``).
 
 Files are the npz of ``nd.save``/``nd.load``; a ``.params`` file written by
 either package loads in the other.
@@ -84,6 +86,9 @@ class Parameter:
         self.differentiable = differentiable
         self._grad_req = grad_req if differentiable else "null"
         self.stype = stype
+        # "row_sparse": a layer may write a row-sparse gradient
+        # (``Embedding(sparse_grad=True)``)
+        self.grad_stype = grad_stype
         self._data: Optional[_ParamArray] = None
         self._deferred_init: Optional[tuple] = None   # (init, device)
         self._owners: List[Tuple[torch.nn.Module, str]] = []
@@ -259,10 +264,17 @@ class Parameter:
         self._from_seed = False
 
     def zero_grad(self):
+        """A dense gradient becomes zeros; a row-sparse one an empty
+        row-sparse array."""
         if self._data is None or self._data._grad is None:
             return
         g = self._data._grad
-        g._set_data(torch.zeros_like(g.data))
+        if g.stype == "row_sparse":
+            from ..ndarray import sparse
+            self._data._grad = sparse.zeros("row_sparse", g.shape,
+                                            ctx=g.context, dtype=g.dtype)
+        else:
+            g._set_data(torch.zeros_like(g.data))
 
     def reset_ctx(self, ctx):
         """Move the parameter to ``ctx`` (one device)."""

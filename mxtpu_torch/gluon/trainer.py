@@ -16,8 +16,10 @@ takes one of the JAX package's two paths:
   and builds count under ``trainer_update`` in ``step_cache.snapshot()``.
 * the per-parameter path: eager ``Optimizer.update`` for each parameter,
   taken where the JAX package takes it: ``engine.bulk_size() == 0``,
-  ``multi_precision``, a parameter without a gradient, an update on the
-  kvstore, or an optimizer that draws its own update (SGLD).
+  ``multi_precision``, a parameter without a gradient or with a
+  row-sparse one (``Embedding(sparse_grad=True)``: its lazy update stays
+  eager and outside every CUDA graph), an update on the kvstore, or an
+  optimizer that draws its own update (SGLD).
 
 A states file (a pickle of numpy arrays, the update counts and
 ``num_update``) written by either package loads in the other.
@@ -166,7 +168,11 @@ class Trainer:
         opt = self._optimizer
         if getattr(opt, "multi_precision", False) or not opt.bulk:
             return False
+        # a stale (absent) or row-sparse gradient takes the per-parameter
+        # path: the lazy update's rows depend on the batch, which a
+        # captured program's fixed shapes cannot follow
         return all(p._data is not None and p._data._grad is not None
+                   and p._data._grad.stype == "default"
                    for p in self._params)
 
     def _bulk_update(self):

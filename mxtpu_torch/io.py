@@ -1,14 +1,15 @@
 """Data iterators: ``DataDesc``, ``DataBatch``, the ``DataIter`` base
 (which :class:`~mxtpu_torch.device_feed.DeviceFeed` extends),
 ``NDArrayIter``, ``CSVIter``, ``MNISTIter``, ``ResizeIter``,
-``PrefetchingIter`` and ``ImageRecordIter``.
+``PrefetchingIter``, ``LibSVMIter`` and ``ImageRecordIter``.
 
 Port of ``mxtpu/io.py``. The host pipeline is numpy and threads: a batch
 is a set of NDArrays over CPU tensors, and the device boundary is the
 consumer's (``Module.fit`` stages batches on its device through a
 ``DeviceFeed``; ``Module.forward`` copies a host batch there;
 ``ImageRecordIter(ctx=...)`` returns the ``DeviceFeed`` itself).
-``LibSVMIter`` yields CSR batches and waits for the sparse NDArray.
+``LibSVMIter`` yields host CSR batches (``ndarray/sparse.py``), which
+``CSRNDArray.as_in_context`` stages.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ import numpy as np
 import torch
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "CSVIter",
-           "MNISTIter", "ResizeIter", "PrefetchingIter", "ImageRecordIter"]
+           "MNISTIter", "ResizeIter", "PrefetchingIter", "LibSVMIter",
+           "ImageRecordIter"]
 
 DataDesc = namedtuple("DataDesc", ["name", "shape", "dtype", "layout"])
 DataDesc.__new__.__defaults__ = (np.float32, "NCHW")
@@ -397,6 +399,124 @@ class PrefetchingIter(DataIter):
     @property
     def provide_label(self):
         return self.iter.provide_label
+
+
+class LibSVMIter(DataIter):
+    """LibSVM text (``label idx:val idx:val ...``, 0-based indices) as CSR
+    batches of ``(batch_size, data_shape)`` (the reference's
+    ``iter_libsvm.cc``). ``label_libsvm`` reads the labels from a second
+    file, one row a line: plain values, or ``idx:val`` entries of a row of
+    ``label_shape``. ``round_batch`` pads the last batch by repeating its
+    last row (``pad`` says how many), else drops it. The file is parsed
+    once, into one CSR over all its rows; a batch is a slice of it, on
+    the host."""
+
+    def __init__(self, data_libsvm: str, data_shape, batch_size: int = 1,
+                 label_libsvm: Optional[str] = None, label_shape=(1,),
+                 round_batch: bool = True):
+        super().__init__(batch_size)
+        self._num_features = int(data_shape[0] if isinstance(
+            data_shape, (tuple, list)) else data_shape)
+        self._labels, self._indptr, self._cols, self._vals = \
+            self._parse(data_libsvm)
+        if label_libsvm:
+            self._labels = self._parse_labels(label_libsvm, label_shape)
+        self._round = round_batch
+        if self._cols.size and int(self._cols.max()) >= self._num_features:
+            raise ValueError(
+                f"libsvm feature index {int(self._cols.max())} >= "
+                f"data_shape {self._num_features}")
+        self.reset()
+
+    @staticmethod
+    def _parse(path):
+        """(labels, indptr, columns, values) of every non-empty line: the
+        features of all lines parsed in one pass of numpy's C parser."""
+        with open(path) as f:
+            parts = [ln.split(None, 1) for ln in f.read().splitlines()
+                     if ln.strip()]
+        labels = np.array([p[0] for p in parts], np.float64) \
+            .astype(np.float32)
+        rest = [p[1] if len(p) > 1 else "" for p in parts]
+        counts = np.array([r.count(":") for r in rest], np.int64)
+        n = int(counts.sum())
+        pairs = np.fromstring(" ".join(rest).replace(":", " "),
+                              dtype=np.float64, sep=" ") if n \
+            else np.zeros(0)
+        if pairs.size != 2 * n:
+            raise ValueError(f"{path}: a feature is not 'index:value'")
+        pairs = pairs.reshape(-1, 2)
+        indptr = np.concatenate([[0], np.cumsum(counts)])
+        return (labels, indptr, pairs[:, 0].astype(np.int64),
+                pairs[:, 1].astype(np.float32))
+
+    @staticmethod
+    def _parse_labels(path, label_shape):
+        width = int(label_shape[0] if isinstance(label_shape, (tuple, list))
+                    else label_shape)
+        out = []
+        with open(path) as f:
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    continue
+                row = np.zeros((width,), np.float32)
+                if any(":" in t for t in parts):
+                    for t in parts:
+                        if ":" in t:
+                            i, v = t.split(":")
+                            row[int(i)] = float(v)
+                else:
+                    vals = [float(t) for t in parts]
+                    row[:len(vals)] = vals
+                out.append(row)
+        dense = np.asarray(out, np.float32)
+        return dense[:, 0] if width == 1 else dense
+
+    def reset(self):
+        self._cursor = 0
+
+    @property
+    def num_rows(self) -> int:
+        return len(self._indptr) - 1
+
+    @property
+    def provide_data(self):
+        return [DataDesc("data", (self.batch_size, self._num_features))]
+
+    @property
+    def provide_label(self):
+        lab = np.asarray(self._labels)
+        shape = (self.batch_size,) if lab.ndim == 1 else \
+            (self.batch_size,) + lab.shape[1:]
+        return [DataDesc("softmax_label", shape)]
+
+    def next(self) -> DataBatch:
+        from .context import cpu
+        from .ndarray.ndarray import NDArray
+        from .ndarray.sparse import csr_matrix
+        n = self.num_rows
+        if self._cursor >= n:
+            raise StopIteration
+        stop = min(self._cursor + self.batch_size, n)
+        pad = self.batch_size - (stop - self._cursor)
+        if pad and not self._round:
+            raise StopIteration
+        ptr = self._indptr
+        last = np.arange(ptr[stop - 1], ptr[stop])
+        take = np.concatenate([np.arange(ptr[self._cursor], ptr[stop]),
+                               np.tile(last, pad)])
+        counts = np.diff(ptr[self._cursor:stop + 1])
+        indptr = np.concatenate([[0], np.cumsum(np.concatenate(
+            [counts, np.full(pad, len(last))]))])
+        data = csr_matrix((self._vals[take], self._cols[take], indptr),
+                          shape=(self.batch_size, self._num_features),
+                          ctx=cpu())
+        rows = np.concatenate([np.arange(self._cursor, stop),
+                               np.full(pad, stop - 1)])
+        label = NDArray(np.asarray(self._labels[rows]), ctx=cpu())
+        self._cursor += self.batch_size
+        return DataBatch(data=[data], label=[label], pad=pad)
 
 
 def ImageRecordIter(path_imgrec: str, data_shape, batch_size: int,

@@ -11,8 +11,15 @@ wire: ``2bit`` to int8 codes in {-1, 0, 1} (decoded as codes x threshold),
 ``fp16``/``bf16`` to half-width values; the encoding error stays in the
 key's residual and enters its next push.
 
-The ``dist*`` types need ``parallel/collectives.py`` and
-``row_sparse_pull`` needs ``ndarray/sparse.py``; neither is ported.
+Row-sparse values (``ndarray/sparse.py``): a pushed list is summed with
+``sparse.add`` and handed to the updater still row-sparse, so a lazy
+update touches only its rows (without an updater the store takes the sum
+densified: rows nobody pushed become zero); ``row_sparse_pull`` copies
+only the requested rows (``row_ids``, duplicates dropped) into a
+row-sparse ``out`` or into those rows of a dense one.
+
+The ``dist*`` types need ``parallel/collectives.py``, which is not
+ported.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from . import optimizer as opt_mod
+from .ndarray import sparse
 from .ndarray.ndarray import NDArray
 
 __all__ = ["KVStore", "create"]
@@ -73,6 +81,9 @@ class KVStore:
         """Sum each key's pushed list; compress it when compression is set;
         apply the updater, else store the sum."""
         for k, vlist in zip(*self._normalize_push(key, value)):
+            if any(v.stype == "row_sparse" for v in vlist):
+                self._push_row_sparse(k, vlist)
+                continue
             red = vlist[0].data.detach()
             for v in vlist[1:]:
                 red = red + v.data.detach()
@@ -96,10 +107,40 @@ class KVStore:
         self.push(key, value, priority)
         self.pull(key, out if out is not None else value, priority)
 
+    def _push_row_sparse(self, k, vlist):
+        red = vlist[0]
+        for v in vlist[1:]:
+            red = sparse.add(red, v)
+        if self._updater is not None:
+            self._updater(k, red, self._store[k])
+        else:
+            store = self._store[k]
+            self._store[k] = NDArray(red._dense().to(store.data.dtype))
+
     def row_sparse_pull(self, key, out=None, priority: int = 0,
                         row_ids=None):
-        raise NotImplementedError(
-            "row_sparse_pull needs ndarray/sparse.py, which is not ported")
+        """Pull only the rows ``row_ids`` (duplicates dropped, sorted):
+        into a row-sparse ``out`` as its rows, or into those rows of a
+        dense ``out``. Without ``row_ids``, a plain ``pull``."""
+        if row_ids is None:
+            return self.pull(key, out, priority)
+        keys, outs = self._normalize_push(key, out)
+        rids = row_ids if isinstance(row_ids, (list, tuple)) \
+            else [row_ids] * len(outs[0])
+        for k, olist in zip(keys, outs):
+            src = self._store[k].data
+            for o, rid in zip(olist, rids):
+                rows = torch.unique(sparse._ids(rid, src.device).reshape(-1))
+                got = src[rows]
+                if o.stype == "row_sparse":
+                    dev = o._values.device
+                    o._indices = rows.to(dev)
+                    o._values = got.to(dev, o._values.dtype)
+                    o._rows_trusted_unique = True
+                else:
+                    dst = o.data.detach()
+                    o._set_data(dst.index_copy(0, rows.to(dst.device),
+                                               got.to(dst.device, dst.dtype)))
 
     # -- updater / optimizer ------------------------------------------------
     def set_optimizer(self, optimizer):

@@ -1,10 +1,12 @@
 """``mx.nd``-equivalent namespace, generated from the op registry.
 
 Port of ``mxtpu/ndarray/__init__.py``: one wrapper per registered op name,
-with the sub-namespaces ``nd.random``, ``nd.image`` and ``nd.contrib``
-(which also holds the control flow: ``foreach``, ``while_loop``,
-``cond``). A wrapper's ``ctx=`` runs the op in that context (creation and
-random ops land there) and moves a result made elsewhere onto it.
+with the sub-namespaces ``nd.random``, ``nd.image``, ``nd.linalg`` and
+``nd.contrib`` (which also holds the control flow: ``foreach``,
+``while_loop``, ``cond``), and ``nd.sparse`` (row_sparse and csr storage,
+``ndarray/sparse.py``) with ``nd.cast_storage`` and ``nd.sparse_retain``.
+A wrapper's ``ctx=`` runs the op in that context (creation and random
+ops land there) and moves a result made elsewhere onto it.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from ..ops import attention as _attention  # noqa: F401
 from ..ops import elementwise as _elementwise  # noqa: F401
 from ..ops import image_ops as _image_ops  # noqa: F401
 from ..ops import init_ops as _init_ops  # noqa: F401
+from ..ops import linalg as _linalg  # noqa: F401
 from ..ops import matrix as _matrix  # noqa: F401
 from ..ops import nn as _nn  # noqa: F401
 from ..ops import optimizer_ops as _optimizer_ops  # noqa: F401
@@ -30,7 +33,8 @@ from .ndarray import (NDArray, array, concatenate, empty, from_dlpack,
                       from_numpy, load, save, to_dlpack, waitall)
 
 __all__ = ["NDArray", "array", "concatenate", "empty", "from_dlpack",
-           "from_numpy", "load", "save", "to_dlpack", "waitall", "moveaxis"]
+           "from_numpy", "load", "save", "to_dlpack", "waitall", "moveaxis",
+           "sparse", "cast_storage", "sparse_retain"]
 
 _this = sys.modules[__name__]
 
@@ -78,6 +82,20 @@ _fused_opt.install(_this)
 
 def moveaxis(a, source, destination):
     return NDArray(a.data.movedim(source, destination))
+
+
+from . import sparse  # noqa: E402
+
+
+def cast_storage(arr, stype: str):
+    """Convert between default, row_sparse and csr storage (the
+    ``cast_storage`` op)."""
+    return sparse.cast_storage(arr, stype)
+
+
+def sparse_retain(data, indices):
+    """Only the requested rows of a row_sparse array (``_sparse_retain``)."""
+    return sparse.retain(data, indices)
 
 
 # control flow lives under nd.contrib (reference: mxnet.ndarray.contrib)

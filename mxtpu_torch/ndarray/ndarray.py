@@ -147,13 +147,10 @@ class NDArray:
         return "default"
 
     def tostype(self, stype: str):
-        """Storage conversion (``NDArray.tostype``): only ``'default'``;
-        row_sparse and csr storage wait with ``ndarray/sparse.py``."""
-        if stype != "default":
-            raise NotImplementedError(
-                f"stype {stype!r}: sparse storage is not ported yet "
-                "(ndarray/sparse.py)")
-        return self
+        """Storage conversion (``NDArray.tostype``): ``'default'``,
+        ``'row_sparse'`` or ``'csr'`` (``ndarray/sparse.py``)."""
+        from . import sparse
+        return sparse.cast_storage(self, stype)
 
     # -- sync -------------------------------------------------------------
     def wait_to_read(self):
@@ -210,8 +207,16 @@ class NDArray:
 
     # -- autograd ---------------------------------------------------------
     def attach_grad(self, grad_req: str = "write", stype=None):
+        """Mark as a variable; ``stype='row_sparse'`` (or ``'csr'``) makes
+        ``.grad`` an empty array of that storage until a backward writes
+        it (a row-sparse gradient stays row-sparse, a dense one replaces
+        it, as in the JAX package)."""
         from .. import autograd
         autograd._mark_variable(self, grad_req)
+        if stype not in (None, "default"):
+            from . import sparse
+            self._grad = sparse.zeros(stype, self.shape, ctx=self.context,
+                                      dtype=self.dtype)
 
     @property
     def grad(self) -> Optional["NDArray"]:
@@ -612,22 +617,42 @@ def waitall():
 
 # ---------------------------------------------------------------------------
 # serialization: the JAX package's npz container (``mxtpu/ndarray/
-# ndarray.py:590-680``), names and the list/dict marker kept. The
-# reference's legacy binary and sparse entries wait with ``legacy_io.py``
-# and ``sparse.py``.
+# ndarray.py:560-690``), names, the list/dict marker and sparse entries
+# (``<name>::rsp::<comp>``, ``<name>::csr::<comp>``) kept, and the
+# reference's binary (``legacy_io.py``).
 # ---------------------------------------------------------------------------
 
 _SAVE_FORMAT_KEY = "__mxtpu_format__"  # reserved npz entry: b"list" | b"dict"
-_LEGACY_MAGIC = 0x112                  # dmlc list magic of the legacy binary
+
+
+def _encode_entry(payload, key, v):
+    """One array into the npz payload; a sparse one by component."""
+    stype = getattr(v, "stype", "default")
+    if stype == "row_sparse":
+        payload[f"{key}::rsp::indices"] = v.indices.asnumpy()
+        payload[f"{key}::rsp::values"] = v.data.asnumpy()
+        payload[f"{key}::rsp::shape"] = np.asarray(v.shape, np.int64)
+    elif stype == "csr":
+        payload[f"{key}::csr::data"] = v.data.asnumpy()
+        payload[f"{key}::csr::indices"] = v.indices.asnumpy()
+        payload[f"{key}::csr::indptr"] = v.indptr.asnumpy()
+        payload[f"{key}::csr::shape"] = np.asarray(v.shape, np.int64)
+    else:
+        payload[key] = v.asnumpy()
 
 
 def save(fname: str, data, fmt: str = "npz"):
-    """Save an NDArray, a list, or a dict of name -> NDArray (``mx.nd.save``)
-    in the npz container, with an explicit list/dict marker."""
+    """Save an NDArray (dense or sparse), a list, or a dict of name ->
+    NDArray (``mx.nd.save``). ``fmt='npz'`` writes the npz container with
+    an explicit list/dict marker; ``fmt='reference'`` the reference's
+    NDARRAY_V2 binary (``legacy_io.py``). Either write is atomic."""
+    if fmt == "reference":
+        from . import legacy_io
+        atomic_io.atomic_write_bytes(fname, legacy_io.save_bytes(data))
+        return
     if fmt != "npz":
-        raise NotImplementedError(
-            f"save format {fmt!r}: only 'npz' is ported; the reference "
-            "binary waits with ndarray/legacy_io.py")
+        raise ValueError(f"unknown save format {fmt!r}: use 'npz' or "
+                         "'reference'")
     payload = {}
     if isinstance(data, dict):
         if _SAVE_FORMAT_KEY in data:
@@ -639,14 +664,14 @@ def save(fname: str, data, fmt: str = "npz"):
                     f"key {k!r} matches the reserved '<name>::rsp/csr::<comp>' "
                     "sparse-component pattern")
         for k, v in data.items():
-            payload[k] = v.asnumpy()
+            _encode_entry(payload, k, v)
         kind = "dict"
     elif isinstance(data, (list, tuple)):
         for i, v in enumerate(data):
-            payload[f"arr_{i}"] = v.asnumpy()
+            _encode_entry(payload, f"arr_{i}", v)
         kind = "list"
     elif hasattr(data, "asnumpy"):
-        payload["arr_0"] = data.asnumpy()
+        _encode_entry(payload, "arr_0", data)
         kind = "list"
     else:
         raise TypeError(f"cannot save {type(data)}")
@@ -662,15 +687,40 @@ def _from_npz(arr: np.ndarray) -> np.ndarray:
     return arr
 
 
+def _decode_entries(z, keys):
+    """The logical entries of an npz file: dense ones, and sparse ones
+    reassembled from their components."""
+    from . import sparse
+    out, parts_of = {}, {}
+    for k in keys:
+        parts = k.rsplit("::", 2)   # user keys may themselves hold '::'
+        if len(parts) == 3 and parts[1] in ("rsp", "csr"):
+            name, stype, comp = parts
+            parts_of.setdefault((name, stype), {})[comp] = _from_npz(z[k])
+        else:
+            out[k] = NDArray(_from_npz(z[k]))
+    for (name, stype), c in parts_of.items():
+        shape = tuple(int(s) for s in c["shape"])
+        if stype == "rsp":
+            out[name] = sparse.RowSparseNDArray(c["indices"], c["values"],
+                                                shape)
+        else:
+            out[name] = sparse.CSRNDArray(c["data"], c["indices"],
+                                          c["indptr"], shape)
+    return out
+
+
 def load(fname: str):
     """Load a file written by ``save`` (or by ``mxtpu.nd.save``): a dict if
-    it was named, else a list."""
+    it was named, else a list; sparse entries come back sparse. A file
+    that starts with the reference's list magic is read as its
+    NDARRAY_V1/V2 binary (``legacy_io.py``)."""
+    from . import legacy_io
     with open(fname, "rb") as f:
         head = f.read(8)
-    if len(head) == 8 and int.from_bytes(head, "little") == _LEGACY_MAGIC:
-        raise NotImplementedError(
-            f"{fname}: the reference's legacy binary format is not ported "
-            "yet (ndarray/legacy_io.py)")
+    if legacy_io.is_reference_file(head):
+        with open(fname, "rb") as f:
+            return legacy_io.load_bytes(f.read())
     with open(fname, "rb") as f:
         with np.load(f, allow_pickle=False) as z:
             keys = [k for k in z.keys() if k != _SAVE_FORMAT_KEY]
@@ -679,13 +729,7 @@ def load(fname: str):
             else:  # pre-marker files: the key-name heuristic
                 kind = "list" if all(k.startswith("arr_") for k in keys) \
                     else "dict"
-            for k in keys:
-                parts = k.rsplit("::", 2)
-                if len(parts) == 3 and parts[1] in ("rsp", "csr"):
-                    raise NotImplementedError(
-                        f"{fname}: entry {k!r} is sparse; sparse storage is "
-                        "not ported yet (ndarray/sparse.py)")
-            entries = {k: NDArray(_from_npz(z[k])) for k in keys}
+            entries = _decode_entries(z, keys)
     if kind == "list":
         return [entries[f"arr_{i}"] for i in range(len(entries))]
     return entries

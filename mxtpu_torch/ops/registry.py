@@ -6,7 +6,7 @@ arguments (strings, numbers, tuples: the reference's attr conventions).
 Gradients come from ``torch.autograd`` through the op's tensor code; ops
 whose gradient is not the derivative of their forward (the loss heads)
 are ``torch.autograd.Function``s. Namespaces: ``""`` (``nd``), ``contrib``,
-``random`` and ``image``.
+``random``, ``image`` and ``linalg``.
 
 ``invoke`` is the imperative entry point: it unwraps ``NDArray`` inputs,
 runs the op with torch's gradient recording on only inside
@@ -51,7 +51,7 @@ class OpDef:
 _OPS: Dict[str, OpDef] = {}
 
 # the op sub-namespaces ``nd`` exposes
-OP_NAMESPACES = ("random", "contrib", "image")
+OP_NAMESPACES = ("random", "contrib", "image", "linalg")
 
 
 def register(name: Optional[str] = None, *, num_outputs: int = 1,

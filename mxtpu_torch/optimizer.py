@@ -14,6 +14,8 @@ root and folds the bias correction into the learning rate.
 counts the update, takes this step's lr and wd (multipliers applied),
 rounds the step scalars to the weight's dtype, preprocesses the gradient
 (rescale, clip) and writes the kernel's weight into the ``weight`` handle.
+A row-sparse gradient takes the lazy update, which every optimizer
+inherits: ``_kernel`` on the gradient's rows only.
 Under ``multi_precision`` a bf16 or f16 weight keeps an f32 master copy as
 its first state (``create_state_multi_precision``): the kernel runs on the
 master at f32 and the weight is the master cast back.
@@ -41,6 +43,7 @@ import torch
 from . import rng
 from .base import Registry
 from .lr_scheduler import LRScheduler
+from .ndarray.sparse import lazy_rows
 
 __all__ = ["Optimizer", "SGD", "NAG", "Signum", "SGLD", "DCASGD", "Adam",
            "Adamax", "Nadam", "AdaGrad", "AdaDelta", "RMSProp", "Ftrl",
@@ -176,14 +179,18 @@ class Optimizer:
 
     def update(self, index, weight, grad, state: Tuple) -> Tuple:
         """One eager step of parameter ``index``: ``weight`` (an NDArray
-        handle) takes the new weight, the new state is returned."""
+        handle) takes the new weight, the new state is returned. A
+        row-sparse ``grad`` takes the lazy update
+        (:func:`sparse.lazy_rows`): the kernel runs on the gradient's rows
+        of the weight and of every weight-shaped state, so the other rows
+        keep weight and state bit for bit and weight decay does not reach
+        them."""
         self._update_count(index)
         # the update count enters the kernel as an f32 scalar, as the
         # reference's traced count does (beta^t is taken in f32)
         t = _f32(self._index_update_count[index]).to(weight.data.device)
         lr, wd = self._get_lr(index), self._get_wd(index)
         w = weight.data.detach()
-        g = grad.data.detach()
         master = self.multi_precision and bool(state) and w.dtype in _LOW
         if master:
             w_run, *rest = state
@@ -191,12 +198,19 @@ class Optimizer:
             w_run, rest = w, list(state)
         dt = w_run.dtype
         clip = self.clip_gradient
-        with torch.no_grad():
+
+        def step(w_rows, g, *s):
             gg = self._preprocess_grad(
                 g.to(dt), _as(self.rescale_grad, dt),
                 None if clip is None else _as(clip, dt))
-            out = self._kernel(w_run, gg, _as(lr, dt), _as(wd, dt), t, *rest)
-        new_w, *new_state = out if isinstance(out, tuple) else (out,)
+            return self._kernel(w_rows, gg, _as(lr, dt), _as(wd, dt), t, *s)
+
+        if getattr(grad, "stype", "default") == "row_sparse":
+            new_w, new_state = lazy_rows(step, w_run, grad, rest)
+        else:
+            with torch.no_grad():
+                out = step(w_run, grad.data.detach(), *rest)
+            new_w, *new_state = out if isinstance(out, tuple) else (out,)
         if master:
             weight._set_data(new_w.to(w.dtype))
             return (new_w, *new_state)
@@ -365,11 +379,15 @@ class SGLD(Optimizer):
     bulk = False
 
     def update(self, index, weight, grad, state):
+        """Every row moves (the noise reaches all of them): a row-sparse
+        gradient is densified, there is no lazy update."""
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
         w = weight.data.detach()
+        gt = grad._dense() if getattr(grad, "stype", "default") != \
+            "default" else grad.data.detach()
         with torch.no_grad():
-            g = self._preprocess_grad(grad.data.detach().to(w.dtype),
+            g = self._preprocess_grad(gt.to(w.dtype),
                                       self.rescale_grad,
                                       self.clip_gradient) + wd * w
             noise = math.sqrt(lr) * torch.randn(

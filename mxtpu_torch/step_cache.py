@@ -517,8 +517,10 @@ class StepExecutor:
     program's body copies nothing from the host: it reads the batch from
     static buffers and ``t``, lr, wd, rescale and clip from a float64
     device buffer, runs the block and the loss inside ``autograd.record()``
-    (the block's ``Dropout`` layers and the ``gluon.rnn`` layers draw from
-    device seeds derived from ``t``), takes the gradient of the summed
+    and ``basic_layers.dense_grads()`` (an ``Embedding(sparse_grad=True)``
+    takes a dense gradient in the program; the block's ``Dropout`` layers
+    and the ``gluon.rnn`` layers draw from device seeds derived from
+    ``t``), takes the gradient of the summed
     per-sample loss with ``torch.autograd.grad`` and updates every
     parameter in place through :class:`MultiTensorUpdate`. On the card
     the first step of a signature runs the body on a side stream (a real
@@ -596,6 +598,7 @@ class StepExecutor:
         from .gluon.loss import SoftmaxCrossEntropyLoss
         from .ndarray.ndarray import NDArray
         from .ops import attention
+        from .gluon.nn.basic_layers import dense_grads
         from .quant.train import quant_scope
         from .rng import sample_bits
         tr = self.trainer
@@ -613,7 +616,8 @@ class StepExecutor:
         grads = []
         for p, w in zip(handles, params):
             h = p._data
-            g = h._grad._data if h._grad is not None else None
+            g = h._grad._data if h._grad is not None and \
+                h._grad.stype == "default" else None
             if g is None or _tensor_sig(g) != _tensor_sig(w):
                 g = torch.zeros_like(w.detach())
             grads.append(g)
@@ -629,7 +633,8 @@ class StepExecutor:
             try:
                 # the quantized twins for every run of the body (the
                 # capture's too); its sites counted on the first run only
-                with quant_scope(quant_mode, record=not staged[0]):
+                with quant_scope(quant_mode, record=not staged[0]), \
+                        dense_grads():
                     with autograd.record(train_mode=True):
                         o = block(*[NDArray(x) for x in xs])
                         outs = list(o) if isinstance(o, (tuple, list)) \

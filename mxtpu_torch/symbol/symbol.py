@@ -100,16 +100,20 @@ def _op_attrs(node: _Node) -> dict:
 def _tensor_params(op) -> List[str]:
     """Which signature parameters of an op are tensor inputs (the fused
     RNN op's ``state_cell`` too, which the JAX package's symbol layer
-    takes for an attribute, so that its LSTM cannot bind)."""
+    takes for an attribute, so that its LSTM cannot bind). A parameter
+    with a number for its default is an attribute whatever its name
+    (``linalg.gemm``'s ``beta``, ``LRN``'s), where the JAX package's
+    symbol layer makes it an input that must be bound."""
     out = []
     for p in inspect.signature(op.fn).parameters.values():
         if p.kind == inspect.Parameter.VAR_POSITIONAL:
             out.append("*")
         elif p.kind == inspect.Parameter.POSITIONAL_OR_KEYWORD and (
                 p.default is inspect.Parameter.empty
-                or p.name in ("bias", "gamma", "beta", "moving_mean",
-                              "moving_var", "weight", "label",
-                              "state_cell")):
+                or (p.name in ("bias", "gamma", "beta", "moving_mean",
+                               "moving_var", "weight", "label",
+                               "state_cell")
+                    and not isinstance(p.default, (int, float)))):
             out.append(p.name)
     return out
 

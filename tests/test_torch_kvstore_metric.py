@@ -9,7 +9,9 @@ losses against the JAX package's, on the CPU.
 * Gradient compression: the ``2bit`` codes and the error-feedback residuals
   over three pushes exactly; ``fp16``/``bf16`` payloads and residuals
   exactly; an unknown kind refused; ``dist*`` types refused naming the
-  missing module.
+  missing module; ``row_sparse_pull`` into row-sparse and dense outputs
+  exactly (the sparse surface's own cases are in
+  ``tests/test_torch_sparse_train.py``).
 * Every metric of ``metric.py`` (cases of one test), through two updates
   of the same labels and predictions: the value within 1e-6 rel; the
   registry names, ``create`` from a list and from a function, and
@@ -138,12 +140,29 @@ def test_gradient_compression_codes_and_residuals_equal_jax(params):
 
 
 def test_kvstore_refusals():
+    """``dist*`` and an unknown compression are refused; ``row_sparse_pull``
+    (refused before the sparse storage was ported) reads the JAX package's
+    rows into a row-sparse and a dense ``out``."""
+    from mxtpu.ndarray import sparse as jsp
+    from mxtpu_torch.ndarray import sparse as tsp
     with pytest.raises(NotImplementedError, match="parallel/collectives"):
         tkv.create("dist_sync")
     with pytest.raises(ValueError, match="compression"):
         tkv.create("local").set_gradient_compression({"type": "4bit"})
-    with pytest.raises(NotImplementedError, match="sparse"):
-        tkv.create("local").row_sparse_pull(0, row_ids=[0])
+    w = np.arange(20, dtype=np.float32).reshape(10, 2)
+    got = []
+    for kvm, pnd, sp in ((jkv, jnd, jsp), (tkv, nd, tsp)):
+        kv = kvm.create("local")
+        kv.init(0, pnd.array(w))
+        rsp, dense = sp.zeros("row_sparse", (10, 2)), pnd.zeros((10, 2))
+        kv.row_sparse_pull(0, out=rsp, row_ids=pnd.array([7.0, 3.0, 7.0]))
+        kv.row_sparse_pull(0, out=dense, row_ids=pnd.array([1.0, 4.0]))
+        got.append((rsp.indices.asnumpy(), rsp.data.asnumpy(),
+                    dense.asnumpy()))
+    for a, b in zip(*got):
+        np.testing.assert_array_equal(b, a)
+        assert b.dtype == a.dtype
+    np.testing.assert_array_equal(got[1][0], [3, 7])
 
 
 def _metric_cases():

@@ -235,8 +235,13 @@ def test_scalars_protocol_and_copyto():
     moved = t.copyto(mxtpu_torch.cpu())
     assert moved.context == t.context and moved.data is not t.data
     assert t.as_in_context(mxtpu_torch.Context("cpu")).shape == (1, 1)
-    with pytest.raises(NotImplementedError, match="sparse"):
-        t.tostype("csr")
+    # sparse storage: the JAX package's csr of the same array
+    dense = np.array([[0.0, 1.5, 0.0], [2.0, 0.0, -3.0]], np.float32)
+    tc, jc = nd.array(dense).tostype("csr"), jnd.array(dense).tostype("csr")
+    assert tc.stype == jc.stype == "csr"
+    for part in ("data", "indices", "indptr"):
+        _same(getattr(jc, part), getattr(tc, part), exact=True)
+    np.testing.assert_array_equal(tc.asnumpy(), dense)
 
 
 def test_dlpack_round_trip():
@@ -279,10 +284,18 @@ def test_save_load_across_packages(tmp_path, kind):
 
 
 def test_load_refuses_the_legacy_binary(tmp_path):
+    """Named for the refusal it replaced: the port now reads the JAX
+    package's reference-format file (``legacy_io.py``) and gets its
+    arrays back; every dtype and the sparse entries are in
+    ``tests/test_torch_legacy_io.py``."""
     path = str(tmp_path / "legacy.params")
-    jnd.save(path, [jnd.array([1.0])], fmt="reference")
-    with pytest.raises(NotImplementedError, match="legacy"):
-        nd.load(path)
+    src = [np.array([1.0], np.float32), np.arange(6, dtype=np.int32)]
+    jnd.save(path, [jnd.array(a) for a in src], fmt="reference")
+    got = nd.load(path)
+    assert isinstance(got, list) and len(got) == len(src)
+    for g, a in zip(got, src):
+        np.testing.assert_array_equal(g.asnumpy(), a)
+        assert g.dtype == a.dtype
 
 
 # ---------------------------------------------------------------------------

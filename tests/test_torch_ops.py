@@ -55,10 +55,11 @@ SLICE_MODULES = ("elementwise", "reduce", "matrix", "init_ops", "random",
 # parallel/collectives)
 WAITING = {"contrib.SyncBatchNorm", "contrib._contrib_SyncBatchNorm"}
 # every module whose ops the port registers: the slice's, the ``nd.image``
-# ops, held to the JAX package in tests/test_torch_image.py, and the
-# detection slice's, held to it in tests/test_torch_detection.py
+# ops, held to the JAX package in tests/test_torch_image.py, the detection
+# slice's, held to it in tests/test_torch_detection.py, and ``linalg``,
+# held to it in tests/test_torch_linalg.py
 REGISTERED_MODULES = SLICE_MODULES + ("image_ops", "order", "contrib_ops",
-                                      "detection", "spatial")
+                                      "detection", "spatial", "linalg")
 
 
 @pytest.fixture(autouse=True)
@@ -537,7 +538,7 @@ def test_registry_lists_the_slice():
     modules (and their aliases), less those that wait."""
     names = _slice_names(REGISTERED_MODULES)
     assert sorted(treg.list_ops()) == sorted(names)
-    for ns in ("random", "contrib", "image"):
+    for ns in ("random", "contrib", "image", "linalg"):
         assert treg.list_ops(ns) == sorted(
             k[len(ns) + 1:] for k in names if k.startswith(ns + "."))
 

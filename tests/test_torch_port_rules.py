@@ -11,7 +11,9 @@
   with no ``context`` or a ``DataParallelTrainer`` with no ``device`` over
   a ``get_model`` net, an ``ImageRecordIter`` that stages to the card
   (``device_feed=True`` or a CUDA ``ctx``) or a ``DataLoader`` with a
-  CUDA ``ctx`` raises instead of running on the CPU.
+  CUDA ``ctx`` raises instead of running on the CPU; so do the sparse
+  constructors (``row_sparse_array``, ``csr_matrix``, ``sparse.zeros``)
+  with no ``ctx``.
 * Each ported module with a counterpart in the JAX package lies at the
   counterpart's path.
 """
@@ -78,7 +80,8 @@ def test_no_jax_or_mxtpu_imports(path):
     "gluon/data/dataset.py", "gluon/data/dataloader.py",
     "gluon/data/vision/__init__.py", "gluon/data/vision/datasets.py",
     "gluon/data/vision/transforms.py", "ops/order.py", "ops/contrib_ops.py",
-    "ops/detection.py", "ops/spatial.py", "image/detection.py"])
+    "ops/detection.py", "ops/spatial.py", "image/detection.py",
+    "ndarray/sparse.py", "ndarray/legacy_io.py", "ops/linalg.py"])
 def test_the_counterparts_are_checked(module):
     """Each module that has a counterpart in the JAX package lies where
     its counterpart does, and the import rule above reads it."""
@@ -140,6 +143,30 @@ def test_entry_points_refuse_the_cpu_without_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DataParallelTrainer(get_model("resnet50_v1"),
                             gluon.loss.SoftmaxCrossEntropyLoss(), Adam())
+
+
+def test_sparse_constructors_refuse_the_cpu_without_cuda():
+    """``row_sparse_array``, ``csr_matrix`` and ``sparse.zeros`` with no
+    ``ctx`` put their arrays on the card, as ``nd.array`` does."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: no ctx is the card")
+    import numpy as np
+    import scipy.sparse as sps
+    from mxtpu_torch.ndarray import sparse
+    dense = np.eye(3, dtype=np.float32)
+    calls = [
+        lambda: sparse.row_sparse_array((np.ones((1, 3), np.float32), [1]),
+                                        shape=(4, 3)),
+        lambda: sparse.row_sparse_array(dense),
+        lambda: sparse.csr_matrix(dense),
+        lambda: sparse.csr_matrix(sps.csr_matrix(dense)),
+        lambda: sparse.csr_matrix((np.ones(1), [0], [0, 1, 1]), shape=(2, 3)),
+        lambda: sparse.zeros("row_sparse", (4, 3)),
+        lambda: sparse.zeros("csr", (4, 3)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
 
 
 def test_the_data_path_refuses_the_cpu_without_cuda(tmp_path):
